@@ -28,3 +28,8 @@ def expects(condition: bool, message: str = "precondition violated") -> None:
 def fail(message: str = "") -> None:
     """``RAFT_FAIL``: unconditional :class:`LogicError`."""
     raise LogicError(message)
+
+
+class CorruptionError(RaftError):
+    """A stored artifact failed its integrity check (truncated or
+    corrupted archive, checksum mismatch)."""

@@ -8,6 +8,12 @@ raises.  The only narrowing is the JAX package's own support predicate:
 the L2 metric family for ``"l2nn"`` (an explicit ``"cuda"`` outside it
 raises; the default resolves to ``"torch"``), and ``select_k``'s
 ``supports(k, n, dtype)``, which its callers apply per call shape.
+
+``"pq_lut"`` (kernel B4) is not narrowed.  The TPU kernel's limit of a
+4,096-wide LUT row (its one-hot block has to fit VMEM) does not apply on
+Hopper: B4 builds no one-hot, gathers from the LUT row staged in shared
+memory (64 KB for the default pq_dim 64 × 2^8 float32), and stages a row
+larger than one block's shared memory in chunks of subspaces.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 
 from raft_tpu_torch.distance.distance_types import L2_METRICS
 
-KINDS = ("l2nn", "select_k")
+KINDS = ("l2nn", "select_k", "pq_lut")
 ENGINES = ("torch", "cuda")
 
 

@@ -28,13 +28,13 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "raft_tpu_torch_kernels")
-SOURCES = ("fused_l2nn", "select_k")
+SOURCES = ("fused_l2nn", "select_k", "ivf_pq_lut")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"fused_l2_nn": 0, "fused_l2_nn_partials": 0,
-                            "select_k": 0}
+                            "select_k": 0, "lut_score": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -119,6 +119,12 @@ _SIGNATURES = {
     "select_k": {
         # x, rows, n, k, select_min, pos, stream
         "raft_select_k": [_P, _I, _I, _I, _I, _P, _P],
+    },
+    "ivf_pq_lut": {
+        # codes, rows, lut, out, nq, n_rows, cap, code_bytes, pq_dim,
+        # pq_bits, lut_dtype, device, stream
+        "raft_lut_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     },
 }
 

@@ -1,7 +1,8 @@
 """Shared helpers of the inverted-list indexes (subset port of
 ``raft_tpu/neighbors/_common.py``: ``chunk_layout`` :42, the device pack of
 ``_build.py:254`` ``pack_device``, ``expand_probes`` :340,
-``scan_probe_lists`` :425, ``empty_result``, ``subsample_trainset``).
+``scan_probe_lists`` :425 with its per-step ``xs``, ``empty_result``,
+``subsample_trainset``).
 
 The chunk-table arithmetic is (n_lists,)-shaped numpy host work, the same
 code as the JAX package's, so equal labels give equal layouts; per-row
@@ -11,7 +12,7 @@ data stays on the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ class ChunkLayout:
     counts: np.ndarray          # (n_lists,) int64 logical sizes
     chunk_table: np.ndarray     # (n_lists, max_chunks) int32, dummy-padded
     phys_sizes: np.ndarray      # (n_phys + 1,) int32
+    owner: np.ndarray           # (n_phys + 1,) int32 logical list per row
 
 
 def chunk_layout(counts: np.ndarray) -> ChunkLayout:
@@ -63,7 +65,8 @@ def chunk_layout(counts: np.ndarray) -> ChunkLayout:
     chunk_table[owner[:n_phys], chunk_ord] = np.arange(n_phys,
                                                        dtype=np.int32)
     return ChunkLayout(cap=cap, n_phys=n_phys, counts=counts,
-                       chunk_table=chunk_table, phys_sizes=phys_sizes)
+                       chunk_table=chunk_table, phys_sizes=phys_sizes,
+                       owner=owner)
 
 
 def ranks_within(labels: torch.Tensor, n_lists: int) -> torch.Tensor:
@@ -79,14 +82,19 @@ def ranks_within(labels: torch.Tensor, n_lists: int) -> torch.Tensor:
     return rank
 
 
-def pack_lists(payload: torch.Tensor, ids: torch.Tensor,
-               labels: torch.Tensor, n_lists: int):
+def pack_lists(payload, ids: torch.Tensor, labels: torch.Tensor,
+               n_lists: int):
     """Scatter rows into chunked padded blocks (the device pack of a fresh
-    index).  Returns (data (n_phys+1, cap, …), idx (n_phys+1, cap) int32
-    −1-padded, phys_sizes, list_sizes, chunk_table); the (n_lists,) counts
-    are the only per-list data that reach the host."""
-    n = payload.shape[0]
-    dev = payload.device
+    index, ``raft_tpu`` ``_build.pack_device``).  *payload* is one (n, …)
+    tensor or a tuple of them packed side by side.  Returns (data, idx
+    (n_phys+1, cap) int32 −1-padded, phys_sizes, list_sizes, chunk_table,
+    owner) where data is (n_phys+1, cap, …) per payload (a tuple when a
+    tuple came in); the (n_lists,) counts are the only per-list data that
+    reach the host."""
+    multi = isinstance(payload, (tuple, list))
+    payloads = tuple(payload) if multi else (payload,)
+    n = payloads[0].shape[0]
+    dev = payloads[0].device
     labels = labels.long()
     counts = (torch.bincount(labels, minlength=n_lists).cpu().numpy()
               if n else np.zeros(n_lists, np.int64))
@@ -94,26 +102,32 @@ def pack_lists(payload: torch.Tensor, ids: torch.Tensor,
     cap = lay.cap
     table = torch.as_tensor(lay.chunk_table, device=dev)
     rows = (lay.n_phys + 1) * cap
-    data = torch.zeros((rows,) + tuple(payload.shape[1:]), dtype=payload.dtype,
-                       device=dev)
+    datas = [torch.zeros((rows,) + tuple(p.shape[1:]), dtype=p.dtype,
+                         device=dev) for p in payloads]
     idx = torch.full((rows,), -1, dtype=torch.int32, device=dev)
     if n:
         rank = ranks_within(labels, n_lists)
         flat = table[labels, rank // cap].long() * cap + rank % cap
-        data[flat] = payload
+        for data, p in zip(datas, payloads):
+            data[flat] = p
         idx[flat] = ids.to(torch.int32)
-    return (data.reshape((lay.n_phys + 1, cap) + tuple(payload.shape[1:])),
-            idx.reshape(lay.n_phys + 1, cap),
+    datas = tuple(d.reshape((lay.n_phys + 1, cap) + tuple(d.shape[1:]))
+                  for d in datas)
+    return (datas if multi else datas[0], idx.reshape(lay.n_phys + 1, cap),
             torch.as_tensor(lay.phys_sizes, device=dev),
-            torch.as_tensor(lay.counts.astype(np.int32), device=dev), table)
+            torch.as_tensor(lay.counts.astype(np.int32), device=dev), table,
+            torch.as_tensor(lay.owner, device=dev))
 
 
 def expand_probes(probe_ids: torch.Tensor, chunk_table: torch.Tensor,
-                  n_rows: int, extra: Optional[int] = None) -> torch.Tensor:
+                  n_rows: int, extra: Optional[int] = None,
+                  return_ord: bool = False):
     """(nq, n_probes) logical probes → (nq, budget) physical rows,
     chunk-major, with the dummy entries stably sorted to the back and the
     row list cut to the worst case one query can need
-    (``n_probes + extra``, ``extra`` = continuation chunks of the index)."""
+    (``n_probes + extra``, ``extra`` = continuation chunks of the index).
+    With ``return_ord`` also the (nq, budget) probe ordinal of each row:
+    which of the query's probes its chunk belongs to."""
     nq, n_probes = probe_ids.shape
     n_lists = chunk_table.shape[0]
     dummy = n_rows - 1
@@ -121,23 +135,30 @@ def expand_probes(probe_ids: torch.Tensor, chunk_table: torch.Tensor,
         extra = max(0, (n_rows - 1) - n_lists)
     ph = chunk_table[probe_ids.long()]           # (nq, n_probes, max_chunks)
     flat = ph.transpose(1, 2).reshape(nq, -1)
+    # chunk-major flattening: position j holds probe ordinal j % n_probes
+    ord_flat = (torch.arange(flat.shape[1], device=flat.device)
+                % n_probes).expand(nq, -1)
     budget = max(1, min(flat.shape[1], n_probes + int(extra), n_rows - 1))
     if budget != flat.shape[1]:
         order = torch.argsort((flat == dummy).to(torch.int8), dim=1,
                               stable=True)[:, :budget]
         flat = torch.gather(flat, 1, order)
-    return flat
+        ord_flat = torch.gather(ord_flat, 1, order)
+    return (flat, ord_flat) if return_ord else flat
 
 
 def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
                      list_indices: torch.Tensor, list_sizes: torch.Tensor,
                      k: int, select_min: bool, dtype: torch.dtype,
-                     engine: Optional[str] = None
+                     engine: Optional[str] = None,
+                     xs: Sequence[torch.Tensor] = ()
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Running top-k over each query's probed physical rows.
 
-    ``score_tile(rows) -> (nq, cap)`` scores each query's gathered row;
-    slots past the row's live size score the sentinel.  Each step selects
+    ``score_tile(rows, *slices) -> (nq, cap)`` scores each query's
+    gathered row; *xs* are per-step tensors with the scan axis leading
+    (``probe_ids.shape[1]`` long), and step s passes each one's slice s.
+    Slots past the row's live size score the sentinel.  Each step selects
     the tile's best ``min(k, cap)`` (kernel B2 on the card) and merges them
     into the running run (run a wins ties, so earlier steps, then lower
     slots, win).  From ``k >= 24`` the masked tiles are stacked and one
@@ -151,14 +172,15 @@ def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
     n_steps = probe_ids.shape[1]
     slots = torch.arange(cap, device=dev)
 
-    def tile_scores(col):
-        d = score_tile(col).to(dtype)
+    def tile_scores(s):
+        col = probe_ids[:, s]
+        d = score_tile(col, *(x[s] for x in xs)).to(dtype)
         live = slots[None, :] < list_sizes[col][:, None]
         return (torch.where(live, d, torch.full_like(d, sentinel)),
                 list_indices[col])
 
     if k >= _SCAN_STACK_MIN_K and n_steps * cap >= k:
-        tiles = [tile_scores(probe_ids[:, s]) for s in range(n_steps)]
+        tiles = [tile_scores(s) for s in range(n_steps)]
         ds = torch.cat([t[0] for t in tiles], dim=1)
         ids = torch.cat([t[1] for t in tiles], dim=1)
         return select_k(ds, k, select_min, indices=ids, engine=engine)
@@ -166,7 +188,7 @@ def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
     best_d = torch.full((nq, k), sentinel, dtype=dtype, device=dev)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     for s in range(n_steps):
-        d, ids = tile_scores(probe_ids[:, s])
+        d, ids = tile_scores(s)
         tile_d, tile_i = select_k(d, kk, select_min, indices=ids,
                                   engine=engine)
         best_d, best_i = merge_sorted_runs(best_d, best_i, tile_d, tile_i,

@@ -229,7 +229,7 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     cosine = index.metric == DistanceType.CosineExpanded
     q = _normalize_rows(x) if cosine else x
     labels = _assign_lists(q, index.centers, index.metric, engine)
-    data, idx, phys_sizes, sizes, chunk_table = pack_lists(
+    data, idx, phys_sizes, sizes, chunk_table, _ = pack_lists(
         x, ids, labels, index.n_lists)
     centers = index.centers
     if index.adaptive_centers:

@@ -1,7 +1,8 @@
-"""Batched query serving over IVF-Flat (port of ``raft_tpu/serve/engine.py``:
-``_IvfFlatBackend`` :155, ``ServeEngine`` :544 with ``warmup`` :777, the
-drain-all planner ``_plan`` :1104, ``_bucket_for`` :1126 and ``search``
-:1138).
+"""Batched query serving over IVF-Flat and IVF-PQ (port of
+``raft_tpu/serve/engine.py``: ``_IvfFlatBackend`` :155, ``_IvfPqBackend``
+:214, ``_make_backend`` :527, ``ServeEngine`` :544 with ``warmup`` :777,
+the drain-all planner ``_plan`` :1104, ``_bucket_for`` :1126 and
+``search`` :1138).
 
 The ported engine behaves as the JAX one does with ``scheduler=False,
 admission=False``: concurrent ragged requests are packed in arrival order
@@ -9,14 +10,18 @@ into super-batches of at most ``max_batch`` rows, each padded on the host
 to its power-of-two bucket and searched as ONE batch; results are sliced
 back per request.  Every query row's result is independent of the other
 rows of its batch, so a request's answer equals what the solo
-:func:`raft_tpu_torch.neighbors.ivf_flat.search` returns for it.  A
-request larger than the largest bucket is served solo.  Super-batches
-alternate over the handle's stream pool, so the host assembles batch i+1
-while the card still runs batch i; collection waits on each lane's event.
+``search`` of its index type returns for it.  A request larger than the
+largest bucket is served solo.  An IVF-PQ engine with a compressed LUT
+clamps its super-batch to ``ivf_pq.hoisted_batch_cap`` (32 queries at
+fp8 on sift-128 with the default index), bounding the per-batch
+combined-LUT transients.  Super-batches alternate over the handle's
+stream pool, so the host assembles batch i+1 while the card still runs
+batch i; collection waits on each lane's event.
 
-Not ported yet: the other backends, admission, the continuous-batching
-scheduler, supervision and retries, autotuning, telemetry, the HTTP
-surface, ``submit``/``flush`` and ``refresh``.
+Not ported yet: the brute-force, sharded, replica, tiered and mutable
+backends, admission, the continuous-batching scheduler, supervision and
+retries, autotuning, telemetry, the HTTP surface, ``submit``/``flush``
+and ``refresh``.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import Handle
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.kernels.engine import resolve_engine
-from raft_tpu_torch.neighbors import ivf_flat
+from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 
 
 class _IvfFlatBackend:
@@ -81,11 +86,70 @@ class _IvfFlatBackend:
                                self.k, engine=self.engine)
 
 
+class _IvfPqBackend:
+    """Adapter: ``ivf_pq.Index`` → ``ivf_pq._full_search_impl`` (coarse +
+    select + probe scan of one batch)."""
+
+    name = "ivf_pq"
+
+    def __init__(self, index: ivf_pq.Index, k: int,
+                 params: Optional[ivf_pq.SearchParams],
+                 engine: Optional[str]):
+        expects(k >= 1, "k must be >= 1")
+        self.index = index
+        self.params = params or ivf_pq.SearchParams()
+        ivf_pq.check_search_params(self.params)
+        self.k = int(k)
+        self.n_probes = int(min(self.params.n_probes, index.n_lists))
+        self.dim = int(index.dim)
+        self.engines = ivf_pq._resolve_engines(index, engine)
+        self.engine = engine
+
+    def ingest(self, q) -> np.ndarray:
+        """Host-side float32 ingest, the same conversion as the solo
+        path's cast (int8/uint8 and half types widen exactly)."""
+        q = np.asarray(q)
+        if q.dtype in (np.int8, np.uint8):
+            q_dtype = str(q.dtype)
+        else:
+            expects(np.issubdtype(q.dtype, np.floating),
+                    f"ivf_pq: unsupported query dtype {q.dtype}")
+            q_dtype = "float32"
+        expects(q_dtype in (self.index.dataset_dtype, "float32"),
+                f"query dtype {q_dtype} != index dataset dtype "
+                f"{self.index.dataset_dtype}")
+        expects(q.ndim == 2 and q.shape[1] == self.dim, "query dim mismatch")
+        return q.astype(np.float32)
+
+    def batch_cap(self) -> Optional[int]:
+        return ivf_pq.hoisted_batch_cap(self.index, self.n_probes,
+                                        self.params.lut_dtype)
+
+    def dispatch(self, qb: torch.Tensor):
+        return ivf_pq._full_search_impl(qb, self.index, self.k,
+                                        self.n_probes, self.params.lut_dtype,
+                                        self.engines)
+
+    def solo(self, q):
+        return ivf_pq.search(self.params, self.index, q, self.k,
+                             engine=self.engine)
+
+
+def _make_backend(index, k, params, engine):
+    if isinstance(index, ivf_flat.Index):
+        return _IvfFlatBackend(index, k, params, engine)
+    if isinstance(index, ivf_pq.Index):
+        return _IvfPqBackend(index, k, params, engine)
+    raise TypeError(f"ServeEngine: {type(index).__name__} is not ported "
+                    "yet (ivf_flat.Index and ivf_pq.Index are)")
+
+
 class ServeEngine:
     """Coalescing query server for one (index, k, params) serving key.
 
-    ``max_batch`` bounds one coalesced super-batch and is the largest
-    bucket :meth:`warmup` runs by default; ``handle`` supplies the stream
+    ``max_batch`` bounds one coalesced super-batch (clamped to the
+    backend's batch cap, if it has one) and is the largest bucket
+    :meth:`warmup` runs by default; ``handle`` supplies the stream
     pool (default: two lanes on the index's device).  :meth:`search` may be
     called from several threads; calls are serialized under a lock."""
 
@@ -93,8 +157,11 @@ class ServeEngine:
                  handle: Optional[Handle] = None,
                  engine: Optional[str] = None):
         expects(max_batch >= 8, "max_batch must be >= 8")
-        self._backend = _IvfFlatBackend(index, k, params, engine)
+        self._backend = _make_backend(index, k, params, engine)
         self.max_batch = int(max_batch)
+        cap = getattr(self._backend, "batch_cap", lambda: None)()
+        if cap is not None:
+            self.max_batch = max(8, min(self.max_batch, cap))
         self._handle = (handle if handle is not None
                         else Handle(index.device, n_streams=2))
         self._device = index.device

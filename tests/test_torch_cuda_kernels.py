@@ -9,7 +9,8 @@ Tolerances: select_k positions and values bit-identical; fused L2 NN
 labels identical except near ties (two best distances within 1e-5
 relative), values to rtol 1e-5; M-step partials from equal labels to
 1e-5 of the members' absolute sums (summation order differs from the
-plain version's atomics).
+plain version's atomics); LUT scores (B4) to 1e-5 × Σ_m |lut term| of the
+plain version (another summation order).
 """
 
 import numpy as np
@@ -148,3 +149,72 @@ def test_search_rows_do_not_depend_on_the_batch(dev):
             dn, i_n = ivf_flat._search_batch_impl(q[:n], idx, 10, 20, False,
                                                   "cuda")
             assert torch.equal(dn, d[:n]) and torch.equal(i_n, i[:n])
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("nq,cap,pq_dim,pq_bits", [
+    (1, 37, 8, 8), (37, 300, 64, 8), (5, 1000, 12, 5), (9, 257, 10, 5),
+    (3, 129, 9, 7), (64, 700, 16, 4), (2, 50, 64, 6),
+    # rows beyond one block's shared memory, staged in subspace chunks
+    (3, 300, 480, 8), (4, 130, 2000, 5)])
+def test_lut_score_kernel_matches_plain(dev, nq, cap, pq_dim, pq_bits,
+                                        lut_dtype):
+    """B4 reads each query's row of a code block in place; scores to
+    1e-5 × Σ_m |lut term| of the plain version (another summation order),
+    for rows that fit one block's shared memory and rows staged in
+    chunks."""
+    from raft_tpu_torch.kernels import ivf_pq_lut
+    from raft_tpu_torch.neighbors.ivf_pq import _pack_codes
+
+    g = torch.Generator(device="cpu").manual_seed(nq + cap + pq_bits)
+    kcb = 1 << pq_bits
+    n_rows = 7
+    codes = torch.randint(0, kcb, (n_rows * cap, pq_dim), generator=g)
+    block = _pack_codes(codes, pq_bits).reshape(n_rows, cap, -1).to(dev)
+    rows = torch.randint(0, n_rows, (nq,), generator=g,
+                         dtype=torch.int32).to(dev)
+    lut = (torch.rand(nq, pq_dim * kcb, generator=g) * 400).to(dev)
+    lut = lut.to(lut_dtype)
+    got = ivf_pq_lut.lut_score_rows(block, rows, lut, pq_dim, pq_bits, kcb)
+    torch.cuda.synchronize()
+    gathered = block[rows.long()]
+    ref = ivf_pq_lut._lut_score_plain(gathered, lut, pq_dim, pq_bits, kcb)
+    mag = ivf_pq_lut._lut_score_plain(gathered, lut.float().abs(), pq_dim,
+                                      pq_bits, kcb)
+    assert bool(((got - ref).abs() <= 1e-5 * mag).all())
+    # the JAX signature: already gathered codes, rows = arange(nq)
+    again = ivf_pq_lut.lut_score_rows(
+        gathered, torch.arange(nq, dtype=torch.int32, device=dev), lut,
+        pq_dim, pq_bits, kcb)
+    assert torch.equal(again, got)
+    # a row outside the block clamps into it
+    wild = torch.where(rows == n_rows - 1, n_rows + 5, rows)
+    wild = torch.where(rows == 0, -3, wild)
+    clamped = ivf_pq_lut.lut_score_rows(block, wild, lut, pq_dim, pq_bits,
+                                        kcb)
+    assert torch.equal(clamped, got)
+
+
+def test_ivf_pq_rows_do_not_depend_on_the_batch(dev):
+    """The IVF-PQ serving contract: a query's bits are the same in every
+    batch, for the float32 and the fp8 LUT, and the kernel path equals the
+    plain path's ids up to near-ties."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    x = torch.randn(40000, 64, generator=g)
+    idx = ivf_pq.build(ivf_pq.IndexParams(n_lists=128), x.to(dev))
+    q = torch.randn(256, 64, generator=g).to(dev)
+    for lut in ("float32", "float8_e4m3"):
+        engines = ivf_pq._resolve_engines(idx, None)
+        assert engines == ("cuda", "cuda")
+        d, i = ivf_pq._full_search_impl(q, idx, 10, 20, lut, engines)
+        for n in (8, 32, 128):
+            dn, i_n = ivf_pq._full_search_impl(q[:n], idx, 10, 20, lut,
+                                               engines)
+            assert torch.equal(dn, d[:n]) and torch.equal(i_n, i[:n])
+        _, ip = ivf_pq.search(ivf_pq.SearchParams(20, lut_dtype=lut), idx,
+                              q, 10, engine="torch")
+        agree = (i[:, :, None] == ip[:, None, :]).any(-1).float().mean()
+        assert float(agree) >= 0.99

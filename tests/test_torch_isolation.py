@@ -53,7 +53,7 @@ def test_no_jax_or_raft_tpu_import_in_sources():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from raft_tpu_torch.cluster import kmeans
     from raft_tpu_torch.core.handle import Handle, resolve_device
-    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((64, 4), np.float32)
@@ -63,6 +63,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ivf_flat.build(ivf_flat.IndexParams(n_lists=4), x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ivf_flat.index_from_arrays({}, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ivf_pq.build(ivf_pq.IndexParams(n_lists=4), x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ivf_pq.index_from_arrays({}, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kmeans.centers_from_array(x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -85,7 +89,14 @@ def test_engine_policy():
         resolve_engine("l2nn", "cuda", metric=DistanceType.InnerProduct,
                        engine="cuda")
     with pytest.raises(ValueError):
-        resolve_engine("pq_lut", "cpu")
+        resolve_engine("pairwise", "cpu")
+    # B4 takes every LUT row on the card (a wide one in chunks), so the
+    # plain version runs only on the CPU or when asked for
+    assert resolve_engine("pq_lut", "cpu") == "torch"
+    assert resolve_engine("pq_lut", "cuda") == "cuda"
+    assert resolve_engine("pq_lut", "cuda", engine="torch") == "torch"
+    with pytest.raises(ValueError):
+        resolve_engine("pq_lut", "cpu", engine="cuda")
 
 
 def test_kernel_sources_ship_with_the_package():

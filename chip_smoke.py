@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive raft_tpu_torch's IVF-Flat and IVF-PQ serving paths on one NVIDIA
-card.
+"""Drive raft_tpu_torch's IVF-Flat, IVF-PQ and brute-force serving paths on
+one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -12,7 +12,10 @@ vectors × 128, 10,000 queries, k = 10, L2.  IVF-Flat with n_lists = 1024
 kmeans_n_iters = 20, kmeans_trainset_fraction = 0.5.  IVF-PQ with the
 JAX package's defaults at n_lists = 1024: pq_dim 64, pq_bits 8,
 PER_SUBSPACE codebooks, the PCA-balanced rotation, pq_trainset_cap
-262,144; searched with n_probes = 20 and the float32 LUT.
+262,144; searched with n_probes = 20 and the float32 LUT.  Brute force:
+exact kNN under L1 ("l1", cuML's ``NearestNeighbors(algorithm="brute",
+metric="manhattan")``) over the same 1,000,000 × 128 dataset, which is
+the index (512 MB on the card), in index tiles of 16,384 rows.
 
 Phases, one JSON line each:
 
@@ -41,7 +44,26 @@ Phases, one JSON line each:
    LUT types, and at ragged shapes (nq 1 and 37, capacities off the
    256-slot block, pq_bits 4/5/7 with odd code bytes); ``embedding_bag``
    is the library yardstick.
-6. the ``{"kernels": [...]}`` line, then the last line
+6. brute-force main path — launch counts reset, then
+   ``ServeEngine(x, 10, metric="l1", max_batch=1024).warmup()`` and the
+   same ragged calls; B5 and B2 must have launched.  Checks: coalesced
+   equals solo ``knn`` per request bit for bit; on 1,000 queries, ids
+   equal ``torch.cdist(p=1)`` + ``torch.topk`` (the checker) except at
+   near ties and distances to rtol 1e-5; on every query, the kernel path
+   against the plain path (``engine="torch"``) in the same way.
+7. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
+   1,024 × 16,384 × 128 against ``engine="torch"`` (rtol 1e-5, atol
+   1e-5); the seven B5 metrics must launch B5 and the others must not.
+8. B5 against its plain version: all six ops × float32 / bfloat16 /
+   float16 at the scan step (bucket 1,024 × tile 16,384 × 128), ragged
+   shapes (m 1 and 37, n 1, 129 and 16,385, k 1, 3, 127 and 960, one NaN
+   in x), and the rows of a 37-row batch equal to the first 37 of the
+   1,024-row one bit for bit; each op's time beside the plain version's,
+   ``torch.cdist``'s (p = 1, 2 without the matrix-product form, ∞, 3 and
+   0; Canberra has none) and the bound, counted from at least
+   ``B5_OPS_PER_ELEMENT`` float32 instructions per element at the card's
+   instruction rate against the bytes moved.
+9. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -65,6 +87,9 @@ import numpy as np
 #: the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
+#: float32 instructions issued per second outside the tensor cores (the
+#: flop rate counts a fused multiply-add as two)
+F32_INSTR_PER_S = F32_FLOP_PER_S / 2
 
 #: which TPU kernel each port kernel replaces
 REPLACES = {
@@ -72,19 +97,29 @@ REPLACES = {
     "fused_l2_nn_partials": "raft_tpu/kernels/fused_l2nn.py:187",
     "select_k": "raft_tpu/kernels/select_k.py:155",
     "lut_score": "raft_tpu/kernels/ivf_pq_lut.py:98",
+    "pairwise_accumulate": "raft_tpu/kernels/pairwise.py:81",
 }
 SOURCE = {
     "fused_l2_nn": "raft_tpu_torch/kernels/csrc/fused_l2nn.cu",
     "fused_l2_nn_partials": "raft_tpu_torch/kernels/csrc/fused_l2nn.cu",
     "select_k": "raft_tpu_torch/kernels/csrc/select_k.cu",
     "lut_score": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
+    "pairwise_accumulate": "raft_tpu_torch/kernels/csrc/pairwise.cu",
 }
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "ivf_flat": ("fused_l2_nn", "fused_l2_nn_partials", "select_k"),
     "ivf_pq": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
                "lut_score"),
+    "brute_force": ("pairwise_accumulate", "select_k"),
 }
+#: B5's float32 instructions per element, at least (L1: a subtract and an
+#: add with an abs modifier; l2: a subtract and a fused multiply-add; linf
+#: a subtract and a NaN-propagating max; lp a subtract, log2, multiply,
+#: exp2 and add; hamming a compare and an add; canberra a subtract, an add
+#: of two abs, a reciprocal and multiply, and an add)
+B5_OPS_PER_ELEMENT = {"l1": 2, "l2": 2, "linf": 2, "lp": 5, "hamming": 2,
+                      "canberra": 5}
 
 
 class CheckFailed(Exception):
@@ -130,9 +165,9 @@ def timed(fn, device, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, ops: float, ops_per_s: float = F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -366,19 +401,13 @@ def ragged_calls(q_host, n_queries: int):
     return reqs, [reqs[c:c + 8] for c in range(0, len(reqs), 8)]
 
 
-def serve_path(path, device, index, params, k, reqs, calls, n_queries,
-               build_s, build_info):
-    """Serve every query through a warmed ServeEngine; the launch counts
-    were reset before the build and are read right after serving."""
+def serve_path(path, device, eng, k, reqs, calls, n_queries):
+    """Serve every query through *eng* after its warmup; the launch counts
+    were reset before the path began and are read right after serving."""
     import torch
 
     from raft_tpu_torch.kernels import native
-    from raft_tpu_torch.serve import ServeEngine
 
-    emit({"phase": "build", "path": path, "seconds": build_s,
-          "n_lists": index.n_lists, "capacity": index.capacity,
-          "padding_fraction": index.padding_fraction, **build_info})
-    eng = ServeEngine(index, k, params, max_batch=1024)
     t0 = time.perf_counter()
     n_warm = eng.warmup()
     warm_s = time.perf_counter() - t0
@@ -406,7 +435,13 @@ def serve_path(path, device, index, params, k, reqs, calls, n_queries,
         check(isinstance(d, np.ndarray), f"a request failed: {d!r}")
         check(d.shape == (q.shape[0], k) and np.isfinite(d).all(),
               "results must be finite (n, k)")
-    return eng, results, launches
+    return results, launches
+
+
+def emit_build(path, index, build_s, build_info):
+    emit({"phase": "build", "path": path, "seconds": build_s,
+          "n_lists": index.n_lists, "capacity": index.capacity,
+          "padding_fraction": index.padding_fraction, **build_info})
 
 
 def check_coalesced(path, search_fn, reqs, results):
@@ -447,6 +482,7 @@ def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                   n_probes, k):
     """The IVF-Flat main path and its checks; returns (engine, launches)."""
     from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import ServeEngine
 
     _reset(device)
     t0 = time.perf_counter()
@@ -455,10 +491,12 @@ def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     build_s = _synced_seconds(device, t0)
     check(index.size == x.shape[0], "build: index does not hold every row")
     params = ivf_flat.SearchParams(n_probes=n_probes)
-    eng, results, launches = serve_path(
-        "ivf_flat", device, index, params, k, reqs, calls, n_queries,
-        build_s, {"physical_rows": int(index.list_data.shape[0]),
-                  "index_bytes": index.list_data.numel() * 4})
+    emit_build("ivf_flat", index, build_s,
+               {"physical_rows": int(index.list_data.shape[0]),
+                "index_bytes": index.list_data.numel() * 4})
+    eng = ServeEngine(index, k, params, max_batch=1024)
+    results, launches = serve_path("ivf_flat", device, eng, k, reqs, calls,
+                                   n_queries)
     check_coalesced("ivf_flat",
                     lambda q: ivf_flat.search(params, index, q, k),
                     reqs, results)
@@ -481,6 +519,7 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     """The IVF-PQ main path and its checks; returns (index, engine,
     launches)."""
     from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.serve import ServeEngine
 
     _reset(device)
     t0 = time.perf_counter()
@@ -492,13 +531,15 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                      * getattr(index, f).element_size()
                      for f in ivf_pq.ARRAY_FIELDS)
     params = ivf_pq.SearchParams(n_probes=n_probes)
-    eng, results, launches = serve_path(
-        "ivf_pq", device, index, params, k, reqs, calls, n_queries, build_s,
-        {"pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
-         "physical_rows": int(index.list_codes.shape[0]),
-         "code_bytes_per_row": int(index.list_codes.shape[2]),
-         "codes_bytes": index.list_codes.numel(),
-         "index_bytes": leaf_bytes})
+    emit_build("ivf_pq", index, build_s,
+               {"pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
+                "physical_rows": int(index.list_codes.shape[0]),
+                "code_bytes_per_row": int(index.list_codes.shape[2]),
+                "codes_bytes": index.list_codes.numel(),
+                "index_bytes": leaf_bytes})
+    eng = ServeEngine(index, k, params, max_batch=1024)
+    results, launches = serve_path("ivf_pq", device, eng, k, reqs, calls,
+                                   n_queries)
     check_coalesced("ivf_pq", lambda q: ivf_pq.search(params, index, q, k),
                     reqs, results)
     nr = qr.shape[0]
@@ -627,6 +668,209 @@ def lut_phase(device, index, queries, rep: int):
     return row
 
 
+def check_knn(name, d, i, ref_d, ref_i, tie_d):
+    """(nq, k) distances and ids against a reference: distances to rtol
+    1e-5; ids equal except at near ties, where a position's distance in
+    *tie_d* (the checker's best k + 1 per row) lies within 1e-5 relative of
+    a neighbour's.  Returns the number of ids that differ at near ties."""
+    import torch
+
+    check(bool(((d - ref_d).abs() <= 1e-5 * ref_d.abs() + 1e-6).all()),
+          f"{name}: distances beyond rtol 1e-5")
+    kk = d.shape[1]
+    gap = (tie_d[:, 1:] - tie_d[:, :-1]).abs() <= 1e-5 * tie_d[:, 1:].abs()
+    tied = torch.zeros_like(d, dtype=torch.bool)
+    tied |= gap[:, :kk]                 # tied with the next candidate
+    tied[:, 1:] |= gap[:, :kk - 1]      # tied with the previous one
+    diff = i.long() != ref_i.long()
+    check(not bool((diff & ~tied).any()),
+          f"{name}: ids differ outside near ties")
+    return int(diff.sum())
+
+
+def brute_force_path(device, x, queries, reqs, calls, n_queries, qr, k):
+    """The brute-force main path (exact kNN under L1 over the whole
+    dataset) and its checks; returns (engine, launches)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.serve import ServeEngine
+
+    _reset(device)
+    eng = ServeEngine(x, k, metric="l1", max_batch=1024, device=device)
+    results, launches = serve_path("brute_force", device, eng, k, reqs,
+                                   calls, n_queries)
+    check_coalesced("brute_force",
+                    lambda q: brute_force.knn(x, q, k, "l1", device=device),
+                    reqs, results)
+    nr = qr.shape[0]
+    got_d = torch.as_tensor(np.concatenate([r[0] for r in results]),
+                            device=device)
+    got_i = _first_ids(results, n_queries, device)
+    # the checker: every L1 distance, then the k + 1 smallest per row
+    t0 = time.perf_counter()
+    ref = torch.cdist(qr, x, p=1.0)
+    ref_d, ref_i = torch.topk(ref, k + 1, dim=1, largest=False)
+    del ref
+    checker_s = _synced_seconds(device, t0)
+    ties_checker = check_knn("brute_force vs torch.cdist", got_d[:nr],
+                             got_i[:nr], ref_d[:, :k], ref_i[:, :k], ref_d)
+    # the plain path's k + 1 best tell its near ties at rank k
+    t0 = time.perf_counter()
+    plain_d, plain_i = brute_force.knn(x, queries, k + 1, "l1",
+                                       device=device, engine="torch")
+    plain_s = _synced_seconds(device, t0)
+    ties_plain = check_knn("brute_force kernel vs plain path", got_d, got_i,
+                           plain_d[:, :k], plain_i[:, :k], plain_d)
+    emit({"phase": "checks", "path": "brute_force", "metric": "l1",
+          "coalesced_equals_solo": True, "checker_queries": nr,
+          "checker": "torch.cdist(p=1) + torch.topk",
+          "checker_s": checker_s,
+          "id_diffs_at_near_ties_vs_checker": ties_checker,
+          "plain_path_queries": n_queries, "plain_path_s": plain_s,
+          "id_diffs_at_near_ties_vs_plain_path": ties_plain,
+          "index_bytes": x.numel() * x.element_size()})
+    return eng, launches
+
+
+def pairwise_distance_phase(device, rep: int):
+    """Every name of SUPPORTED_DISTANCES at the scan step shape against
+    ``engine="torch"``; the B5 metrics must launch B5, the others not."""
+    import torch
+
+    from raft_tpu_torch.distance import (ACCUMULATE_METRICS, DISTANCE_TYPES,
+                                         SUPPORTED_DISTANCES,
+                                         pairwise_distance)
+    from raft_tpu_torch.kernels import native
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    # positive rows: the domain of every metric (Hellinger, KL, JS)
+    x = torch.rand(1024, 128, generator=gen, device=device) + 1e-3
+    y = torch.rand(16384, 128, generator=gen, device=device) + 1e-3
+    out = {}
+    for name in SUPPORTED_DISTANCES:
+        native.reset_launches()
+        got = pairwise_distance(x, y, name, p=3.0, device=device)
+        launched = native.LAUNCHES["pairwise_accumulate"]
+        b5 = DISTANCE_TYPES[name] in ACCUMULATE_METRICS
+        check((launched > 0) == b5,
+              f"pairwise_distance {name}: B5 launches {launched}")
+        t0 = time.perf_counter()
+        ref = pairwise_distance(x, y, name, p=3.0, device=device,
+                                engine="torch")
+        plain_ms = _synced_seconds(device, t0) * 1e3
+        check(got.shape == (1024, 16384) and bool(torch.isfinite(got).all()),
+              f"pairwise_distance {name}: not finite (1024, 16384)")
+        check(torch.allclose(got, ref, rtol=1e-5, atol=1e-5),
+              f"pairwise_distance {name}: beyond rtol 1e-5, atol 1e-5 of "
+              "the plain path")
+        out[name] = {"b5": b5, "max_abs_err": float((got - ref).abs().max()),
+                     "ms": timed(lambda: pairwise_distance(
+                         x, y, name, p=3.0, device=device), device, rep),
+                     "plain_ms": plain_ms}
+    emit({"phase": "pairwise_distance", "shape": [1024, 16384, 128],
+          "metric_arg": 3.0, "metrics": out})
+
+
+def pairwise_kernel_phase(device, x, queries, rep: int):
+    """B5 against its plain version: six ops × three input types at the
+    brute-force scan step (bucket 1,024 × tile 16,384 × 128) and at ragged
+    shapes, the batch-invariance check, and each op's time beside the
+    plain version's, a ``torch.cdist`` yardstick's and the bound; returns
+    B5's row (the L1 numbers)."""
+    import torch
+
+    from raft_tpu_torch.kernels import pairwise as pk
+
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+
+    def compare(a, b, op, what):
+        got = pk.pairwise_accumulate(a, b, op, 3.0)
+        ref = pk.pairwise_accumulate_plain(a, b, op, 3.0)
+        nan = torch.isnan(ref)
+        check(torch.equal(torch.isnan(got), nan), f"{what}: NaN differs")
+        err = (got - ref).abs()[~nan]
+        if op in ("linf", "hamming"):
+            check(not bool(err.any()), f"{what}: not exact")
+        else:   # the terms are non-negative: Σ|terms| is the value
+            check(bool((err <= 1e-5 * ref.abs()[~nan]).all()),
+                  f"{what}: beyond 1e-5 × Σ|terms| of the plain version")
+        return float(err.max()) if err.numel() else 0.0
+
+    # the step shape; values in quarters, so coordinates tie and vanish
+    xs = torch.round(queries[:1024] * 4) / 4
+    ys = torch.round(x[:16384] * 4) / 4
+    m, k = xs.shape
+    n = ys.shape[0]
+    library = {
+        "l1": (lambda: torch.cdist(xs, ys, p=1.0), lambda a: a),
+        "l2": (lambda: torch.cdist(
+            xs, ys, p=2.0, compute_mode="donot_use_mm_for_euclid_dist"),
+            torch.sqrt),
+        "linf": (lambda: torch.cdist(xs, ys, p=float("inf")), lambda a: a),
+        "lp": (lambda: torch.cdist(xs, ys, p=3.0),
+               lambda a: torch.pow(a, 1.0 / 3.0)),
+        "hamming": (lambda: torch.cdist(xs, ys, p=0.0), lambda a: a),
+    }
+    by_op = {}
+    for op in pk.OPS:
+        errs = {str(dt).split(".")[1]: compare(xs.to(dt), ys.to(dt), op,
+                                               f"pairwise {op} {dt} step")
+                for dt in dtypes}
+        acc = pk.pairwise_accumulate(xs, ys, op, 3.0)
+        check(torch.equal(pk.pairwise_accumulate(xs[:37], ys, op, 3.0),
+                          acc[:37]),
+              f"pairwise {op}: rows depend on the batch")
+        lib_ms = None
+        if op in library:
+            fn, fin = library[op]
+            check(torch.allclose(fin(acc), fn(), rtol=1e-4, atol=1e-4),
+                  f"pairwise {op}: torch.cdist yardstick disagrees")
+            lib_ms = timed(fn, device, rep)
+        ops_per = B5_OPS_PER_ELEMENT[op]
+        b, by = bound_ms(4.0 * (m * k + n * k + m * n),
+                         float(ops_per) * m * n * k, F32_INSTR_PER_S)
+        by_op[op] = dict(
+            max_abs_err=max(errs.values()), max_abs_err_by_dtype=errs,
+            ms=timed(lambda: pk.pairwise_accumulate(xs, ys, op, 3.0), device,
+                     rep),
+            plain_ms=timed(lambda: pk.pairwise_accumulate_plain(xs, ys, op,
+                                                                3.0),
+                           device, 3),
+            library_ms=lib_ms, bound_ms=b, bound_by=by,
+            ops_per_element=ops_per)
+    half_ms = {str(dt).split(".")[1]: timed(
+        lambda: pk.pairwise_accumulate(xs.to(dt), ys.to(dt), "l1"), device,
+        rep) for dt in dtypes[1:]}
+
+    # ragged shapes, one NaN in x; k = 960 is above the TPU kernel's cap
+    gen = torch.Generator(device=device).manual_seed(19)
+    ragged, errs = [], []
+    for rm in (1, 37):
+        for rn in (1, 129, 16385):
+            for rk in (1, 3, 127, 960):
+                a = torch.round(torch.randn(rm, rk, generator=gen,
+                                            device=device) * 4) / 4
+                b = torch.round(torch.randn(rn, rk, generator=gen,
+                                            device=device) * 4) / 4
+                a[0, rk // 2] = float("nan")
+                for op in pk.OPS:
+                    for dt in dtypes:
+                        errs.append(compare(a.to(dt), b.to(dt), op,
+                                            f"pairwise {op} {dt} "
+                                            f"{rm}×{rn}×{rk}"))
+                ragged.append([rm, rn, rk])
+    l1 = by_op["l1"]
+    row = dict(max_abs_err=max([l1["max_abs_err"]] + errs), ms=l1["ms"],
+               plain_ms=l1["plain_ms"], bound_ms=l1["bound_ms"],
+               bound_by=l1["bound_by"], library_ms=l1["library_ms"])
+    emit({"phase": "kernel", "name": "pairwise_accumulate",
+          "shape": [m, n, k], "library": "torch.cdist",
+          "batch_invariant_rows": 37, "l1_ms_by_dtype": half_ms,
+          "ragged_shapes_m_n_k": ragged, "by_op": by_op, **row})
+    return row
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -660,13 +904,20 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     eng_flat, launches_flat = ivf_flat_path(*args)
     index_pq, eng_pq, launches_pq = ivf_pq_path(*args)
     rows["lut_score"] = lut_phase(device, index_pq, queries, rep)
+    eng_bf, launches_bf = brute_force_path(device, x, queries, reqs, calls,
+                                           n_queries, qr, k)
+    pairwise_distance_phase(device, rep)
+    rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
+                                                        rep)
+    by_path = {"ivf_flat": launches_flat, "ivf_pq": launches_pq,
+               "brute_force": launches_bf}
     for name, row in rows.items():
-        row["launches"] = launches_flat[name] + launches_pq[name]
-        row["launches_by_path"] = {"ivf_flat": launches_flat[name],
-                                   "ivf_pq": launches_pq[name]}
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     if profile:
         profile_serve("ivf_flat", eng_flat, q_host, device)
         profile_serve("ivf_pq", eng_pq, q_host, device)
+        profile_serve("brute_force", eng_bf, q_host, device)
     return rows
 
 
@@ -680,8 +931,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one 1024-query super-batch with "
-                    "torch.profiler and print device time by kernel")
+                    help="also trace one 1024-query super-batch of each "
+                    "engine with torch.profiler and print device time by "
+                    "kernel")
     args = ap.parse_args(argv)
 
     import torch

@@ -1,5 +1,6 @@
 """Distance metric types (port of ``raft_tpu/distance/distance_types.py``;
-values match the reference enum, distance_types.hpp:23-68)."""
+values match the reference enum, distance_types.hpp:23-68, and the metric
+names are pylibraft's, pairwise_distance.pyx:65-91)."""
 
 from __future__ import annotations
 
@@ -33,3 +34,36 @@ class DistanceType(enum.IntEnum):
 #: the metrics the fused L2 nearest-neighbour kernels serve
 L2_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
               DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded)
+
+
+#: pylibraft's metric-name table (pairwise_distance.pyx:65-91)
+DISTANCE_TYPES = {
+    "l2": DistanceType.L2SqrtUnexpanded,
+    "sqeuclidean": DistanceType.L2Unexpanded,
+    "euclidean": DistanceType.L2SqrtUnexpanded,
+    "l1": DistanceType.L1,
+    "cityblock": DistanceType.L1,
+    "inner_product": DistanceType.InnerProduct,
+    "chebyshev": DistanceType.Linf,
+    "canberra": DistanceType.Canberra,
+    "cosine": DistanceType.CosineExpanded,
+    "lp": DistanceType.LpUnexpanded,
+    "correlation": DistanceType.CorrelationExpanded,
+    "jaccard": DistanceType.JaccardExpanded,
+    "hellinger": DistanceType.HellingerExpanded,
+    "braycurtis": DistanceType.BrayCurtis,
+    "jensenshannon": DistanceType.JensenShannon,
+    "hamming": DistanceType.HammingUnexpanded,
+    "kl_divergence": DistanceType.KLDivergence,
+    "minkowski": DistanceType.LpUnexpanded,
+    "russellrao": DistanceType.RusselRaoExpanded,
+    "dice": DistanceType.DiceExpanded,
+    "haversine": DistanceType.Haversine,
+}
+
+#: the names pylibraft's dense path supports (pairwise_distance.pyx:88-91)
+SUPPORTED_DISTANCES = [
+    "euclidean", "l1", "cityblock", "l2", "inner_product", "chebyshev",
+    "minkowski", "canberra", "kl_divergence", "correlation", "russellrao",
+    "hellinger", "lp", "hamming", "jensenshannon", "cosine", "sqeuclidean",
+]

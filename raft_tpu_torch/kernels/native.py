@@ -28,13 +28,14 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "raft_tpu_torch_kernels")
-SOURCES = ("fused_l2nn", "select_k", "ivf_pq_lut")
+SOURCES = ("fused_l2nn", "select_k", "ivf_pq_lut", "pairwise")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"fused_l2_nn": 0, "fused_l2_nn_partials": 0,
-                            "select_k": 0, "lut_score": 0}
+                            "select_k": 0, "lut_score": 0,
+                            "pairwise_accumulate": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -105,6 +106,7 @@ def load_all() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 #: argument types of every exported launch function (pointers and the
@@ -125,6 +127,10 @@ _SIGNATURES = {
         # pq_bits, lut_dtype, device, stream
         "raft_lut_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    },
+    "pairwise": {
+        # x, y, out, m, n, k, op, p, dtype, stream
+        "raft_pairwise_accumulate": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     },
 }
 

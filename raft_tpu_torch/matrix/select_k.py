@@ -1,5 +1,6 @@
 """Top-k per row (port of ``raft_tpu/matrix/select_k.py``: ``select_k`` with
-payload, ``merge_sorted_runs``).
+payload, ``select_min_k`` / ``select_max_k``, ``merge_sorted_runs``,
+``merge_sorted_parts``).
 
 The contract is the JAX package's, bit for bit: rows come back best-first,
 ties at the lowest position (``jax.lax.top_k``'s stable order — which
@@ -120,3 +121,40 @@ def merge_sorted_runs(a_vals, a_idx, b_vals, b_idx, k: Optional[int] = None,
     out_v.scatter_(-1, ra, a_vals).scatter_(-1, rb, b_vals.to(a_vals.dtype))
     out_i.scatter_(-1, ra, a_idx).scatter_(-1, rb, b_idx.to(a_idx.dtype))
     return out_v[..., :k], out_i[..., :k]
+
+
+def select_min_k(values, k: int, indices=None):
+    return select_k(values, k, select_min=True, indices=indices)
+
+
+def select_max_k(values, k: int, indices=None):
+    return select_k(values, k, select_min=False, indices=indices)
+
+
+def merge_sorted_parts(part_vals: torch.Tensor, part_idx: torch.Tensor,
+                       k: Optional[int] = None, select_min: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best k of the union of STACKED sorted runs (n_parts, ..., in_k),
+    best-first.  The fold seeds from part 0, not from a sentinel carry
+    (which would beat real candidates at the sentinel value and give them
+    id -1); part 0 is padded with the worst value and id -1 only when
+    k > in_k.  Earlier parts win ties, so folding in part order equals a
+    stable sort of the concatenated candidates."""
+    n_parts, in_k = part_vals.shape[0], part_vals.shape[-1]
+    k = int(in_k if k is None else k)
+    if in_k >= k:
+        best_v, best_i = part_vals[0, ..., :k], part_idx[0, ..., :k]
+    else:
+        lead = tuple(part_vals.shape[1:-1])
+        pad_v = torch.full(lead + (k - in_k,),
+                           worst_value(part_vals.dtype, select_min),
+                           dtype=part_vals.dtype, device=part_vals.device)
+        pad_i = torch.full(lead + (k - in_k,), -1, dtype=part_idx.dtype,
+                           device=part_idx.device)
+        best_v = torch.cat([part_vals[0], pad_v], dim=-1)
+        best_i = torch.cat([part_idx[0], pad_i], dim=-1)
+    for j in range(1, n_parts):
+        best_v, best_i = merge_sorted_runs(best_v, best_i, part_vals[j],
+                                           part_idx[j], k=k,
+                                           select_min=select_min)
+    return best_v, best_i

@@ -32,7 +32,7 @@ from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
-from raft_tpu_torch.distance.pairwise import _row_norms
+from raft_tpu_torch.distance.pairwise import _dot_fixed_rows, _row_norms
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.linalg.reduce import reduce_rows_by_key
 from raft_tpu_torch.matrix.select_k import select_k
@@ -48,8 +48,6 @@ ARRAY_FIELDS = ("centers", "list_data", "list_indices", "list_sizes",
                 "phys_sizes", "chunk_table")
 #: rows per block of the inner-product list assignment
 _ASSIGN_ROWS = 1 << 16
-#: the one row count of every coarse GEMM (see _dot_fixed_rows)
-_GEMM_ROWS = 1024
 
 
 @dataclasses.dataclass
@@ -244,24 +242,6 @@ def extend(index: Index, new_vectors, new_ids=None, *,
                  adaptive_centers=index.adaptive_centers)
 
 
-def _dot_fixed_rows(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``q @ c.T`` run in blocks of exactly :data:`_GEMM_ROWS` rows (the
-    last one zero-padded).  cuBLAS picks its GEMM algorithm by shape, and
-    at small row counts the one it picks sums in another order, so a query
-    row's bits would depend on the size of the batch it rides in; one fixed
-    shape gives every row the same bits in every batch — which the serving
-    contract (coalesced result == solo result) rests on."""
-    out = []
-    for r in range(0, q.shape[0], _GEMM_ROWS):
-        blk = q[r:r + _GEMM_ROWS]
-        n = blk.shape[0]
-        if n < _GEMM_ROWS:
-            blk = torch.cat([blk, blk.new_zeros((_GEMM_ROWS - n,
-                                                 blk.shape[1]))])
-        out.append((blk @ c.T)[:n])
-    return out[0] if len(out) == 1 else torch.cat(out)
-
-
 def _coarse_distances(q: torch.Tensor, centers: torch.Tensor,
                       metric: DistanceType) -> torch.Tensor:
     if metric == DistanceType.CosineExpanded:
@@ -296,8 +276,8 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
         data = index.list_data[rows]                        # (nq, cap, dim)
         # a product and a row sum rather than torch.bmm: the batched GEMM
         # picks its algorithm by batch count and would give a query other
-        # bits in another batch (see _dot_fixed_rows); the reduction does
-        # not depend on the number of rows
+        # bits in another batch (see pairwise._dot_fixed_rows); the
+        # reduction does not depend on the number of rows
         dots = torch.sum(data * qrow, dim=-1)               # (nq, cap)
         if is_ip:
             return dots

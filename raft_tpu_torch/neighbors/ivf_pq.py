@@ -23,9 +23,9 @@ threaded through the scan as per-step ``xs``.
 
 A query's result bits do not depend on the batch it rides in (the serving
 contract): the rotation and the coarse products run in the fixed
-1,024-row blocks of ``ivf_flat._dot_fixed_rows`` and the query-cross LUT
-is a broadcast multiply and sum over the subspace width, not a batched
-GEMM.
+1,024-row blocks of ``distance.pairwise._dot_fixed_rows`` and the
+query-cross LUT is a broadcast multiply and sum over the subspace width,
+not a batched GEMM.
 
 Not ported yet (each raises): PER_CLUSTER codebooks,
 ``internal_distance_dtype="float16"``, the non-hoisted search
@@ -48,6 +48,7 @@ from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import LogicError, expects
 from raft_tpu_torch.core.handle import resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
 from raft_tpu_torch.kernels import ivf_pq_lut
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.matrix.select_k import select_k
@@ -55,8 +56,7 @@ from raft_tpu_torch.neighbors._common import (empty_result, expand_probes,
                                               pack_lists, scan_probe_lists,
                                               subsample_trainset)
 from raft_tpu_torch.neighbors.ivf_flat import (_assign_lists,
-                                               _coarse_distances,
-                                               _dot_fixed_rows)
+                                               _coarse_distances)
 from raft_tpu_torch.random.rng import RngState
 
 _SUPPORTED = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,

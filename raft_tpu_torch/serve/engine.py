@@ -1,27 +1,27 @@
-"""Batched query serving over IVF-Flat and IVF-PQ (port of
-``raft_tpu/serve/engine.py``: ``_IvfFlatBackend`` :155, ``_IvfPqBackend``
-:214, ``_make_backend`` :527, ``ServeEngine`` :544 with ``warmup`` :777,
-the drain-all planner ``_plan`` :1104, ``_bucket_for`` :1126 and
-``search`` :1138).
+"""Batched query serving over brute force, IVF-Flat and IVF-PQ (port of
+``raft_tpu/serve/engine.py``: ``_BruteForceBackend`` :110,
+``_IvfFlatBackend`` :155, ``_IvfPqBackend`` :214, ``_make_backend`` :527,
+``ServeEngine`` :544 with ``warmup`` :777, the drain-all planner
+``_plan`` :1104, ``_bucket_for`` :1126 and ``search`` :1138).
 
 The ported engine behaves as the JAX one does with ``scheduler=False,
 admission=False``: concurrent ragged requests are packed in arrival order
 into super-batches of at most ``max_batch`` rows, each padded on the host
 to its power-of-two bucket and searched as ONE batch; results are sliced
 back per request.  Every query row's result is independent of the other
-rows of its batch, so a request's answer equals what the solo
-``search`` of its index type returns for it.  A request larger than the
-largest bucket is served solo.  An IVF-PQ engine with a compressed LUT
-clamps its super-batch to ``ivf_pq.hoisted_batch_cap`` (32 queries at
-fp8 on sift-128 with the default index), bounding the per-batch
-combined-LUT transients.  Super-batches alternate over the handle's
+rows of its batch, so a request's answer equals what the solo ``search``
+of its index type (``knn`` for a dense index) returns for it.  A request
+larger than the largest bucket is served solo.  An IVF-PQ engine with a
+compressed LUT clamps its super-batch to ``ivf_pq.hoisted_batch_cap`` (32
+queries at fp8 on sift-128 with the default index), bounding the
+per-batch combined-LUT transients.  Super-batches alternate over the handle's
 stream pool, so the host assembles batch i+1 while the card still runs
 batch i; collection waits on each lane's event.
 
-Not ported yet: the brute-force, sharded, replica, tiered and mutable
-backends, admission, the continuous-batching scheduler, supervision and
-retries, autotuning, telemetry, the HTTP surface, ``submit``/``flush``
-and ``refresh``.
+Not ported yet: the sharded, replica, tiered and mutable backends,
+admission, the continuous-batching scheduler, supervision and retries,
+autotuning, telemetry, the HTTP surface, ``submit``/``flush`` and
+``refresh``.
 """
 
 from __future__ import annotations
@@ -35,10 +35,53 @@ import torch
 
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import Handle
+from raft_tpu_torch.core.handle import Handle, resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.distance.pairwise import as_float_tensor
 from raft_tpu_torch.kernels.engine import resolve_engine
-from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+
+
+class _BruteForceBackend:
+    """Adapter: a dense (n, dim) array or tensor, placed on *device* (the
+    card by default) → ``brute_force._knn_scan_impl``."""
+
+    name = "brute_force"
+
+    def __init__(self, index, k: int, metric, metric_arg: float,
+                 batch_size_index: int, device, engine: Optional[str]):
+        self.device = resolve_device(device)
+        self.index = as_float_tensor(index, self.device)
+        expects(self.index.ndim == 2, "brute-force index must be (n, dim)")
+        expects(1 <= k <= self.index.shape[0],
+                f"k={k} must be in [1, n_index={self.index.shape[0]}]")
+        self.k = int(k)
+        self.metric = brute_force._resolve_metric(metric)
+        self.metric_arg = float(metric_arg)
+        self.tile = int(min(batch_size_index, self.index.shape[0]))
+        self.select_min = self.metric != DistanceType.InnerProduct
+        self.dim = int(self.index.shape[1])
+        self.engine = engine
+
+    def ingest(self, q) -> np.ndarray:
+        """Host-side float32 ingest; the batch takes the index's type on
+        the device, as ``knn`` converts a solo request."""
+        q = np.asarray(q)
+        expects(q.ndim == 2 and q.shape[1] == self.dim,
+                "query must be (n, dim) with the index's dim")
+        expects(np.issubdtype(q.dtype, np.floating),
+                f"brute force: unsupported query dtype {q.dtype}")
+        return q.astype(np.float32, copy=False)
+
+    def dispatch(self, qb: torch.Tensor):
+        return brute_force._knn_scan_impl(
+            self.index, qb.to(self.index.dtype), self.k, self.metric,
+            self.metric_arg, self.tile, self.select_min, self.engine)
+
+    def solo(self, q):
+        return brute_force.knn(self.index, q, self.k, self.metric,
+                               self.metric_arg, batch_size_index=self.tile,
+                               device=self.device, engine=self.engine)
 
 
 class _IvfFlatBackend:
@@ -59,6 +102,7 @@ class _IvfFlatBackend:
         self.sqrt = index.metric == DistanceType.L2SqrtExpanded
         self.dim = int(index.dim)
         self.engine = resolve_engine("select_k", index.device, engine=engine)
+        self.device = index.device
 
     def ingest(self, q) -> np.ndarray:
         """Host-side compute-form conversion, matching what the solo path
@@ -104,6 +148,7 @@ class _IvfPqBackend:
         self.dim = int(index.dim)
         self.engines = ivf_pq._resolve_engines(index, engine)
         self.engine = engine
+        self.device = index.device
 
     def ingest(self, q) -> np.ndarray:
         """Host-side float32 ingest, the same conversion as the solo
@@ -135,36 +180,45 @@ class _IvfPqBackend:
                              engine=self.engine)
 
 
-def _make_backend(index, k, params, engine):
+def _make_backend(index, k, params, engine, metric, metric_arg,
+                  batch_size_index, device):
     if isinstance(index, ivf_flat.Index):
         return _IvfFlatBackend(index, k, params, engine)
     if isinstance(index, ivf_pq.Index):
         return _IvfPqBackend(index, k, params, engine)
-    raise TypeError(f"ServeEngine: {type(index).__name__} is not ported "
-                    "yet (ivf_flat.Index and ivf_pq.Index are)")
+    return _BruteForceBackend(index, k, metric, metric_arg,
+                              batch_size_index, device, engine)
 
 
 class ServeEngine:
     """Coalescing query server for one (index, k, params) serving key.
 
-    ``max_batch`` bounds one coalesced super-batch (clamped to the
-    backend's batch cap, if it has one) and is the largest bucket
-    :meth:`warmup` runs by default; ``handle`` supplies the stream
-    pool (default: two lanes on the index's device).  :meth:`search` may be
-    called from several threads; calls are serialized under a lock."""
+    ``index`` picks the backend by type: an ``ivf_flat.Index`` or an
+    ``ivf_pq.Index`` (*params* its ``SearchParams``), else a dense
+    (n, dim) array or tensor served by exact brute force under ``metric``
+    / ``metric_arg`` in index tiles of ``batch_size_index`` rows, placed
+    on ``device`` (default: the card).  ``max_batch`` bounds one
+    coalesced super-batch (clamped to the backend's batch cap, if it has
+    one) and is the largest bucket :meth:`warmup` runs by default;
+    ``handle`` supplies the stream pool (default: two lanes on the
+    index's device).  :meth:`search` may be called from several threads;
+    calls are serialized under a lock."""
 
-    def __init__(self, index, k: int, params=None, *, max_batch: int = 1024,
+    def __init__(self, index, k: int, params=None, *,
+                 metric=DistanceType.L2SqrtExpanded, metric_arg: float = 2.0,
+                 max_batch: int = 1024, batch_size_index: int = 16384,
                  handle: Optional[Handle] = None,
-                 engine: Optional[str] = None):
+                 engine: Optional[str] = None, device=None):
         expects(max_batch >= 8, "max_batch must be >= 8")
-        self._backend = _make_backend(index, k, params, engine)
+        self._backend = _make_backend(index, k, params, engine, metric,
+                                      metric_arg, batch_size_index, device)
         self.max_batch = int(max_batch)
         cap = getattr(self._backend, "batch_cap", lambda: None)()
         if cap is not None:
             self.max_batch = max(8, min(self.max_batch, cap))
+        self._device = self._backend.device
         self._handle = (handle if handle is not None
-                        else Handle(index.device, n_streams=2))
-        self._device = index.device
+                        else Handle(self._device, n_streams=2))
         self._warmed: set = set()
         self._lock = threading.Lock()
         self.stats: Dict[str, int] = {

@@ -10,7 +10,10 @@ labels identical except near ties (two best distances within 1e-5
 relative), values to rtol 1e-5; M-step partials from equal labels to
 1e-5 of the members' absolute sums (summation order differs from the
 plain version's atomics); LUT scores (B4) to 1e-5 × Σ_m |lut term| of the
-plain version (another summation order).
+plain version (another summation order); pairwise accumulations (B5) to
+rtol 1e-5 of the plain version for the summing ops (their terms are
+non-negative, so that is 1e-5 of Σ|terms|; fused multiply-add and powf
+round differently), linf and the hamming count exactly.
 """
 
 import numpy as np
@@ -218,3 +221,76 @@ def test_ivf_pq_rows_do_not_depend_on_the_batch(dev):
                               q, 10, engine="torch")
         agree = (i[:, :, None] == ip[:, None, :]).any(-1).float().mean()
         assert float(agree) >= 0.99
+
+
+def _assert_accumulate_close(got, ref, op):
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    if op in ("linf", "hamming"):
+        assert torch.equal(got[~nan], ref[~nan])
+    else:
+        assert bool(((got - ref).abs() <= 1e-5 * ref.abs())[~nan].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("op", ["l1", "l2", "linf", "lp", "hamming",
+                                "canberra"])
+@pytest.mark.parametrize("m,n,k", [(37, 129, 1), (1, 16385, 127),
+                                   (64, 700, 960), (300, 65, 33)])
+def test_pairwise_accumulate_kernel_matches_plain(dev, m, n, k, op, dtype):
+    """B5 against its plain version: values quantized to quarters (equal
+    and zero coordinates occur), one NaN in x; any k (960 is above the TPU
+    kernel's cap of 512)."""
+    from raft_tpu_torch.kernels import pairwise as pk
+
+    g = torch.Generator(device="cpu").manual_seed(m + n + k)
+    x = torch.round(torch.randn(m, k, generator=g) * 4) / 4
+    y = torch.round(torch.randn(n, k, generator=g) * 4) / 4
+    x[0, k // 2] = float("nan")
+    x, y = x.to(dev).to(dtype), y.to(dev).to(dtype)
+    got = pk.pairwise_accumulate(x, y, op, 3.0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    _assert_accumulate_close(got, pk.pairwise_accumulate_plain(x, y, op, 3.0),
+                             op)
+
+
+def test_pairwise_accumulate_rows_do_not_depend_on_the_batch(dev):
+    from raft_tpu_torch.kernels import pairwise as pk
+
+    g = torch.Generator(device="cpu").manual_seed(14)
+    x = torch.randn(1024, 128, generator=g).to(dev)
+    y = torch.randn(5000, 128, generator=g).to(dev)
+    for op in pk.OPS:
+        full = pk.pairwise_accumulate(x, y, op, 3.0)
+        assert torch.equal(pk.pairwise_accumulate(x[:37], y, op, 3.0),
+                           full[:37])
+
+
+def test_brute_force_serve_l1_coalesced_equals_solo(dev):
+    """The L1 brute-force engine runs B5 and B2, and each request's
+    coalesced result equals its solo knn bit for bit."""
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.serve import ServeEngine
+
+    g = torch.Generator(device="cpu").manual_seed(15)
+    x = torch.randn(60000, 64, generator=g).to(dev)
+    reqs = [torch.randn(n, 64, generator=g).numpy()
+            for n in (1, 7, 300, 1500, 33, 128)]
+    native.reset_launches()
+    eng = ServeEngine(x, 10, metric="l1", max_batch=1024)
+    eng.warmup()
+    out = eng.search(reqs)
+    assert native.LAUNCHES["pairwise_accumulate"] > 0
+    assert native.LAUNCHES["select_k"] > 0
+    assert eng.stats["solo_fallbacks"] == 1
+    for q, (d, i) in zip(reqs, out):
+        sd, si = brute_force.knn(x, q, 10, "l1")
+        assert np.array_equal(d, sd.cpu().numpy())
+        assert np.array_equal(i, si.cpu().numpy())
+    _, ip = brute_force.knn(x, reqs[2], 10, "l1", engine="torch")
+    agree = (torch.as_tensor(out[2][1])[:, :, None]
+             == ip.cpu()[:, None, :]).any(-1).float().mean()
+    assert float(agree) >= 0.99

@@ -53,7 +53,9 @@ def test_no_jax_or_raft_tpu_import_in_sources():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from raft_tpu_torch.cluster import kmeans
     from raft_tpu_torch.core.handle import Handle, resolve_device
-    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.distance import pairwise_distance
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.serve import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((64, 4), np.float32)
@@ -71,6 +73,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         kmeans.centers_from_array(x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Handle()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pairwise_distance(x, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        brute_force.knn(x, x, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(x, 3)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
 
@@ -89,7 +97,24 @@ def test_engine_policy():
         resolve_engine("l2nn", "cuda", metric=DistanceType.InnerProduct,
                        engine="cuda")
     with pytest.raises(ValueError):
-        resolve_engine("pairwise", "cpu")
+        resolve_engine("gram", "cpu")
+    # B5 serves the metrics it accumulates; the others resolve to the
+    # plain path, and an explicit "cuda" for them raises
+    for metric in (DistanceType.L1, DistanceType.L2SqrtUnexpanded,
+                   DistanceType.L2Unexpanded, DistanceType.Linf,
+                   DistanceType.Canberra, DistanceType.LpUnexpanded,
+                   DistanceType.HammingUnexpanded):
+        assert resolve_engine("pairwise", "cuda", metric=metric) == "cuda"
+        assert resolve_engine("pairwise", "cpu", metric=metric) == "torch"
+        assert resolve_engine("pairwise", "cuda", metric=metric,
+                              engine="torch") == "torch"
+        with pytest.raises(ValueError):
+            resolve_engine("pairwise", "cpu", metric=metric, engine="cuda")
+    for metric in (DistanceType.L2Expanded, DistanceType.CosineExpanded,
+                   DistanceType.BrayCurtis, DistanceType.JensenShannon):
+        assert resolve_engine("pairwise", "cuda", metric=metric) == "torch"
+        with pytest.raises(ValueError):
+            resolve_engine("pairwise", "cuda", metric=metric, engine="cuda")
     # B4 takes every LUT row on the card (a wide one in chunks), so the
     # plain version runs only on the CPU or when asked for
     assert resolve_engine("pq_lut", "cpu") == "torch"

@@ -126,3 +126,27 @@ def test_merge_sorted_runs_bit_identical(ka, kb, k, select_min):
                                    jnp.asarray(bv), jnp.asarray(bi), k,
                                    select_min)
     _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("in_k,k", [(6, 6), (6, 4), (6, 15)])
+def test_merge_sorted_parts_bit_identical(in_k, k, select_min):
+    """Three stacked parts folded from part 0; k > in_k pads part 0."""
+    parts = [_sorted_run(5, in_k, seed, select_min) for seed in (1, 2, 3)]
+    pv = np.stack([p[0] for p in parts])
+    pi = np.stack([p[1] for p in parts])
+    port = sk.merge_sorted_parts(torch.from_numpy(pv), torch.from_numpy(pi),
+                                 k, select_min)
+    ref = jax_sk.merge_sorted_parts(jnp.asarray(pv), jnp.asarray(pi), k,
+                                    select_min)
+    _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_min_max_k(select_min):
+    v = _values(4, 50, 9)
+    fn = sk.select_min_k if select_min else sk.select_max_k
+    port = fn(torch.from_numpy(v), 7)
+    ref = (jax_sk.select_min_k if select_min else jax_sk.select_max_k)(
+        jnp.asarray(v), 7)
+    _assert_same(port, ref)

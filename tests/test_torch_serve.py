@@ -1,7 +1,8 @@
-"""The port's ServeEngine, over IVF-Flat and IVF-PQ: coalesced serving
-equals solo search per request, and matches the JAX ServeEngine
-(``scheduler=False, admission=False``) on the same carried-across index
-(ids identical wherever distances are not tied, distances to rtol 1e-5)."""
+"""The port's ServeEngine, over IVF-Flat, IVF-PQ and brute force:
+coalesced serving equals solo search per request, and matches the JAX
+ServeEngine (``scheduler=False, admission=False``) on the same
+carried-across index or dense dataset (ids identical wherever distances
+are not tied, distances to rtol 1e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +11,8 @@ import pytest
 from raft_tpu.neighbors import ivf_flat as jax_ivf
 from raft_tpu.neighbors import ivf_pq as jax_pq
 from raft_tpu.serve.engine import ServeEngine as JaxServeEngine
+from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import ivf_flat as tivf
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.serve import ServeEngine
@@ -125,6 +128,48 @@ def test_ivf_pq_matches_jax_serve_engine(served_pq):
     eng = ServeEngine(tidx, K, tpq.SearchParams(n_probes=5), max_batch=64)
     jeng = JaxServeEngine(jidx, K, jax_pq.SearchParams(n_probes=5),
                           max_batch=64, scheduler=False, admission=False)
+    jeng.warmup()
+    eng.warmup()
+    _assert_close_outside_ties(eng.search(reqs), jeng.search(reqs))
+
+
+@pytest.fixture(scope="module")
+def served_dense():
+    rng = np.random.default_rng(2)
+    c = rng.uniform(-3, 3, (30, 16))
+    x = (c[rng.integers(0, 30, 1500)] + rng.standard_normal((1500, 16))
+         ).astype(np.float32)
+    reqs = [(c[rng.integers(0, 30, n)] + rng.standard_normal((n, 16))
+             ).astype(np.float32) for n in SIZES]
+    return x, reqs
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L1,
+                                    DistanceType.L2SqrtExpanded], ids=str)
+def test_brute_force_coalesced_equals_solo(served_dense, metric):
+    x, reqs = served_dense
+    # index tiles of 512 rows: two full tiles and a ragged one per scan
+    eng = ServeEngine(x, K, metric=metric, max_batch=64,
+                      batch_size_index=512, device="cpu")
+    assert eng.warmup() == 4
+    out = eng.search(reqs)
+    assert eng.stats["solo_fallbacks"] == 1
+    for q, (d, i) in zip(reqs, out):
+        assert d.shape == (q.shape[0], K) and i.dtype == np.int32
+        sd, si = tbf.knn(x, q, K, metric, batch_size_index=512, device="cpu")
+        np.testing.assert_array_equal(d, sd.numpy())
+        np.testing.assert_array_equal(i, si.numpy())
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L1,
+                                    DistanceType.L2SqrtExpanded], ids=str)
+def test_brute_force_matches_jax_serve_engine(served_dense, metric):
+    x, reqs = served_dense
+    eng = ServeEngine(x, K, metric=metric, max_batch=64,
+                      batch_size_index=512, device="cpu")
+    jeng = JaxServeEngine(jnp.asarray(x), K, metric=int(metric),
+                          max_batch=64, batch_size_index=512,
+                          scheduler=False, admission=False)
     jeng.warmup()
     eng.warmup()
     _assert_close_outside_ties(eng.search(reqs), jeng.search(reqs))

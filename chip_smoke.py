@@ -25,9 +25,14 @@ Phases, one JSON line each:
 2. kernels — B1, B2 and B3 against their plain PyTorch versions on the
    card at the main paths' shapes (B1 and B3 also at the PQ codebook
    training shape, 262,144 × 256 × 2) and at ragged edge shapes, with
-   their median times, the plain versions', one PyTorch library call's
-   where one computes the same function, and the least time the card
-   could take (bound).
+   their median device times, the plain versions', one PyTorch library
+   call's where one computes the same function, and the least time the
+   card could take (bound).  B3 also for all 64 PQ subspaces in one
+   launch (64 × 262,144 × 256 × 2) against its plain twin and, bit for
+   bit, against 64 launches of one subspace, and its M-step alone at the
+   balancing-EM shape; B2 also at a brute-force scan step (1,024 ×
+   16,384, k = 10, ``torch.topk`` as the yardstick), all on float32,
+   float16 and bfloat16 rows.
 3. IVF-Flat main path — launch counts reset, then ``ivf_flat.build``,
    ``ServeEngine(...).warmup()`` and ragged coalesced ``search()`` calls
    covering all queries; the counts are read right after and B1, B2, B3
@@ -36,7 +41,8 @@ Phases, one JSON line each:
    ``torch.topk``, the checker) of 1,000 queries, and the kernel path's
    recall within 0.002 of the plain path's.
 4. IVF-PQ main path — the same with ``ivf_pq.build`` and an IVF-PQ
-   ``ServeEngine``: B1, B2, B3 and B4 must have launched.  Checks:
+   ``ServeEngine``: B1, B2, B3 and B4 must have launched, and the build
+   at most ``MAX_PQ_BUILD_B3`` times B3.  Checks:
    coalesced equals solo, kernel-path recall@10 within 0.002 of the plain
    path's at the float32 LUT and, for a solo search, at the fp8 LUT.
 5. B4 against its plain version at the IVF-PQ main path's step shape
@@ -91,6 +97,9 @@ F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
 #: flop rate counts a fused multiply-add as two)
 F32_INSTR_PER_S = F32_FLOP_PER_S / 2
 
+#: cycles the card sleeps before a timed call, ahead of the host's
+#: enqueue (about 1 ms)
+SLEEP_CYCLES = 2_000_000
 #: which TPU kernel each port kernel replaces
 REPLACES = {
     "fused_l2_nn": "raft_tpu/kernels/fused_l2nn.py:86",
@@ -106,6 +115,9 @@ SOURCE = {
     "lut_score": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
     "pairwise_accumulate": "raft_tpu_torch/kernels/csrc/pairwise.cu",
 }
+#: B3 launches an IVF-PQ build may take: the coarse balancing EM (20 + 5
+#: iterations) and one per codebook Lloyd iteration (20) for all subspaces
+MAX_PQ_BUILD_B3 = 50
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "ivf_flat": ("fused_l2_nn", "fused_l2_nn_partials", "select_k"),
@@ -144,7 +156,8 @@ def nvidia_smi() -> str:
 
 def timed(fn, device, reps: int = 5) -> float:
     """Median milliseconds of *fn* over *reps* calls after one warm call
-    (CUDA events on the card)."""
+    (CUDA events on the card: device time, unless *fn* waits on the
+    host)."""
     import torch
 
     fn()
@@ -153,6 +166,10 @@ def timed(fn, device, reps: int = 5) -> float:
         if device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            # the card sleeps while the host enqueues the call, so the
+            # events time the device's work, not the wrapper's launch
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES)
             a.record()
             fn()
             b.record()
@@ -181,9 +198,12 @@ def mixture(gen, n, dim, centers, noise, device):
                                                device=device)
 
 
-def near_ties(x, y, rows: int = 1 << 15):
+def near_ties(x, y, rows: int = 1 << 15, of_norms: bool = False):
     """Per row of x: whether its two nearest rows of y (float64) lie
-    within 1e-5 relative of each other."""
+    within 1e-5 relative of each other — of the nearer distance, or with
+    *of_norms* of ‖x‖² + ‖y‖² of the nearer row, the scale at which the
+    float32 expanded form rounds (a row that is itself a centre has a
+    distance of 0 and a neighbour a rounding step away)."""
     import torch
 
     yd = y.double()
@@ -191,18 +211,20 @@ def near_ties(x, y, rows: int = 1 << 15):
     out = []
     for r in range(0, x.shape[0], rows):
         xd = x[r:r + rows].double()
-        d = (xd * xd).sum(1)[:, None] + yn[None] - 2 * xd @ yd.T
-        two = torch.topk(d, 2, dim=1, largest=False).values
-        out.append((two[:, 1] - two[:, 0])
-                   <= 1e-5 * two[:, 0].clamp_min(1e-30))
+        xn = (xd * xd).sum(1)
+        d = xn[:, None] + yn[None] - 2 * xd @ yd.T
+        two = torch.topk(d, 2, dim=1, largest=False)
+        scale = (xn + yn[two.indices[:, 0]] if of_norms
+                 else two.values[:, 0].clamp_min(1e-30))
+        out.append((two.values[:, 1] - two.values[:, 0]) <= 1e-5 * scale)
     return torch.cat(out)
 
 
-def check_labels(name, idx, ref_idx, x, y):
+def check_labels(name, idx, ref_idx, x, y, of_norms: bool = False):
     diff = idx != ref_idx
     n_diff = int(diff.sum())
     if n_diff:
-        ties = near_ties(x, y)
+        ties = near_ties(x, y, of_norms=of_norms)
         check(not bool((diff & ~ties).any()),
               f"{name}: labels differ outside near ties")
     return n_diff
@@ -264,11 +286,18 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     ms = timed(lambda: fused_l2nn.fused_l2_nn_partials(xt, y), device, rep)
     plain_ms = timed(lambda: plain_nn.fused_l2_nn_partials_plain(xt, y),
                      device, 3)
+    # the M-step alone (per-chunk partials from B1's labels) beside its
+    # bytes bound: one read of x and the labels, the partials written
+    m_ms = (timed(lambda: fused_l2nn._launch_cluster_partials(
+        xt, out[1], None, k), device, rep) if device.type == "cuda" else None)
+    m_bound, _ = bound_ms(4.0 * (mt * d + mt + k * d + k), 0.0)
     b, by = bound_ms(4.0 * (mt * d + 2 * k * d + 2 * mt + k),
                      2.0 * mt * k * d + mt * d)
     rows["fused_l2_nn_partials"] = dict(max_abs_err=err3, ms=ms,
                                         plain_ms=plain_ms, bound_ms=b,
-                                        bound_by=by, library_ms=None)
+                                        bound_by=by, library_ms=None,
+                                        m_step_ms=m_ms,
+                                        m_step_bound_ms=m_bound)
     emit({"phase": "kernel", "name": "fused_l2_nn_partials",
           "shape": [mt, k, d], "label_diffs_near_ties": n_diff3,
           "sums_bitwise_repeat": True, **rows["fused_l2_nn_partials"]})
@@ -307,10 +336,14 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
              for n in ("fused_l2_nn", "fused_l2_nn_partials")
              for key in ("codebook_ms", "codebook_plain_ms",
                          "codebook_max_abs_err")}})
+    rows["fused_l2_nn_partials"].update(
+        b3_batched_phase(device, gen, rep, min(262144, m)))
 
-    # B2 at the coarse top-n_probes shape, a probe-tile shape, and a
-    # matrix of ties, NaN and ±inf
+    # B2 at the coarse top-n_probes shape, a probe-tile shape, a
+    # brute-force scan step, and a matrix of ties, NaN and ±inf; float32,
+    # float16 and bfloat16 rows
     from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.kernels import pairwise as pk
     from raft_tpu_torch.neighbors.ivf_flat import _coarse_distances
 
     coarse = _coarse_distances(queries, y, DistanceType.L2Expanded)
@@ -318,6 +351,10 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
         "coarse": (coarse, 20),
         "probe_tile": (torch.rand(1024, 2448, generator=gen, device=device)
                        * 100.0, 10),
+        # a brute-force scan step: L1 distances of 1,024 queries to 16,384
+        # rows (B5's output)
+        "scan": (pk.pairwise_accumulate(queries[:1024], x[:16384], "l1"),
+                 10),
     }
     ties = torch.randint(-40, 40, (1000, 1000), generator=gen,
                          device=device).float() / 4.0
@@ -329,28 +366,100 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     cases["ties_nan_inf"] = (ties, 128)
     info = {}
     for name, (vals, kk) in cases.items():
-        for select_min in (True, False):
-            kv, kp = ksel.select_k_blockwise(vals, kk, select_min)
-            pv2, pp = select_k_plain(vals, kk, select_min)
-            check(torch.equal(kp, pp), f"select_k {name}: positions differ")
-            check(torch.equal(torch.nan_to_num(kv, nan=0.5),
-                              torch.nan_to_num(pv2, nan=0.5)),
-                  f"select_k {name}: values differ")
+        for dt in (torch.float32, torch.float16, torch.bfloat16):
+            vd = vals.to(dt)
+            for select_min in (True, False):
+                kv, kp = ksel.select_k_blockwise(vd, kk, select_min)
+                pv2, pp = select_k_plain(vd, kk, select_min)
+                check(torch.equal(kp, pp),
+                      f"select_k {name} {dt}: positions differ")
+                check(torch.equal(torch.nan_to_num(kv.float(), nan=0.5),
+                                  torch.nan_to_num(pv2.float(), nan=0.5)),
+                      f"select_k {name} {dt}: values differ")
         info[name] = [list(vals.shape), kk]
-    nq, nl = coarse.shape
-    ms = timed(lambda: ksel.select_k_blockwise(coarse, 20), device, rep)
-    plain_ms = timed(lambda: select_k_plain(coarse, 20), device, rep)
-    lib_ms = timed(lambda: torch.topk(coarse, 20, dim=1, largest=False),
-                   device, rep)
-    tile, tk = cases["probe_tile"]
-    tile_ms = timed(lambda: ksel.select_k_blockwise(tile, tk), device, rep)
-    b, by = bound_ms(4.0 * nq * nl + 8.0 * nq * 20, float(nq * nl))
-    rows["select_k"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b, bound_by=by, library_ms=lib_ms)
-    emit({"phase": "kernel", "name": "select_k", "shape": [nq, nl, 20],
+    by_shape = {}
+    for name in ("coarse", "probe_tile", "scan"):
+        vals, kk = cases[name]
+        nq, nl = vals.shape
+        b, by = bound_ms(4.0 * nq * nl + 8.0 * nq * kk, float(nq * nl))
+        by_shape[name] = dict(
+            shape=[nq, nl, kk], bound_ms=b, bound_by=by,
+            ms=timed(lambda: ksel.select_k_blockwise(vals, kk), device, rep),
+            plain_ms=timed(lambda: select_k_plain(vals, kk), device, rep),
+            library_ms=timed(lambda: torch.topk(vals, kk, dim=1,
+                                                largest=False), device, rep),
+            half_ms={str(dt).split(".")[1]: timed(
+                lambda h=vals.to(dt): ksel.select_k_blockwise(h, kk), device,
+                rep) for dt in (torch.float16, torch.bfloat16)})
+    # the brute-force scan shape is where B2 spends most of its time
+    scan = by_shape["scan"]
+    rows["select_k"] = dict(max_abs_err=0.0, ms=scan["ms"],
+                            plain_ms=scan["plain_ms"],
+                            bound_ms=scan["bound_ms"],
+                            bound_by=scan["bound_by"],
+                            library_ms=scan["library_ms"], by_shape=by_shape)
+    emit({"phase": "kernel", "name": "select_k", "shape": scan["shape"],
           "cases": info, "positions_bit_identical": True,
-          "probe_tile_ms": tile_ms, **rows["select_k"]})
+          "library": "torch.topk", **rows["select_k"]})
     return rows
+
+
+def b3_batched_phase(device, gen, rep: int, n: int):
+    """B3 at the IVF-PQ codebook step: all 64 subspaces of n (the build's
+    pq_trainset_cap, 262,144) × 2 against 256 codewords in one launch,
+    against its plain twin and against 64 launches of one subspace each
+    (bit for bit); returns the fields for B3's row."""
+    import torch
+
+    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.kernels import fused_l2nn
+
+    s, k, ds = 64, 256, 2
+    xs = torch.randn(s, n, ds, generator=gen, device=device)
+    ys = torch.stack([xs[i, torch.randperm(n, generator=gen,
+                                           device=device)[:k]]
+                      for i in range(s)])
+    out = fused_l2nn.fused_l2_nn_partials_batched(xs, ys)
+    ref = plain_nn.fused_l2_nn_partials_batched_plain(xs, ys)
+    n_diff, err = 0, 0.0
+    for i in range(s):
+        n_diff += check_labels("fused_l2_nn_partials batched", out[1][i],
+                               ref[1][i], xs[i], ys[i], of_norms=True)
+        sums, wsum = plain_nn.cluster_partials_plain(xs[i], out[1][i], k)
+        mag, _ = plain_nn.cluster_partials_plain(xs[i].abs(), out[1][i], k)
+        check(bool(((out[2][i] - sums).abs() <= 1e-5 * mag + 1e-6).all())
+              and torch.equal(out[3][i], wsum),
+              "fused_l2_nn_partials batched: partials beyond 1e-5 of the "
+              "members' |sum|")
+        err = max(err, float((out[2][i] - sums).abs().max()))
+        one = fused_l2nn.fused_l2_nn_partials(xs[i], ys[i])
+        check(all(torch.equal(a[i], b) for a, b in zip(out, one)),
+              "fused_l2_nn_partials batched: differs from the one-subspace "
+              "launch")
+    again = fused_l2nn.fused_l2_nn_partials_batched(xs, ys)
+    check(all(torch.equal(a, b) for a, b in zip(again, out)),
+          "fused_l2_nn_partials batched: differs between two runs")
+    # the least work: x and the centres read, labels, values and partials
+    # written; (ds + 4) float32 instructions per (row, centre) pair (ds
+    # fused multiply-adds, the expanded form, the clamp and the compare)
+    b, by = bound_ms(4.0 * (s * n * ds + 2 * s * k * ds + 2 * s * n + s * k),
+                     float(s) * n * k * (ds + 4), F32_INSTR_PER_S)
+    row = dict(
+        batched_shape=[s, n, k, ds], batched_max_abs_err=err,
+        batched_label_diffs_near_ties=n_diff, batched_bound_ms=b,
+        batched_bound_by=by,
+        batched_ms=timed(lambda: fused_l2nn.fused_l2_nn_partials_batched(
+            xs, ys), device, rep),
+        batched_plain_ms=timed(
+            lambda: plain_nn.fused_l2_nn_partials_batched_plain(xs, ys),
+            device, 3),
+        per_subspace_x64_ms=timed(lambda: [
+            fused_l2nn.fused_l2_nn_partials(xs[i], ys[i]) for i in range(s)],
+            device, 3))
+    emit({"phase": "kernel", "name": "fused_l2_nn_partials@batched",
+          "equals_per_subspace_launches": True, "sums_bitwise_repeat": True,
+          **row})
+    return row
 
 
 def recall(ids, truth):
@@ -518,6 +627,7 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                 n_probes, k):
     """The IVF-PQ main path and its checks; returns (index, engine,
     launches)."""
+    from raft_tpu_torch.kernels import native
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.serve import ServeEngine
 
@@ -527,12 +637,19 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                          device=device)
     build_s = _synced_seconds(device, t0)
     check(index.size == x.shape[0], "build: index does not hold every row")
+    # the coarse trainer's balancing EM and one batched launch per
+    # codebook Lloyd iteration for all pq_dim subspaces
+    b3_build = native.LAUNCHES["fused_l2_nn_partials"]
+    check(0 < b3_build <= MAX_PQ_BUILD_B3,
+          f"ivf_pq build launched B3 {b3_build} times (at most "
+          f"{MAX_PQ_BUILD_B3})")
     leaf_bytes = sum(getattr(index, f).numel()
                      * getattr(index, f).element_size()
                      for f in ivf_pq.ARRAY_FIELDS)
     params = ivf_pq.SearchParams(n_probes=n_probes)
     emit_build("ivf_pq", index, build_s,
-               {"pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
+               {"b3_launches": b3_build,
+                "pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
                 "physical_rows": int(index.list_codes.shape[0]),
                 "code_bytes_per_row": int(index.list_codes.shape[2]),
                 "codes_bytes": index.list_codes.numel(),

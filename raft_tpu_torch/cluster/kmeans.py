@@ -1,6 +1,8 @@
 """K-means building blocks (subset port of ``raft_tpu/cluster/kmeans.py``:
 ``min_cluster_and_distance`` :46, ``update_centroids`` :149,
-``centroids_from_sums`` :166, ``fused_em_step`` :409).
+``centroids_from_sums`` :166, ``fused_em_step`` :409) and
+:func:`fused_em_step_batched`, the batch dimension of the JAX package's
+``jax.vmap`` of its Lloyd step over PQ subspaces.
 
 The E-step runs kernel B1 and the fused EM step kernel B3 on a CUDA
 device (``engine="cuda"``, the default there); ``engine="torch"`` runs
@@ -62,10 +64,11 @@ def min_cluster_and_distance(x: torch.Tensor, centroids: torch.Tensor,
 def centroids_from_sums(sums: torch.Tensor, wsum: torch.Tensor,
                         old_centroids: Optional[torch.Tensor],
                         dtype: torch.dtype) -> torch.Tensor:
-    """Weighted means; an empty cluster keeps its previous centroid."""
-    new = (sums / torch.clamp_min(wsum, 1e-30)[:, None]).to(dtype)
+    """Weighted means, sums (..., k, d) over wsum (..., k); an empty
+    cluster keeps its previous centroid."""
+    new = (sums / torch.clamp_min(wsum, 1e-30)[..., None]).to(dtype)
     if old_centroids is not None:
-        new = torch.where(wsum[:, None] > 0, new, old_centroids)
+        new = torch.where(wsum[..., None] > 0, new, old_centroids)
     return new
 
 
@@ -94,6 +97,30 @@ def fused_em_step(x: torch.Tensor, centroids: torch.Tensor,
     else:
         val, idx, sums, wsum, inertia = plain.fused_l2_nn_partials_plain(
             x, centroids, sample_weights)
+    return EMPartials(sums, wsum, inertia,
+                      idx if return_labels else None,
+                      val if return_labels else None)
+
+
+def fused_em_step_batched(x: torch.Tensor, centroids: torch.Tensor,
+                          sample_weights: Optional[torch.Tensor] = None,
+                          metric: DistanceType = DistanceType.L2Expanded,
+                          engine: Optional[str] = None,
+                          return_labels: bool = False) -> EMPartials:
+    """:func:`fused_em_step` for S independent problems at once: x
+    (S, n, d), centroids (S, k, d), sample_weights (n,) or (S, n); every
+    field of the result gains the leading S.  On the card narrow rows
+    (the PQ codebooks) run as one launch of kernel B3 for all S."""
+    if _engine(x, metric, engine) == "cuda":
+        from raft_tpu_torch.kernels.fused_l2nn import (
+            fused_l2_nn_partials_batched)
+
+        val, idx, sums, wsum, inertia = fused_l2_nn_partials_batched(
+            x, centroids, sample_weights)
+    else:
+        val, idx, sums, wsum, inertia = (
+            plain.fused_l2_nn_partials_batched_plain(x, centroids,
+                                                     sample_weights))
     return EMPartials(sums, wsum, inertia,
                       idx if return_labels else None,
                       val if return_labels else None)

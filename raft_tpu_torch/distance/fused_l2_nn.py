@@ -10,6 +10,9 @@ are held to, and what the kernel wrappers run for tensors on the CPU:
   the first minimum, as ``jnp.argmin`` does).
 * :func:`fused_l2_nn_partials_plain` — the same E-step plus the M-step
   partials: (k, d) Σ w·x per cluster, (k,) Σ w, and the inertia Σ w·val.
+* :func:`fused_l2_nn_partials_batched_plain` — that for S independent
+  problems (the PER_SUBSPACE codebooks), one at a time, so it never holds
+  an (S, n, k) distance tensor.
 """
 
 from __future__ import annotations
@@ -77,3 +80,14 @@ def fused_l2_nn_partials_plain(x: torch.Tensor, y: torch.Tensor,
     w = None if weights is None else weights.float()
     inertia = torch.sum(val) if w is None else torch.sum(val * w)
     return val, idx, sums, wsum, inertia
+
+
+def fused_l2_nn_partials_batched_plain(x: torch.Tensor, y: torch.Tensor,
+                                       weights: Optional[torch.Tensor] = None):
+    """x (S, n, d), y (S, k, d), weights (n,) or (S, n) → (val (S, n),
+    idx (S, n), sums (S, k, d), wsum (S, k), inertia (S,))."""
+    outs = [fused_l2_nn_partials_plain(
+        x[i], y[i], None if weights is None
+        else (weights if weights.ndim == 1 else weights[i]))
+        for i in range(x.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))

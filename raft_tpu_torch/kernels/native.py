@@ -106,21 +106,31 @@ def load_all() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
-#: argument types of every exported launch function (pointers and the
-#: stream as c_void_p, so ctypes never cuts them to 32 bits)
+#: argument types of every exported function (pointers and the stream as
+#: c_void_p, so ctypes never cuts them to 32 bits); the result is the CUDA
+#: error code (int) unless given beside them
 _SIGNATURES = {
     "fused_l2nn": {
         # x, xn, y, yn, val, idx, m, k, d, bf16_dot, stream
         "raft_fused_l2nn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # x, w (nullable), order, offsets, sums, wsum, k, d, stream
-        "raft_segment_sums": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        # x, w (nullable), w_stride, y, S, n, k, ds, val, idx, part, sums,
+        # wsum, inertia, stream
+        "raft_em_small": [_P, _P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P],
+        # S, n, k, ds -> floats of the partials scratch
+        "raft_em_small_scratch": ([_I, _I, _I, _I], _L),
+        # x, w (nullable), labels, m, k, d, part, sums, wsum, stream
+        "raft_cluster_partials": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        # m, k, d -> floats of the partials scratch
+        "raft_cluster_partials_scratch": ([_I, _I, _I], _L),
     },
     "select_k": {
-        # x, rows, n, k, select_min, pos, stream
-        "raft_select_k": [_P, _I, _I, _I, _I, _P, _P],
+        # x, rows, n, k, select_min, dtype, values, positions, stream
+        "raft_select_k": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "ivf_pq_lut": {
         # codes, rows, lut, out, nq, n_rows, cap, code_bytes, pq_dim,
@@ -136,9 +146,10 @@ _SIGNATURES = {
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    for fn, argtypes in _SIGNATURES[name].items():
+    for fn, sig in _SIGNATURES[name].items():
+        argtypes, restype = sig if isinstance(sig, tuple) else (sig, _I)
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
+        getattr(lib, fn).restype = restype
     lib.raft_cuda_error_string.argtypes = [_I]
     lib.raft_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,10 +1,11 @@
-"""Wrapper of kernel B2, the warp-level select-k — ``csrc/select_k.cu``.
+"""Wrapper of kernel B2, the filtered warp select-k — ``csrc/select_k.cu``.
 
 Replaces ``raft_tpu/kernels/select_k.py`` ``select_k_blockwise``: per row,
 the positions of the k best values best-first, ties at the lowest
 position, NaN ranked as the worst value, half types compared in float32
-(the widening is exact, so order and ties are unchanged); values are
-gathered from the raw input by position.  Bit-identical to the plain
+(the kernel reads float16 and bfloat16 rows in their own type and widens
+them exactly, so order and ties are unchanged); the kernel reads the
+values back from the raw input by position.  Bit-identical to the plain
 version in ``raft_tpu_torch.matrix.select_k``.
 
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
@@ -25,8 +26,8 @@ from raft_tpu_torch.kernels import native
 #: largest k the kernel accepts (four 32-lane register runs)
 MAX_K = 128
 #: the kernel compares in float32; these widen to it exactly (float64
-#: would not, and stays on the plain version)
-_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+#: would not, and stays on the plain version); value: the kernel's code
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def supports(k: int, n: int, dtype: torch.dtype) -> bool:
@@ -47,18 +48,16 @@ def select_k_blockwise(values: torch.Tensor, k: int, select_min: bool = True
         return select_k_plain(values, k, select_min)
     expects(values.device.type == "cuda", f"select_k: device {values.device}")
     lead = values.shape[:-1]
-    x = values.reshape(-1, n)
-    if x.dtype != torch.float32:
-        x = x.float()   # exact widening (see _DTYPES)
-    x = x.contiguous()
+    x = values.reshape(-1, n).contiguous()
     rows = x.shape[0]
+    vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
     pos = torch.empty((rows, k), dtype=torch.int32, device=x.device)
     if rows:
         lib = native.library("select_k")
         err = lib.raft_select_k(x.data_ptr(), rows, n, k,
-                                int(bool(select_min)), pos.data_ptr(),
+                                int(bool(select_min)), _DTYPES[x.dtype],
+                                vals.data_ptr(), pos.data_ptr(),
                                 native.stream_handle(x.device))
         native.check(lib, err, "select_k_kernel")
         native.LAUNCHES["select_k"] += 1
-    pos = pos.reshape(lead + (k,))
-    return torch.gather(values, -1, pos.long()), pos
+    return vals.reshape(lead + (k,)), pos.reshape(lead + (k,))

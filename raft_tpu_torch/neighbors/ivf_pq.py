@@ -42,7 +42,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.cluster.kmeans import centroids_from_sums, fused_em_step
+from raft_tpu_torch.cluster.kmeans import (centroids_from_sums,
+                                           fused_em_step_batched)
 from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import LogicError, expects
@@ -275,19 +276,21 @@ def _sub_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _lloyd_kmeans(gen: torch.Generator, data: torch.Tensor, k: int,
                   iters: int, engine: Optional[str]) -> torch.Tensor:
-    """Plain Lloyd k-means for one codebook: (n, d) → (k, d).  Every
-    iteration is one fused EM step (kernel B3 on the card: nearest centre,
-    then the members' sums in row order); an empty cluster keeps its
-    centre — what the JAX package's Lloyd step computes, without the
-    (n, k) distance matrix."""
-    n = data.shape[0]
-    if n >= k:
-        sel = torch.randperm(n, generator=gen)[:k]
-    else:
-        sel = torch.randint(0, n, (k,), generator=gen)
-    centers = data[sel.to(data.device)]
+    """Plain Lloyd k-means for S codebooks at once: data (S, n, d) →
+    centres (S, k, d).  The S initial centre sets are drawn first, in the
+    order one codebook at a time would draw them (a Lloyd step draws
+    nothing); then every iteration is one batched fused EM step (kernel B3
+    on the card: one launch for all S, the nearest centre and the members'
+    sums) and one batched centroid update; an empty cluster keeps its
+    centre — what the JAX package's ``jax.vmap`` of its Lloyd step
+    computes, without the (S, n, k) distance tensor."""
+    s, n, d = data.shape
+    sels = [torch.randperm(n, generator=gen)[:k] if n >= k
+            else torch.randint(0, n, (k,), generator=gen) for _ in range(s)]
+    sel = torch.stack(sels).to(data.device)
+    centers = torch.gather(data, 1, sel[..., None].expand(s, k, d))
     for _ in range(iters):
-        p = fused_em_step(data, centers, engine=engine)
+        p = fused_em_step_batched(data, centers, engine=engine)
         centers = centroids_from_sums(p.sums, p.weights, centers,
                                       torch.float32)
     return centers
@@ -296,14 +299,12 @@ def _lloyd_kmeans(gen: torch.Generator, data: torch.Tensor, k: int,
 def _train_codebooks_subspace(gen: torch.Generator, residuals: torch.Tensor,
                               pq_dim: int, k: int, iters: int,
                               engine: Optional[str]) -> torch.Tensor:
-    """PER_SUBSPACE: one codebook per subspace, (pq_dim, k, ds), trained
-    one subspace at a time (all at once would hold a (pq_dim, n, k)
-    distance tensor: 17 GB at 262,144 × 64 × 256)."""
+    """PER_SUBSPACE: one codebook per subspace, (pq_dim, k, ds), all
+    subspaces trained together (``raft_tpu``'s ``jax.vmap`` over them)."""
     n, rot_dim = residuals.shape
     ds = rot_dim // pq_dim
-    return torch.stack([
-        _lloyd_kmeans(gen, residuals[:, m * ds:(m + 1) * ds].contiguous(),
-                      k, iters, engine) for m in range(pq_dim)])
+    sub = residuals.reshape(n, pq_dim, ds).transpose(0, 1).contiguous()
+    return _lloyd_kmeans(gen, sub, k, iters, engine)
 
 
 def _encode(residuals: torch.Tensor, codebooks: torch.Tensor

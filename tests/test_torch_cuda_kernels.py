@@ -8,8 +8,10 @@ machine need not have).
 Tolerances: select_k positions and values bit-identical; fused L2 NN
 labels identical except near ties (two best distances within 1e-5
 relative), values to rtol 1e-5; M-step partials from equal labels to
-1e-5 of the members' absolute sums (summation order differs from the
-plain version's atomics); LUT scores (B4) to 1e-5 × Σ_m |lut term| of the
+1e-5 of the members' absolute sums (the kernel adds each block's rows and
+then the blocks in a fixed order, the plain version's ``index_add_`` in
+its own), and bit for bit from run to run and between one launch for S
+subspaces and S launches of one; LUT scores (B4) to 1e-5 × Σ_m |lut term| of the
 plain version (another summation order); pairwise accumulations (B5) to
 rtol 1e-5 of the plain version for the summing ops (their terms are
 non-negative, so that is 1e-5 of Σ|terms|; fused multiply-add and powf
@@ -95,6 +97,149 @@ def test_fused_l2_nn_partials_kernel_matches_plain(dev, weighted):
     torch.testing.assert_close(wsum, pw, rtol=1e-5, atol=1e-5)
     again = fused_l2_nn_partials(x, y, w)
     assert torch.equal(again[2], sums) and torch.equal(again[3], wsum)
+
+
+def _assert_partials_close(x, y, w, out, ref):
+    """One problem's kernel output against its plain version: labels equal
+    except near ties; values within 1e-5 of ‖x‖² + ‖y‖² (the expanded form
+    rounds at the scale of the norms, and the kernel forms the norms by
+    fused multiply-adds, the plain version by a reduction: a row that is
+    one of the centres has a distance of a few ulp of its norm, not 0);
+    sums and weights from the kernel's labels within 1e-5 of the members'
+    absolute sums; inertia to rtol 1e-5."""
+    from raft_tpu_torch.distance.fused_l2_nn import cluster_partials_plain
+
+    val, idx, sums, wsum, inertia = out
+    k = y.shape[0]
+    diff = idx != ref[1]
+    if bool(diff.any()):
+        assert not bool((diff & ~_near_tie(x, y)).any())
+    scale = (x * x).sum(1) + (y * y).sum(1)[idx.long()]
+    assert bool(((val - ref[0]).abs() <= 1e-5 * scale + 1e-6).all())
+    ps, pw = cluster_partials_plain(x, idx, k, w)
+    scale, wscale = cluster_partials_plain(x.abs(), idx, k, w)
+    assert bool(((sums - ps).abs() <= 1e-5 * scale + 1e-6).all())
+    assert bool(((wsum - pw).abs() <= 1e-5 * wscale + 1e-6).all())
+    torch.testing.assert_close(inertia, ref[4], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("ds", [1, 2, 4, 16])
+@pytest.mark.parametrize("k", [7, 256])
+@pytest.mark.parametrize("s", [1, 3, 64])
+def test_fused_l2_nn_partials_batched_matches_plain(dev, s, k, ds, weighted):
+    """B3 at narrow rows, all S subspaces in one launch, against its plain
+    twin; n = 3001 is not a multiple of the kernel's row chunk or pass."""
+    from raft_tpu_torch.distance.fused_l2_nn import (
+        fused_l2_nn_partials_batched_plain)
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.kernels.fused_l2nn import (
+        fused_l2_nn_partials_batched)
+
+    n = 3001
+    g = torch.Generator(device="cpu").manual_seed(s * 1000 + k * 10 + ds)
+    x = torch.randn(s, n, ds, generator=g).to(dev)
+    y = torch.stack([x[i, torch.randperm(n, generator=g)[:k].to(dev)]
+                     for i in range(s)])
+    w = (torch.rand(s, n, generator=g) + 0.5).to(dev) if weighted else None
+    native.reset_launches()
+    out = fused_l2_nn_partials_batched(x, y, w)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["fused_l2_nn_partials"] == 1
+    ref = fused_l2_nn_partials_batched_plain(x, y, w)
+    assert out[0].shape == (s, n) and out[2].shape == (s, k, ds)
+    for i in range(s):
+        _assert_partials_close(x[i], y[i], None if w is None else w[i],
+                               [t[i] for t in out], [t[i] for t in ref])
+    again = fused_l2_nn_partials_batched(x, y, w)
+    for a, b in zip(again, out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ds", [2, 16])
+@pytest.mark.parametrize("s", [3, 64])
+def test_fused_l2_nn_partials_batched_equals_per_subspace(dev, s, ds):
+    """One launch for S subspaces gives the bits of S launches of one, with
+    no weights, weights shared by the subspaces, and weights per subspace."""
+    from raft_tpu_torch.kernels.fused_l2nn import (
+        fused_l2_nn_partials, fused_l2_nn_partials_batched)
+
+    n, k = 5000, 256
+    g = torch.Generator(device="cpu").manual_seed(s + ds)
+    x = torch.randn(s, n, ds, generator=g).to(dev)
+    y = torch.randn(s, k, ds, generator=g).to(dev)
+    shared = (torch.rand(n, generator=g) + 0.5).to(dev)
+    per = (torch.rand(s, n, generator=g) + 0.5).to(dev)
+    for w in (None, shared, per):
+        got = fused_l2_nn_partials_batched(x, y, w)
+        for i in range(s):
+            wi = None if w is None else (w if w.ndim == 1 else w[i])
+            one = fused_l2_nn_partials(x[i], y[i], wi)
+            for a, b in zip(got, one):
+                assert torch.equal(a[i], b)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("m,k,d", [(20000, 1500, 37), (3000, 1024, 128),
+                                   (257, 3, 2048), (100, 300, 17),
+                                   (5000, 257, 16)])
+def test_cluster_partials_kernel_wide_shapes(dev, m, k, d, weighted):
+    """B3 at wide rows (B1's E-step, then the column-slab partials): more
+    clusters than one block accumulates (1,500), widths off the 16-column
+    slab, 2,048 features, and k just above the narrow kernel's 256."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_partials_plain
+    from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn_partials
+
+    g = torch.Generator(device="cpu").manual_seed(m + k + d)
+    x = torch.randn(m, d, generator=g).to(dev)
+    y = x[torch.randperm(m, generator=g)[:k].to(dev)] if k <= m else \
+        torch.randn(k, d, generator=g).to(dev)
+    w = (torch.rand(m, generator=g) + 0.5).to(dev) if weighted else None
+    out = fused_l2_nn_partials(x, y, w)
+    torch.cuda.synchronize()
+    _assert_partials_close(x, y, w, out, fused_l2_nn_partials_plain(x, y, w))
+    again = fused_l2_nn_partials(x, y, w)
+    assert torch.equal(again[2], out[2]) and torch.equal(again[3], out[3])
+
+
+def _ties_nan_inf(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    v = (rng.integers(-40, 40, (rows, n)) / 4.0).astype(np.float32)
+    flat = v.reshape(-1)
+    spots = rng.choice(flat.size, max(3, flat.size // 40), replace=False)
+    flat[spots[0::3]] = np.nan
+    flat[spots[1::3]] = np.inf
+    flat[spots[2::3]] = -np.inf
+    return v
+
+
+@pytest.mark.parametrize("rows", [1, 37, 1024])
+@pytest.mark.parametrize("n", [16384, 100000, 2448, 1024])
+def test_select_k_kernel_long_rows_bit_identical(dev, n, rows):
+    """B2 against the plain version, positions and values bit for bit, at
+    the main paths' row lengths and beyond: k from 1 to 128, ties, NaN and
+    ±inf, float32 / float16 / bfloat16, select-min and select-max, rows
+    whose starts lie off the 16-byte boundary (a view at an odd offset)
+    and a column slice of a wider matrix."""
+    from raft_tpu_torch.kernels.select_k import select_k_blockwise
+    from raft_tpu_torch.matrix.select_k import select_k_plain
+
+    v = torch.from_numpy(_ties_nan_inf(rows, n, n + rows)).to(dev)
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        vd = v.to(dt)
+        flat = torch.empty(rows * n + 1, dtype=dt, device=dev)
+        flat[1:] = vd.reshape(-1)
+        wide = torch.zeros(rows, n + 3, dtype=dt, device=dev)
+        wide[:, 1:n + 1] = vd
+        for t in (vd, flat[1:].view(rows, n), wide[:, 1:n + 1]):
+            for k in (1, 10, 20, 32, 33, 128):
+                for select_min in (True, False):
+                    kv, kp = select_k_blockwise(t, k, select_min)
+                    pv, pp = select_k_plain(t, k, select_min)
+                    assert kv.dtype == t.dtype
+                    assert torch.equal(kp, pp), (dt, k, select_min)
+                    assert torch.equal(torch.nan_to_num(kv.float(), nan=7.5),
+                                       torch.nan_to_num(pv.float(), nan=7.5))
 
 
 @pytest.mark.parametrize("select_min", [True, False])

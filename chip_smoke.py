@@ -41,15 +41,23 @@ Phases, one JSON line each:
    ``torch.topk``, the checker) of 1,000 queries, and the kernel path's
    recall within 0.002 of the plain path's.
 4. IVF-PQ main path — the same with ``ivf_pq.build`` and an IVF-PQ
-   ``ServeEngine``: B1, B2, B3 and B4 must have launched, and the build
-   at most ``MAX_PQ_BUILD_B3`` times B3.  Checks:
-   coalesced equals solo, kernel-path recall@10 within 0.002 of the plain
-   path's at the float32 LUT and, for a solo search, at the fp8 LUT.
-5. B4 against its plain version at the IVF-PQ main path's step shape
-   (1,024 queries × the index's capacity, pq_dim 64, 8 bits) for all four
-   LUT types, and at ragged shapes (nq 1 and 37, capacities off the
-   256-slot block, pq_bits 4/5/7 with odd code bytes); ``embedding_bag``
-   is the library yardstick.
+   ``ServeEngine``: B1, B2, B3 and B4's scan mode must have launched, B4's
+   per-step raw mode never, and the build at most ``MAX_PQ_BUILD_B3``
+   times B3.  Checks: coalesced equals solo, kernel-path recall@10 within
+   0.002 of the plain path's at the float32 LUT and, for a solo search,
+   at the fp8 LUT.
+5. B4's raw mode against its plain version at the IVF-PQ main path's step
+   shape (1,024 queries × the index's capacity, pq_dim 64, 8 bits) for
+   all four LUT types, and at ragged shapes (nq 1 and 37, capacities off
+   the 256-slot block, pq_bits 4/5/7 with odd code bytes, LUT rows wider
+   than a block's shared memory); ``embedding_bag`` is the library
+   yardstick.  Then B4's scan mode at the batch shape (1,024 queries × the
+   scan's steps × the capacity) with the index's float32 and fp8 LUTs:
+   one launch per batch, (distances, ids) bit for bit equal to the
+   per-step path (raw mode, the PyTorch epilogue, the live mask, B2 per
+   step, the running merge), the live share of the (query, slot) pairs
+   the per-step path scores, and its time beside its plain twin's, the
+   per-step path's and a bound counted on live slots.
 6. brute-force main path — launch counts reset, then
    ``ServeEngine(x, 10, metric="l1", max_batch=1024).warmup()`` and the
    same ragged calls; B5 and B2 must have launched.  Checks: coalesced
@@ -63,8 +71,9 @@ Phases, one JSON line each:
 8. B5 against its plain version: all six ops × float32 / bfloat16 /
    float16 at the scan step (bucket 1,024 × tile 16,384 × 128), ragged
    shapes (m 1 and 37, n 1, 129 and 16,385, k 1, 3, 127 and 960, one NaN
-   in x), and the rows of a 37-row batch equal to the first 37 of the
-   1,024-row one bit for bit; each op's time beside the plain version's,
+   in x), and the rows of every bucket size (1 to 512, and 37) equal to
+   the first rows of the 1,024-row batch bit for bit (B5's tile follows
+   the batch); each op's time beside the plain version's,
    ``torch.cdist``'s (p = 1, 2 without the matrix-product form, ∞, 3 and
    0; Canberra has none) and the bound, counted from at least
    ``B5_OPS_PER_ELEMENT`` float32 instructions per element at the card's
@@ -106,6 +115,7 @@ REPLACES = {
     "fused_l2_nn_partials": "raft_tpu/kernels/fused_l2nn.py:187",
     "select_k": "raft_tpu/kernels/select_k.py:155",
     "lut_score": "raft_tpu/kernels/ivf_pq_lut.py:98",
+    "lut_scan": "raft_tpu/kernels/ivf_pq_lut.py:98",
     "pairwise_accumulate": "raft_tpu/kernels/pairwise.py:81",
 }
 SOURCE = {
@@ -113,6 +123,7 @@ SOURCE = {
     "fused_l2_nn_partials": "raft_tpu_torch/kernels/csrc/fused_l2nn.cu",
     "select_k": "raft_tpu_torch/kernels/csrc/select_k.cu",
     "lut_score": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
+    "lut_scan": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
     "pairwise_accumulate": "raft_tpu_torch/kernels/csrc/pairwise.cu",
 }
 #: B3 launches an IVF-PQ build may take: the coarse balancing EM (20 + 5
@@ -122,9 +133,12 @@ MAX_PQ_BUILD_B3 = 50
 PATH_KERNELS = {
     "ivf_flat": ("fused_l2_nn", "fused_l2_nn_partials", "select_k"),
     "ivf_pq": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
-               "lut_score"),
+               "lut_scan"),
     "brute_force": ("pairwise_accumulate", "select_k"),
 }
+#: batch sizes whose rows must equal the first rows of the 1,024-row
+#: batch (the serving buckets, a solo query and one size off the ladder)
+BUCKET_ROWS = (1, 8, 16, 32, 37, 64, 128, 256, 512)
 #: B5's float32 instructions per element, at least (L1: a subtract and an
 #: add with an abs modifier; l2: a subtract and a fused multiply-add; linf
 #: a subtract and a NaN-propagating max; lp a subtract, log2, multiply,
@@ -657,6 +671,8 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     eng = ServeEngine(index, k, params, max_batch=1024)
     results, launches = serve_path("ivf_pq", device, eng, k, reqs, calls,
                                    n_queries)
+    check(launches["lut_score"] == 0, "ivf_pq: the scan launched B4's "
+          "per-step raw mode instead of one scan-mode launch per batch")
     check_coalesced("ivf_pq", lambda q: ivf_pq.search(params, index, q, k),
                     reqs, results)
     nr = qr.shape[0]
@@ -754,7 +770,7 @@ def lut_phase(device, index, queries, rep: int):
 
     # ragged shapes: nq 1 and 37, capacities off the 256-slot block,
     # pq_bits 4/5/7 with odd code bytes, and LUT rows beyond one block's
-    # shared memory (staged in subspace chunks)
+    # shared memory (read from global memory)
     ragged = []
     for rnq, rcap, rdim, rbits in ((1, 1000, 64, 8), (37, 257, 64, 8),
                                    (37, 1001, 13, 4), (5, 999, 10, 5),
@@ -782,6 +798,141 @@ def lut_phase(device, index, queries, rep: int):
           "distinct_rows": distinct,
           "ragged_shapes_nq_cap_pqdim_bits_codebytes": ragged,
           "library": "embedding_bag", **row})
+    return row
+
+
+def lut_scan_phase(device, index, queries, n_probes: int, k: int,
+                   rep: int):
+    """B4's scan mode at the IVF-PQ batch shape, with the index's own
+    float32 LUT (the main path's) and fp8 per-probe LUTs: one launch per
+    batch, bit for bit equal to the per-step path, also at 1 and 8
+    queries (where each step is split over several blocks); returns its
+    row."""
+    import torch
+
+    from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
+    from raft_tpu_torch.kernels import ivf_pq_lut as kl
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.matrix.select_k import select_k
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.ivf_flat import _coarse_distances
+
+    pq_dim, bits = index.pq_dim, index.pq_bits
+    kcb, cap = 1 << bits, index.capacity
+    code_bytes = index.list_codes.shape[2]
+    kk = min(k, cap)
+    select_min = index.metric != ivf_pq.DistanceType.InnerProduct
+    engines = ivf_pq._resolve_engines(index, None)
+
+    def batch(q, lut_name):
+        coarse = _coarse_distances(q, index.centers, index.metric)
+        _, probes = select_k(coarse, n_probes, select_min=True)
+        rot_q = _dot_fixed_rows(q, index.rotation.T)
+        inp = ivf_pq.scan_inputs(q, probes, rot_q, index, lut_name)
+        args = (index.list_codes, inp.phys, index.phys_sizes, inp.tables,
+                inp.ords, inp.base, inp.csum, inp.scale, pq_dim, bits, kcb,
+                kk, select_min)
+
+        def fused():
+            vals, slots = kl.lut_scan_topk(*args)
+            return ivf_pq._select_scanned(vals, slots, inp.phys,
+                                          index.list_indices, k, select_min,
+                                          engines[0])
+
+        def per_step():
+            return ivf_pq._scan_per_step(inp, index, k, select_min,
+                                         *engines)
+
+        return inp, args, fused, per_step
+
+    out = {}
+    for lut_name in ("float32", "float8_e4m3"):
+        nq = min(1024, queries.shape[0],
+                 ivf_pq.hoisted_batch_cap(index, n_probes, lut_name)
+                 or 1024)
+        q = queries[:nq]
+        inp, args, fused, per_step = batch(q, lut_name)
+        _reset(device)
+        got = fused()
+        check(native.LAUNCHES["lut_scan"] == 1
+              and native.LAUNCHES["lut_score"] == 0,
+              f"lut_scan {lut_name}: not one scan-mode launch per batch")
+        native.reset_launches()
+        ivf_pq._full_search_impl(q, index, k, n_probes, lut_name, engines)
+        check(native.LAUNCHES["lut_scan"] == 1
+              and native.LAUNCHES["lut_score"] == 0,
+              f"ivf_pq search {lut_name}: not one scan-mode launch")
+        native.reset_launches()
+        ref = per_step()
+        raw_launches = native.LAUNCHES["lut_score"]
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"lut_scan {lut_name}: (distances, ids) differ from the "
+              "per-step path")
+        n_steps = inp.phys.shape[1]
+        live = index.phys_sizes[inp.phys.long()].long()
+        live_share = float(live.sum()) / (nq * n_steps * cap)
+        # the least traffic: each distinct row's live codes (and list-side
+        # sums) once, each query's LUT once, the per-(query, step) rows,
+        # bases and LUT slices, and the (nq, S, kk) values and slots; the
+        # operations: one float32 add per live (query, slot) and subspace
+        rows_u = inp.phys.unique().long()
+        live_codes = float(index.phys_sizes[rows_u].long().sum())
+        lut_bytes = inp.tables.numel() * inp.tables.element_size()
+        per_step_in = 4.0 * (2 + (inp.ords is not None))
+        b, by = bound_ms(live_codes * code_bytes + lut_bytes
+                         + (4.0 * live_codes if inp.csum is not None else 0)
+                         + 4.0 * rows_u.numel() + per_step_in * nq * n_steps
+                         + 8.0 * nq * n_steps * kk,
+                         float(live.sum()) * pq_dim)
+        vals, _ = kl.lut_scan_topk(*args)
+        pv, _ = kl.lut_scan_topk_plain(*args)
+        fin = torch.isfinite(pv)
+        check(torch.equal(fin, torch.isfinite(vals)),
+              f"lut_scan {lut_name}: finite entries differ from the plain "
+              "twin")
+        # the twin sums the same float32 terms in another order: within
+        # 1e-5 of the value plus the magnitude of its terms
+        terms = (pq_dim * float(inp.tables.float().abs().max())
+                 / (float(inp.scale.min()) if inp.scale is not None else 1.0)
+                 + float(inp.base.abs().max())
+                 + (float(inp.csum.abs().max()) if inp.csum is not None
+                    else 0.0))
+        diff = (vals - pv)[fin].abs()
+        check(bool((diff <= 1e-5 * (pv[fin].abs() + terms)).all()),
+              f"lut_scan {lut_name}: beyond 1e-5 of its plain twin")
+        err = float(diff.max()) if diff.numel() else 0.0
+        # small batches: a solo query and a bucket of 8 split each step
+        # over several blocks; the same bits as the per-step path
+        small = {}
+        for snq in (1, 8):
+            _, sargs, sfused, sper_step = batch(queries[:snq], lut_name)
+            sgot, sref = sfused(), sper_step()
+            check(torch.equal(sgot[0], sref[0])
+                  and torch.equal(sgot[1], sref[1]),
+                  f"lut_scan {lut_name} at {snq} queries: (distances, ids) "
+                  "differ from the per-step path")
+            small[str(snq)] = dict(
+                ms=timed(lambda: kl.lut_scan_topk(*sargs), device, rep),
+                fused_path_ms=timed(sfused, device, rep),
+                per_step_path_ms=timed(sper_step, device, rep))
+        out[lut_name] = dict(
+            shape=[nq, n_steps, cap, pq_dim, bits], kk=kk,
+            live_share_of_scored_pairs=live_share, max_abs_err=err,
+            launches_per_batch=1, per_step_raw_launches=raw_launches,
+            distinct_rows=int(rows_u.numel()), bound_ms=b, bound_by=by,
+            ms=timed(lambda: kl.lut_scan_topk(*args), device, rep),
+            fused_path_ms=timed(fused, device, rep),
+            per_step_path_ms=timed(per_step, device, rep),
+            plain_ms=timed(lambda: kl.lut_scan_topk_plain(*args), device,
+                           3),
+            by_queries=small)
+    f32 = out["float32"]
+    row = dict(max_abs_err=max(o["max_abs_err"] for o in out.values()),
+               ms=f32["ms"], plain_ms=f32["plain_ms"],
+               bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+               library_ms=None, by_lut_dtype=out)
+    emit({"phase": "kernel", "name": "lut_scan",
+          "equals_per_step_path_bitwise": True, **row})
     return row
 
 
@@ -935,9 +1086,11 @@ def pairwise_kernel_phase(device, x, queries, rep: int):
                                                f"pairwise {op} {dt} step")
                 for dt in dtypes}
         acc = pk.pairwise_accumulate(xs, ys, op, 3.0)
-        check(torch.equal(pk.pairwise_accumulate(xs[:37], ys, op, 3.0),
-                          acc[:37]),
-              f"pairwise {op}: rows depend on the batch")
+        # B5's tile follows the batch; a row's bits must not
+        for mb in BUCKET_ROWS:
+            check(torch.equal(pk.pairwise_accumulate(xs[:mb], ys, op, 3.0),
+                              acc[:mb]),
+                  f"pairwise {op}: rows of a {mb}-row batch differ")
         lib_ms = None
         if op in library:
             fn, fin = library[op]
@@ -983,7 +1136,7 @@ def pairwise_kernel_phase(device, x, queries, rep: int):
                bound_by=l1["bound_by"], library_ms=l1["library_ms"])
     emit({"phase": "kernel", "name": "pairwise_accumulate",
           "shape": [m, n, k], "library": "torch.cdist",
-          "batch_invariant_rows": 37, "l1_ms_by_dtype": half_ms,
+          "batch_invariant_rows": list(BUCKET_ROWS), "l1_ms_by_dtype": half_ms,
           "ragged_shapes_m_n_k": ragged, "by_op": by_op, **row})
     return row
 
@@ -1021,6 +1174,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     eng_flat, launches_flat = ivf_flat_path(*args)
     index_pq, eng_pq, launches_pq = ivf_pq_path(*args)
     rows["lut_score"] = lut_phase(device, index_pq, queries, rep)
+    rows["lut_scan"] = lut_scan_phase(device, index_pq, queries, n_probes, k,
+                                      rep)
     eng_bf, launches_bf = brute_force_path(device, x, queries, reqs, calls,
                                            n_queries, qr, k)
     pairwise_distance_phase(device, rep)

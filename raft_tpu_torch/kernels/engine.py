@@ -13,8 +13,8 @@ which its callers apply per call shape.
 ``"pq_lut"`` (kernel B4) is not narrowed.  The TPU kernel's limit of a
 4,096-wide LUT row (its one-hot block has to fit VMEM) does not apply on
 Hopper: B4 builds no one-hot, gathers from the LUT row staged in shared
-memory (64 KB for the default pq_dim 64 × 2^8 float32), and stages a row
-larger than one block's shared memory in chunks of subspaces.
+memory (64 KB for the default pq_dim 64 × 2^8 float32), and reads a row
+larger than what a block's shared memory has left from global memory.
 
 ``"pairwise"`` (kernel B5) serves ``ACCUMULATE_METRICS``: L1,
 L2Unexpanded, L2SqrtUnexpanded, Linf, Canberra, LpUnexpanded and

@@ -9,18 +9,30 @@ against one flattened lookup table per query,
 the codes packed LSB-first at pq_bits (4–8) bits each, the LUT in float32,
 bfloat16, float16 or float8 e4m3 and the sum in float32.
 
-:func:`lut_score_rows` is the form the probe scan calls: the index's whole
-(rows, cap, code_bytes) code block plus the (nq,) physical row each query
-scans, read in place by the kernel (the JAX package's signature on
-already gathered (nq, cap, code_bytes) codes is this with
-``rows = arange(nq)``).  A tensor on the CPU runs the plain version
-:func:`_lut_score_plain` (unpack, gather, sum in float32 — the JAX
-package's CPU lookup); a CUDA tensor launches the kernel or raises.  The
-kernel takes a LUT row of any width: a row larger than one block's shared
-memory is staged in chunks of subspaces.
+One kernel, two modes, one launch counter each:
+
+* :func:`lut_score_rows` (raw mode, counter ``lut_score``): the TPU
+  kernel's function on the index's whole (rows, cap, code_bytes) code
+  block plus the (nq,) physical row each query scans, read in place (the
+  JAX package's signature on already gathered (nq, cap, code_bytes) codes
+  is this with ``rows = arange(nq)``).  Its plain version is
+  :func:`_lut_score_plain` (unpack, gather, sum in float32 — the JAX
+  package's CPU lookup).
+* :func:`lut_scan_topk` (scan mode, counter ``lut_scan``): the whole
+  probe scan of a query batch in one launch — every (query, step)'s live
+  slots scored, the search's epilogue applied, and each step's best
+  ``kk`` (value, slot) kept.  Its plain twin :func:`lut_scan_topk_plain`
+  runs the same steps in a loop: raw plain scores, the epilogue, the
+  live mask and a stable per-step select.
+
+A tensor on the CPU runs the plain versions; a CUDA tensor launches the
+kernel or raises.  The kernel takes a LUT row of any width: a row larger
+than what a block's shared memory has left is read from global memory.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +42,13 @@ from raft_tpu_torch.kernels import native
 #: the LUT types the kernel is instantiated for, by their C code
 LUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.float8_e4m3fn: 3}
+
+
+def _aligned(lut: torch.Tensor) -> torch.Tensor:
+    """The LUT contiguous and 16-byte aligned (the kernel stages its rows
+    with bulk copies)."""
+    lut = lut.contiguous()
+    return lut.clone() if lut.data_ptr() % 16 else lut
 
 
 def unpack_codes(packed: torch.Tensor, pq_dim: int, pq_bits: int
@@ -91,7 +110,7 @@ def lut_score_rows(list_codes: torch.Tensor, rows: torch.Tensor,
     nq, cap = rows.shape[0], list_codes.shape[1]
     codes = list_codes.contiguous()
     rows = rows.to(torch.int32).contiguous()
-    lut = lut.contiguous()
+    lut = _aligned(lut)
     out = torch.empty((nq, cap), dtype=torch.float32, device=lut.device)
     lib = native.library("ivf_pq_lut")
     err = lib.raft_lut_score(codes.data_ptr(), rows.data_ptr(),
@@ -103,3 +122,148 @@ def lut_score_rows(list_codes: torch.Tensor, rows: torch.Tensor,
     native.check(lib, err, "lut_score_kernel")
     native.LAUNCHES["lut_score"] += 1
     return out
+
+
+def _lut_slice(lut: torch.Tensor, probe_ord: Optional[torch.Tensor],
+               step: int) -> torch.Tensor:
+    """(nq, F) LUT of one step: the query's table, or with *probe_ord* the
+    slice of its (nq, P, F) per-probe tables (gathered as raw bits, since
+    index kernels need not cover float8)."""
+    if probe_ord is None:
+        return lut
+    bits = lut.view(torch.uint8) if lut.element_size() == 1 else lut
+    rq = torch.arange(lut.shape[0], device=lut.device)
+    return bits[rq, probe_ord[:, step].long()].view(lut.dtype)
+
+
+def _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
+                list_csum, scale, pq_dim, pq_bits, kcb, kk):
+    nq, n_steps = phys.shape
+    cap = list_codes.shape[1]
+    expects(list_codes.ndim == 3 and list_codes.dtype == torch.uint8,
+            "lut_scan: codes must be (rows, cap, code_bytes) uint8")
+    expects(4 <= pq_bits <= 8 and kcb == 1 << pq_bits,
+            f"lut_scan: pq_bits={pq_bits}, kcb={kcb}")
+    expects(list_codes.shape[2] * 8 >= pq_dim * pq_bits,
+            "lut_scan: code_bytes too small for pq_dim · pq_bits")
+    expects(phys_sizes.shape == (list_codes.shape[0],),
+            "lut_scan: phys_sizes must be (rows,)")
+    expects(lut.dtype in LUT_DTYPES, f"lut_scan: LUT type {lut.dtype}")
+    expects(lut.shape[0] == nq and lut.shape[-1] == pq_dim * kcb
+            and lut.ndim in (2, 3), "lut_scan: lut must be (nq, F) or "
+            "(nq, P, F), F = pq_dim · kcb")
+    expects((lut.ndim == 3 and lut.shape[1] > 1) == (probe_ord is not None),
+            "lut_scan: probe_ord goes with (nq, P > 1, F) per-probe LUTs")
+    expects(probe_ord is None or probe_ord.shape == (nq, n_steps),
+            "lut_scan: probe_ord must be (nq, S)")
+    expects(base.shape == (nq, n_steps), "lut_scan: base must be (nq, S)")
+    expects(list_csum is None or list_csum.shape == list_codes.shape[:2],
+            "lut_scan: list_csum must be (rows, cap)")
+    expects(scale is None or scale.shape == (nq,),
+            "lut_scan: scale must be (nq,)")
+    expects(1 <= kk <= cap, f"lut_scan: kk={kk} outside [1, cap={cap}]")
+
+
+def lut_scan_topk_plain(list_codes, phys, phys_sizes, lut, probe_ord, base,
+                        list_csum, scale, pq_dim: int, pq_bits: int,
+                        kcb: int, kk: int, select_min: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of scan mode, step by step: (values (nq, S, kk)
+    float32, slots (nq, S, kk) int32)."""
+    from raft_tpu_torch.matrix.select_k import select_k_plain
+
+    _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
+                list_csum, scale, pq_dim, pq_bits, kcb, kk)
+    nq, n_steps = phys.shape
+    cap = list_codes.shape[1]
+    dev = list_codes.device
+    lut2 = lut if lut.ndim == 2 or probe_ord is not None else lut[:, 0]
+    sentinel = float("inf") if select_min else float("-inf")
+    slots = torch.arange(cap, device=dev)
+    vals = torch.empty((nq, n_steps, kk), dtype=torch.float32, device=dev)
+    pos = torch.empty((nq, n_steps, kk), dtype=torch.int32, device=dev)
+    for s in range(n_steps):
+        row = phys[:, s].long()
+        d = _lut_score_plain(list_codes[row], _lut_slice(lut2, probe_ord, s),
+                             pq_dim, pq_bits, kcb)
+        if scale is not None:
+            d = d / scale[:, None]
+        d = d + base[:, s, None]
+        if list_csum is not None:
+            d = d + list_csum[row]
+        live = slots[None, :] < phys_sizes[row][:, None]
+        d = torch.where(live, d, torch.full_like(d, sentinel))
+        vals[:, s], pos[:, s] = select_k_plain(d, kk, select_min)
+    return vals, pos
+
+
+def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
+                  phys_sizes: torch.Tensor, lut: torch.Tensor,
+                  probe_ord: Optional[torch.Tensor], base: torch.Tensor,
+                  list_csum: Optional[torch.Tensor],
+                  scale: Optional[torch.Tensor], pq_dim: int, pq_bits: int,
+                  kcb: int, kk: int, select_min: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan mode: each query's S physical rows ``phys`` (nq, S) scored on
+    their live slots (below ``phys_sizes[row]``) against the query's LUT
+    (nq, F), or with ``probe_ord`` (nq, S) the step's slice of its
+    (nq, P, F) per-probe tables; each score finished as
+    ``raw / scale[q] + base[q, step] + list_csum[row, slot]`` (the terms
+    given); per step the best ``kk`` (value, slot), best-first, ties at
+    the lower slot, dead slots (the sentinel) filling a short step.
+    Returns (values (nq, S, kk) float32, slots (nq, S, kk) int32)."""
+    if lut.device.type == "cpu":
+        return lut_scan_topk_plain(list_codes, phys, phys_sizes, lut,
+                                   probe_ord, base, list_csum, scale, pq_dim,
+                                   pq_bits, kcb, kk, select_min)
+    _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
+                list_csum, scale, pq_dim, pq_bits, kcb, kk)
+    expects(lut.device.type == "cuda", f"lut_scan: device {lut.device}")
+    tensors = [list_codes, phys, phys_sizes, base] + [
+        t for t in (probe_ord, list_csum, scale) if t is not None]
+    expects(all(t.device == lut.device for t in tensors),
+            "lut_scan: every tensor on the LUT's device")
+    nq, n_steps = phys.shape
+    codes = list_codes.contiguous()
+    phys = phys.to(torch.int32).contiguous()
+    sizes = phys_sizes.to(torch.int32).contiguous()
+    lut = _aligned(lut)
+    n_luts = 1 if lut.ndim == 2 else lut.shape[1]
+    ordp = (probe_ord.to(torch.int32).contiguous() if probe_ord is not None
+            else None)
+    base = base.to(torch.float32).contiguous()
+    csum = (list_csum.to(torch.float32).contiguous() if list_csum is not None
+            else None)
+    scale = scale.to(torch.float32).contiguous() if scale is not None else None
+    out_v = torch.empty((nq, n_steps, kk), dtype=torch.float32,
+                        device=lut.device)
+    out_s = torch.empty((nq, n_steps, kk), dtype=torch.int32,
+                        device=lut.device)
+    if nq and n_steps:
+        lib = native.library("ivf_pq_lut")
+        # a batch too small to fill the card splits each step over `tiles`
+        # blocks, which meet through a scratch of runs and zeroed counts
+        tiles = lib.raft_lut_scan_tiles(nq, n_steps, codes.shape[1],
+                                        lut.device.index)
+        if tiles < 0:
+            native.check(lib, -tiles, "lut_scan_kernel")
+        scratch = counts = None
+        if tiles > 1:
+            scratch = torch.empty(nq * n_steps * tiles * 128,
+                                  dtype=torch.int64, device=lut.device)
+            counts = torch.zeros(nq * n_steps, dtype=torch.int32,
+                                 device=lut.device)
+        err = lib.raft_lut_scan(
+            codes.data_ptr(), phys.data_ptr(), sizes.data_ptr(),
+            lut.data_ptr(), 0 if ordp is None else ordp.data_ptr(), n_luts,
+            base.data_ptr(), 0 if csum is None else csum.data_ptr(),
+            0 if scale is None else scale.data_ptr(), out_v.data_ptr(),
+            out_s.data_ptr(), nq, n_steps, codes.shape[0], codes.shape[1],
+            codes.shape[2], int(pq_dim), int(pq_bits), LUT_DTYPES[lut.dtype],
+            int(kk), int(bool(select_min)), tiles,
+            0 if scratch is None else scratch.data_ptr(),
+            0 if counts is None else counts.data_ptr(), lut.device.index,
+            native.stream_handle(lut.device))
+        native.check(lib, err, "lut_scan_kernel")
+        native.LAUNCHES["lut_scan"] += 1
+    return out_v, out_s

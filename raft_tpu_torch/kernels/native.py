@@ -6,8 +6,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 to :func:`library` starts one ``nvcc`` per source, all at once, and waits
 for them; later calls return the loaded library.  Libraries are written
 under ``build/raft_tpu_torch_kernels/`` at the checkout's root (listed in
-``.gitignore``), named by a hash of their source, so an edited source is
-never served by a stale library.  A build that fails raises with the
+``.gitignore``), named by a hash of their source and of every header
+under ``csrc/``, so an edited source or header is never served by a stale
+library.  A build that fails raises with the
 compiler's output.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
@@ -34,7 +35,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"fused_l2_nn": 0, "fused_l2_nn_partials": 0,
-                            "select_k": 0, "lut_score": 0,
+                            "select_k": 0, "lut_score": 0, "lut_scan": 0,
                             "pairwise_accumulate": 0}
 
 _lock = threading.Lock()
@@ -60,7 +61,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -137,6 +140,14 @@ _SIGNATURES = {
         # pq_bits, lut_dtype, device, stream
         "raft_lut_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+        # codes, phys, sizes, lut, probe_ord, n_luts, base, csum, scale,
+        # out_v, out_s, nq, S, n_rows, cap, code_bytes, pq_dim, pq_bits,
+        # lut_dtype, kk, select_min, tiles, scratch, counts, device, stream
+        "raft_lut_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                          _P],
+        # nq, S, cap, device -> blocks per step, or a negated error code
+        "raft_lut_scan_tiles": [_I, _I, _I, _I],
     },
     "pairwise": {
         # x, y, out, m, n, k, op, p, dtype, stream

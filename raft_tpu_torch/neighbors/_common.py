@@ -156,7 +156,7 @@ def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
     """Running top-k over each query's probed physical rows.
 
     ``score_tile(rows, *slices) -> (nq, cap)`` scores each query's
-    gathered row; *xs* are per-step tensors with the scan axis leading
+    gathered row; *xs* are per-step sequences with the scan axis leading
     (``probe_ids.shape[1]`` long), and step s passes each one's slice s.
     Slots past the row's live size score the sentinel.  Each step selects
     the tile's best ``min(k, cap)`` (kernel B2 on the card) and merges them

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -581,18 +581,31 @@ def _quantize_lut(lut: torch.Tensor, base: torch.Tensor, lut_dtype_name: str):
     return lut_q, base + torch.sum(lo[..., 0], dim=-1), scale
 
 
-def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
-                  rot_q: torch.Tensor, index: Index, k: int,
-                  lut_dtype_name: str, engine: str, lut_engine: str):
-    """Hoisted-ADC probe scan: one LUT stage for the batch, then a scan
-    whose step is a table lookup (kernel B4) plus the epilogue.
+class ScanInputs(NamedTuple):
+    """What the probe scan of one query batch reads besides the index:
+    each query's physical rows (nq, S), its LUT (nq, F) or per-probe LUTs
+    (nq, P, F) with each step's slice ``ords`` (nq, S), the exact f32
+    base per (query, step), and the epilogue's optional terms."""
+
+    phys: torch.Tensor
+    tables: torch.Tensor
+    ords: Optional[torch.Tensor]
+    base: torch.Tensor
+    csum: Optional[torch.Tensor]
+    scale: Optional[torch.Tensor]
+
+
+def scan_inputs(q: torch.Tensor, probe_ids: torch.Tensor,
+                rot_q: torch.Tensor, index: Index,
+                lut_dtype_name: str) -> ScanInputs:
+    """The hoisted-ADC LUT stage of one batch.
 
     float32 LUT (or IP): the query-cross LUT is probe-invariant,
     (nq, pq_dim·kcb); the list-side term enters per candidate through
     ``list_csum``.  Compressed LUT (L2): the per-probe combined table
     ``list_adc[probe] − 2·rot_q·cb``, quantized with one affine per query,
-    its probe slices threaded as per-step ``xs``.  ‖r‖² (L2) or q·c (IP)
-    rides the exact f32 per-(query, probe) base."""
+    one slice per probe.  ‖r‖² (L2) or q·c (IP) rides the exact f32
+    per-(query, probe) base."""
     nq = q.shape[0]
     pq_dim, kcb, ds = index.codebooks.shape
     is_ip = index.metric == DistanceType.InnerProduct
@@ -615,41 +628,93 @@ def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
     phys, probe_ord = expand_probes(probe_ids, index.chunk_table,
                                     index.list_codes.shape[0],
                                     return_ord=True)
-    base_xs = torch.gather(base, 1, probe_ord).T.contiguous()  # (steps, nq)
-    if combine:
-        # gathered as raw bits: index kernels need not cover float8
-        bits = (lut_q.view(torch.uint8) if lut_q.element_size() == 1
-                else lut_q)
-        lut_xs = bits[torch.arange(nq, device=q.device)[:, None], probe_ord]
-        xs = (lut_xs.transpose(0, 1).contiguous().view(lut_q.dtype), base_xs)
-    else:
-        lut_flat = lut_q[:, 0].contiguous()
-        xs = (base_xs,)
-    add_csum = not is_ip and not combine
-    fp8_scale = scale[:, None] if lut_dtype_name == "float8_e4m3" else None
+    per_probe = lut_q.shape[1] > 1     # the compressed LUT's tables
+    return ScanInputs(
+        phys=phys, tables=lut_q if per_probe else lut_q[:, 0],
+        ords=probe_ord if per_probe else None,
+        base=torch.gather(base, 1, probe_ord),
+        csum=index.list_csum if not is_ip and not combine else None,
+        scale=scale if lut_dtype_name == "float8_e4m3" else None)
 
-    def lookup(rows, lut_t):
+
+def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
+                  rot_q: torch.Tensor, index: Index, k: int,
+                  lut_dtype_name: str, engine: str, lut_engine: str):
+    """Hoisted-ADC probe scan: one LUT stage for the batch
+    (:func:`scan_inputs`), then the scan of every query's physical rows.
+
+    For ``k <= MAX_K`` (kernel B2's limit) the scan is kernel B4's scan
+    mode — one launch for the batch, each step's best ``min(k, cap)`` — or
+    its plain twin, then one select over the steps' winners.  Wider k
+    takes the per-step path (:func:`_scan_per_step`); both give the same
+    result in the same tie order."""
+    from raft_tpu_torch.kernels.select_k import MAX_K
+
+    inp = scan_inputs(q, probe_ids, rot_q, index, lut_dtype_name)
+    select_min = index.metric != DistanceType.InnerProduct
+    if k > MAX_K:
+        return _scan_per_step(inp, index, k, select_min, engine, lut_engine)
+    pq_dim, kcb, _ = index.codebooks.shape
+    scan = (ivf_pq_lut.lut_scan_topk if lut_engine == "cuda"
+            else ivf_pq_lut.lut_scan_topk_plain)
+    vals, slots = scan(index.list_codes, inp.phys, index.phys_sizes,
+                       inp.tables, inp.ords, inp.base, inp.csum, inp.scale,
+                       pq_dim, index.pq_bits, kcb, min(k, index.capacity),
+                       select_min)
+    return _select_scanned(vals, slots, inp.phys, index.list_indices, k,
+                           select_min, engine)
+
+
+def _scan_per_step(inp: ScanInputs, index: Index, k: int, select_min: bool,
+                   engine: str, lut_engine: str):
+    """The probe scan step by step: raw B4 scores of every query's row
+    (or their plain version), the epilogue, the live mask, a select per
+    step and the running merge."""
+    pq_dim, kcb, _ = index.codebooks.shape
+
+    def score_tile(rows, s):
+        lut_t = ivf_pq_lut._lut_slice(inp.tables, inp.ords, s)
         if lut_engine == "cuda":
-            return ivf_pq_lut.lut_score_rows(index.list_codes, rows, lut_t,
-                                             pq_dim, index.pq_bits, kcb)
-        return ivf_pq_lut._lut_score_plain(index.list_codes[rows.long()],
-                                           lut_t, pq_dim, index.pq_bits, kcb)
+            acc = ivf_pq_lut.lut_score_rows(index.list_codes, rows, lut_t,
+                                            pq_dim, index.pq_bits, kcb)
+        else:
+            acc = ivf_pq_lut._lut_score_plain(index.list_codes[rows.long()],
+                                              lut_t, pq_dim, index.pq_bits,
+                                              kcb)
+        d = acc if inp.scale is None else acc / inp.scale[:, None]
+        d = d + inp.base[:, s, None]
+        return d + inp.csum[rows.long()] if inp.csum is not None else d
 
-    def finish(rows, acc, base_t):
-        s = acc if fp8_scale is None else acc / fp8_scale
-        s = s + base_t[:, None]
-        return s + index.list_csum[rows.long()] if add_csum else s
+    return scan_probe_lists(inp.phys, score_tile, index.list_indices,
+                            index.phys_sizes, k, select_min=select_min,
+                            dtype=torch.float32, engine=engine,
+                            xs=(range(inp.phys.shape[1]),))
 
-    if combine:
-        def score_tile(rows, lut_t, base_t):
-            return finish(rows, lookup(rows, lut_t), base_t)
-    else:
-        def score_tile(rows, base_t):
-            return finish(rows, lookup(rows, lut_flat), base_t)
 
-    return scan_probe_lists(phys, score_tile, index.list_indices,
-                            index.phys_sizes, k, select_min=not is_ip,
-                            dtype=torch.float32, engine=engine, xs=xs)
+def _select_scanned(vals: torch.Tensor, slots: torch.Tensor,
+                    phys: torch.Tensor, list_indices: torch.Tensor, k: int,
+                    select_min: bool, engine: str):
+    """Best k of scan mode's per-step winners (nq, S, kk): one select over
+    the steps' runs laid end to end (step-major, each best-first), so
+    earlier steps, then lower slots, win ties — the running merge's order;
+    ids come from ``list_indices`` for the winners only.  Fewer than k
+    candidates leave the worst value and id −1."""
+    nq, n_steps, kk = vals.shape
+    flat = vals.reshape(nq, n_steps * kk)
+    kt = min(k, flat.shape[1])
+    best_d, pos = select_k(flat, kt, select_min, engine=engine)
+    pos = pos.long()
+    slot = torch.gather(slots.reshape(nq, -1), 1, pos).long()
+    row = torch.gather(phys, 1, torch.div(pos, kk, rounding_mode="floor"))
+    best_i = list_indices[row.long(), slot]
+    if kt < k:
+        best_d = torch.cat([best_d, torch.full(
+            (nq, k - kt), float("inf") if select_min else float("-inf"),
+            dtype=best_d.dtype, device=best_d.device)], dim=1)
+        best_i = torch.cat([best_i, torch.full(
+            (nq, k - kt), -1, dtype=best_i.dtype, device=best_i.device)],
+            dim=1)
+    return best_d, best_i
 
 
 def _resolve_engines(index: Index,

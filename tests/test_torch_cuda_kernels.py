@@ -11,11 +11,15 @@ relative), values to rtol 1e-5; M-step partials from equal labels to
 1e-5 of the members' absolute sums (the kernel adds each block's rows and
 then the blocks in a fixed order, the plain version's ``index_add_`` in
 its own), and bit for bit from run to run and between one launch for S
-subspaces and S launches of one; LUT scores (B4) to 1e-5 × Σ_m |lut term| of the
-plain version (another summation order); pairwise accumulations (B5) to
+subspaces and S launches of one; LUT scores (B4) to 1e-5 × Σ_m |lut
+term| of the plain version (another summation order), and B4's scan mode
+bit for bit against raw mode + the PyTorch epilogue + B2 (both sum in m
+order in one thread); pairwise accumulations (B5) to
 rtol 1e-5 of the plain version for the summing ops (their terms are
 non-negative, so that is 1e-5 of Σ|terms|; fused multiply-add and powf
-round differently), linf and the hamming count exactly.
+round differently), linf and the hamming count exactly, and a row's bits
+the same at every batch size (each output summed in k order by one
+thread, whatever the tile).
 """
 
 import numpy as np
@@ -304,14 +308,14 @@ def test_search_rows_do_not_depend_on_the_batch(dev):
 @pytest.mark.parametrize("nq,cap,pq_dim,pq_bits", [
     (1, 37, 8, 8), (37, 300, 64, 8), (5, 1000, 12, 5), (9, 257, 10, 5),
     (3, 129, 9, 7), (64, 700, 16, 4), (2, 50, 64, 6),
-    # rows beyond one block's shared memory, staged in subspace chunks
+    # rows beyond one block's shared memory, read from global memory
     (3, 300, 480, 8), (4, 130, 2000, 5)])
 def test_lut_score_kernel_matches_plain(dev, nq, cap, pq_dim, pq_bits,
                                         lut_dtype):
     """B4 reads each query's row of a code block in place; scores to
     1e-5 × Σ_m |lut term| of the plain version (another summation order),
-    for rows that fit one block's shared memory and rows staged in
-    chunks."""
+    for rows that fit one block's shared memory and rows read from global
+    memory."""
     from raft_tpu_torch.kernels import ivf_pq_lut
     from raft_tpu_torch.neighbors.ivf_pq import _pack_codes
 
@@ -439,3 +443,203 @@ def test_brute_force_serve_l1_coalesced_equals_solo(dev):
     agree = (torch.as_tensor(out[2][1])[:, :, None]
              == ip.cpu()[:, None, :]).any(-1).float().mean()
     assert float(agree) >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_pairwise_accumulate_same_bits_at_every_bucket(dev, dtype):
+    """B5 picks its tile by the batch (128, 64, 32 or 16 rows); every
+    output is still summed in k order by one thread, so a row's bits are
+    the same at every bucket size from 1 to 1,024 and off the ladder."""
+    from raft_tpu_torch.kernels import pairwise as pk
+
+    g = torch.Generator(device="cpu").manual_seed(21)
+    x = torch.randn(1024, 128, generator=g).to(dev).to(dtype)
+    y = torch.randn(3000, 128, generator=g).to(dev).to(dtype)
+    for op in pk.OPS:
+        full = pk.pairwise_accumulate(x, y, op, 3.0)
+        for m in (1, 8, 16, 17, 32, 33, 37, 64, 65, 128, 256, 512):
+            assert torch.equal(pk.pairwise_accumulate(x[:m], y, op, 3.0),
+                               full[:m]), (op, m)
+
+
+@pytest.mark.parametrize("k", [1, 3, 127, 960])
+@pytest.mark.parametrize("m", [5, 40, 70])
+def test_pairwise_accumulate_ragged_k(dev, m, k):
+    """B5 at ragged k (the scalar staging path below a whole vector and
+    the vector path at 960) for every op and input type, under the 16-,
+    64- and 128-row tiles."""
+    from raft_tpu_torch.kernels import pairwise as pk
+
+    g = torch.Generator(device="cpu").manual_seed(m * 1000 + k)
+    x = torch.round(torch.randn(m, k, generator=g) * 4) / 4
+    y = torch.round(torch.randn(333, k, generator=g) * 4) / 4
+    x[0, k // 2] = float("nan")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xd, yd = x.to(dev).to(dtype), y.to(dev).to(dtype)
+        for op in pk.OPS:
+            got = pk.pairwise_accumulate(xd, yd, op, 3.0)
+            _assert_accumulate_close(
+                got, pk.pairwise_accumulate_plain(xd, yd, op, 3.0), op)
+
+
+def _scan_data(dev, nq, n_steps, cap, pq_dim, pq_bits, lut_dtype, n_luts,
+               seed):
+    """Rows of every fill (full, partial, one slot, empty) and the empty
+    dummy row 6; dummy steps; per-probe tables when n_luts > 1; the fp8
+    scale with the fp8 LUT; the list-side sums."""
+    from raft_tpu_torch.neighbors.ivf_pq import _pack_codes
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    kcb = 1 << pq_bits
+    n_rows = 7
+    codes = torch.randint(0, kcb, (n_rows * cap, pq_dim), generator=g)
+    block = _pack_codes(codes, pq_bits).reshape(n_rows, cap, -1)
+    sizes = torch.tensor([cap, cap // 2, 1, 0, cap - 1, 3, 0],
+                         dtype=torch.int32)
+    ids = torch.randperm(n_rows * cap * 3, generator=g)[:n_rows * cap].to(
+        torch.int32).reshape(n_rows, cap)
+    ids[torch.arange(cap)[None, :] >= sizes[:, None]] = -1
+    phys = torch.randint(0, n_rows, (nq, n_steps), generator=g,
+                         dtype=torch.int32)
+    phys[:, -2:] = n_rows - 1
+    shape = (nq, pq_dim * kcb) if n_luts == 1 else (nq, n_luts, pq_dim * kcb)
+    lut = (torch.rand(shape, generator=g) * 400).to(lut_dtype)
+    probe_ord = (torch.randint(0, n_luts, (nq, n_steps), generator=g,
+                               dtype=torch.int32) if n_luts > 1 else None)
+    base = torch.rand(nq, n_steps, generator=g) * 100 - 50
+    csum = torch.rand(n_rows, cap, generator=g) * 40 - 20
+    scale = (torch.rand(nq, generator=g) * 2 + 0.5
+             if lut_dtype == torch.float8_e4m3fn else None)
+    out = [block, sizes, ids, phys, lut, probe_ord, base, csum, scale]
+    return [t.to(dev) if t is not None else None for t in out]
+
+
+def _assert_scan_equals_raw(dev, data, n_steps, cap, pq_dim, pq_bits,
+                            ks=(10, 40)):
+    """Scan mode on *data* (from :func:`_scan_data`) equals raw mode + the
+    PyTorch epilogue + the live mask + B2 bit for bit: each step's
+    (values, slots), and after the one select over the steps the
+    (distances, ids) of the per-step path's running merge; one scan
+    launch; its plain twin to the raw kernel's tolerance."""
+    from raft_tpu_torch.kernels import ivf_pq_lut, native
+    from raft_tpu_torch.kernels.select_k import select_k_blockwise
+    from raft_tpu_torch.neighbors._common import scan_probe_lists
+    from raft_tpu_torch.neighbors.ivf_pq import _select_scanned
+
+    block, sizes, ids, phys, lut, probe_ord, base, csum, scale = data
+    kcb = 1 << pq_bits
+    slots_all = torch.arange(cap, device=dev)
+
+    def step_scores(s):
+        rows = phys[:, s]
+        lut_t = ivf_pq_lut._lut_slice(lut, probe_ord, s)
+        d = ivf_pq_lut.lut_score_rows(block, rows, lut_t, pq_dim, pq_bits,
+                                      kcb)
+        if scale is not None:
+            d = d / scale[:, None]
+        d = d + base[:, s, None]
+        return d + csum[rows.long()]
+
+    for k in ks:
+        kk = min(k, cap)
+        native.reset_launches()
+        vals, slots = ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut,
+                                               probe_ord, base, csum, scale,
+                                               pq_dim, pq_bits, kcb, kk)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["lut_scan"] == 1
+        for s in range(n_steps):
+            d = step_scores(s)
+            live = slots_all[None, :] < sizes[phys[:, s].long()][:, None]
+            d = torch.where(live, d, torch.full_like(d, float("inf")))
+            rv, rp = select_k_blockwise(d, kk)
+            assert torch.equal(vals[:, s], rv) and torch.equal(slots[:, s],
+                                                               rp), (k, s)
+        got = _select_scanned(vals, slots, phys, ids, k, True, "cuda")
+        ref = scan_probe_lists(phys, lambda rows, s: step_scores(s), ids,
+                               sizes, k, select_min=True,
+                               dtype=torch.float32, engine="cuda",
+                               xs=(range(n_steps),))
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        # its plain twin on the same inputs, to the raw kernel's tolerance
+        pv, _ = ivf_pq_lut.lut_scan_topk_plain(block, phys, sizes, lut,
+                                               probe_ord, base, csum, scale,
+                                               pq_dim, pq_bits, kcb, kk)
+        fin = torch.isfinite(pv)
+        assert torch.equal(fin, torch.isfinite(vals))
+        assert bool(((vals - pv).abs()[fin]
+                     <= 1e-5 * (pv.abs()[fin] + 400.0 * pq_dim)).all())
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("nq,cap,pq_dim,pq_bits,n_luts", [
+    (1, 300, 64, 8, 1), (37, 300, 64, 8, 1), (37, 257, 64, 8, 4),
+    (37, 1001, 13, 4, 1), (5, 999, 10, 5, 3), (37, 333, 17, 7, 1),
+    # LUT rows wider than a block's shared memory: read from global memory
+    (3, 300, 480, 8, 1), (4, 130, 2000, 5, 2)])
+def test_lut_scan_equals_raw_epilogue_select(dev, nq, cap, pq_dim, pq_bits,
+                                             n_luts, lut_dtype):
+    """B4's scan mode equals raw mode + the PyTorch epilogue + the live
+    mask + B2 bit for bit: each step's (values, slots), and after the one
+    select over the steps the (distances, ids) of the per-step path's
+    running merge, for k below and above 24; one scan launch."""
+    n_steps = 6
+    data = _scan_data(dev, nq, n_steps, cap, pq_dim, pq_bits, lut_dtype,
+                      n_luts, nq + cap + pq_bits)
+    _assert_scan_equals_raw(dev, data, n_steps, cap, pq_dim, pq_bits)
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.bfloat16, torch.float16,
+                                       torch.float8_e4m3fn])
+@pytest.mark.parametrize("nq", [1, 37, 600])
+def test_lut_scan_runs_of_dummy_steps(dev, nq, lut_dtype):
+    """Per-probe LUTs (staged per step, double-buffered) across runs of 1
+    to 7 consecutive dummy steps: a solo query (each step split over
+    several blocks), 37 queries (a few steps per block) and 600 (all 40
+    steps in one block); scan mode equals raw mode + epilogue + B2 bit for
+    bit, and repeats itself bit for bit."""
+    from raft_tpu_torch.kernels import ivf_pq_lut
+
+    n_steps, cap, pq_dim, pq_bits = 40, 2200, 16, 8
+    data = _scan_data(dev, nq, n_steps, cap, pq_dim, pq_bits, lut_dtype, 3,
+                      nq + 7)
+    phys = data[3]
+    # live steps at 0, 2, 5, 9, 14, 20, 27, 35: dummy runs of 1 to 7
+    live_at = torch.tensor([0, 2, 5, 9, 14, 20, 27, 35], device=dev)
+    dummy = torch.ones(n_steps, dtype=torch.bool, device=dev)
+    dummy[live_at] = False
+    phys[:, dummy] = 6
+    phys[:, ~dummy] = phys[:, ~dummy] % 6
+    _assert_scan_equals_raw(dev, data, n_steps, cap, pq_dim, pq_bits,
+                            ks=(10, 100))
+    block, sizes, _, phys, lut, probe_ord, base, csum, scale = data
+    runs = [ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, probe_ord,
+                                     base, csum, scale, pq_dim, pq_bits,
+                                     1 << pq_bits, 10) for _ in range(4)]
+    for v, sl in runs[1:]:
+        assert torch.equal(v, runs[0][0]) and torch.equal(sl, runs[0][1])
+
+
+def test_ivf_pq_search_scans_in_one_launch(dev):
+    """The IVF-PQ search of a query batch runs B4 once, in scan mode, for
+    the float32 and the fp8 LUT; k above B2's limit keeps the per-step
+    raw launches."""
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+    x = torch.randn(40000, 64, generator=g)
+    idx = ivf_pq.build(ivf_pq.IndexParams(n_lists=128), x.to(dev))
+    q = torch.randn(300, 64, generator=g).to(dev)
+    for lut in ("float32", "float8_e4m3"):
+        native.reset_launches()
+        ivf_pq._full_search_impl(q, idx, 10, 20, lut, ("cuda", "cuda"))
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["lut_scan"] == 1
+        assert native.LAUNCHES["lut_score"] == 0
+    native.reset_launches()
+    ivf_pq._full_search_impl(q, idx, 200, 20, "float32", ("cuda", "cuda"))
+    assert native.LAUNCHES["lut_scan"] == 0
+    assert native.LAUNCHES["lut_score"] > 1

@@ -311,3 +311,33 @@ def test_batch_cap_matches_jax(jax_index):
     assert jax_pq.hoisted_batch_cap(ip, 20, "float8_e4m3", True) is None
     tidx.metric = DistanceType.InnerProduct
     assert tpq.hoisted_batch_cap(tidx, 20, "float8_e4m3") is None
+
+
+@pytest.mark.parametrize("k", [10, 30])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "float16",
+                                       "float8_e4m3"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_scan_equals_per_step_scan(jax_index, metric, lut_dtype, k):
+    """On a carried index the scan's fused form (scan mode's plain twin,
+    one select over the steps' winners) equals the per-step form (raw
+    scores, epilogue, live mask, per-step select, running merge) bit for
+    bit, for every LUT type (the fp8 scale included), k below and above
+    24, and a solo query."""
+    from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
+    from raft_tpu_torch.matrix.select_k import select_k
+    from raft_tpu_torch.neighbors.ivf_flat import _coarse_distances
+
+    get, _, q = jax_index
+    tidx = _carry(get(metric))
+    for qs in (torch.from_numpy(q[:40]), torch.from_numpy(q[40:41])):
+        coarse = _coarse_distances(qs, tidx.centers, tidx.metric)
+        _, probes = select_k(coarse, 6, select_min=True, engine="torch")
+        rot_q = _dot_fixed_rows(qs, tidx.rotation.T)
+        inp = tpq.scan_inputs(qs, probes, rot_q, tidx, lut_dtype)
+        out = [tpq._scan_hoisted(qs, probes, rot_q, tidx, k, lut_dtype,
+                                 "torch", "torch"),
+               tpq._scan_per_step(inp, tidx, k,
+                                  metric != "InnerProduct", "torch",
+                                  "torch")]
+        assert torch.equal(out[0][0], out[1][0])
+        assert torch.equal(out[0][1], out[1][1])

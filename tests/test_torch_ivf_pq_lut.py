@@ -99,3 +99,118 @@ def test_support_predicate():
     with pytest.raises(LogicError, match="LUT type"):
         ivf_pq_lut.lut_score_rows(block, rows, torch.ones(
             2, 8 * 256, dtype=torch.float64), 8, 8, 256)
+
+
+def _scan_case(nq, n_steps, cap, pq_dim, pq_bits, lut_dtype, n_luts, seed,
+               csum=True, fp8_scale=False):
+    """A code block of 6 rows plus the empty dummy row 6: full, partly
+    filled and empty rows (ids −1 past each row's size), each query's
+    steps over them (dummy steps included), per-step bases, the list-side
+    sums and, for the fp8 LUT, one scale per query."""
+    rng = np.random.default_rng(seed)
+    kcb = 1 << pq_bits
+    n_rows = 7
+    codes = torch.from_numpy(rng.integers(0, kcb, (n_rows * cap, pq_dim)))
+    block = tpq._pack_codes(codes, pq_bits).reshape(n_rows, cap, -1)
+    sizes = torch.tensor([cap, cap // 2, 1, 0, cap - 1, 3, 0],
+                         dtype=torch.int32)
+    ids = torch.from_numpy(rng.permutation(10_000)[:n_rows * cap].astype(
+        np.int32)).reshape(n_rows, cap)
+    ids[torch.arange(cap)[None, :] >= sizes[:, None]] = -1
+    phys = torch.from_numpy(rng.integers(0, n_rows, (nq, n_steps)).astype(
+        np.int32))
+    phys[:, -1] = n_rows - 1                       # a dummy step
+    shape = (nq, pq_dim * kcb) if n_luts == 1 else (nq, n_luts, pq_dim * kcb)
+    lut = torch.from_numpy(rng.uniform(0.0, 400.0, shape).astype(np.float32)
+                           ).to(tpq._LUT_DTYPES[lut_dtype])
+    probe_ord = (torch.from_numpy(rng.integers(0, n_luts, (nq, n_steps))
+                                  .astype(np.int32)) if n_luts > 1 else None)
+    base = torch.from_numpy(rng.uniform(-50, 50, (nq, n_steps)).astype(
+        np.float32))
+    list_csum = (torch.from_numpy(rng.uniform(-20, 20, (n_rows, cap)).astype(
+        np.float32)) if csum else None)
+    scale = (torch.from_numpy(rng.uniform(0.5, 3.0, nq).astype(np.float32))
+             if fp8_scale else None)
+    return block, sizes, ids, phys, lut, probe_ord, base, list_csum, scale
+
+
+def _per_step_reference(block, sizes, ids, phys, lut, probe_ord, base,
+                        list_csum, scale, pq_dim, pq_bits, k, select_min):
+    """The per-step path: raw plain scores, the epilogue, the live mask,
+    a per-step select_k and the running merge_sorted_runs (or, from
+    k >= 24, one select over the stacked masked tiles)."""
+    from raft_tpu_torch.neighbors._common import scan_probe_lists
+
+    kcb = 1 << pq_bits
+
+    def score_tile(rows, s):
+        lut_t = ivf_pq_lut._lut_slice(lut, probe_ord, s)
+        d = ivf_pq_lut._lut_score_plain(block[rows.long()], lut_t, pq_dim,
+                                        pq_bits, kcb)
+        if scale is not None:
+            d = d / scale[:, None]
+        d = d + base[:, s, None]
+        return d + list_csum[rows.long()] if list_csum is not None else d
+
+    return scan_probe_lists(phys, score_tile, ids, sizes, k,
+                            select_min=select_min, dtype=torch.float32,
+                            engine="torch", xs=(range(phys.shape[1]),))
+
+
+@pytest.mark.parametrize("k", [1, 10, 23, 24, 50, 200])
+@pytest.mark.parametrize("n_luts", [1, 3])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "float16",
+                                       "float8_e4m3"])
+def test_scan_twin_equals_per_step_path(lut_dtype, n_luts, k):
+    """Scan mode's plain twin plus the one select over the steps' winners
+    equals raw plain + epilogue + live mask + per-step select + running
+    merge bit for bit — distances, ids and tie order — over dummy steps,
+    empty, partly filled and full rows, k below and above 24 and past
+    the candidates (k = 200 > S · cap: worst values and id −1)."""
+    nq, n_steps, cap, pq_dim, pq_bits = 5, 6, 32, 8, 8
+    case = _scan_case(nq, n_steps, cap, pq_dim, pq_bits, lut_dtype, n_luts,
+                      seed=k * 10 + n_luts,
+                      fp8_scale=lut_dtype == "float8_e4m3")
+    block, sizes, ids, phys, lut, probe_ord, base, csum, scale = case
+    for select_min in (True, False):
+        kk = min(k, cap)
+        vals, slots = ivf_pq_lut.lut_scan_topk(
+            block, phys, sizes, lut, probe_ord, base, csum, scale, pq_dim,
+            pq_bits, 1 << pq_bits, kk, select_min)
+        assert vals.shape == (nq, n_steps, kk) and slots.dtype == torch.int32
+        got = tpq._select_scanned(vals, slots, phys, ids, k, select_min,
+                                  "torch")
+        ref = _per_step_reference(*case, pq_dim, pq_bits, k, select_min)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("nq,pq_dim,pq_bits,csum", [
+    (1, 8, 8, True),      # a solo query
+    (4, 13, 4, False),    # 4 bits, 7 code bytes, no list-side term
+    (3, 10, 5, True),     # 5 bits: codes straddle bytes
+    (2, 9, 7, False)])
+def test_scan_twin_ragged_codes(nq, pq_dim, pq_bits, csum):
+    case = _scan_case(nq, 5, 19, pq_dim, pq_bits, "float32", 1,
+                      seed=nq + pq_bits, csum=csum)
+    block, sizes, ids, phys, lut, probe_ord, base, lcsum, scale = case
+    vals, slots = ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, None,
+                                           base, lcsum, None, pq_dim,
+                                           pq_bits, 1 << pq_bits, 10)
+    got = tpq._select_scanned(vals, slots, phys, ids, 10, True, "torch")
+    ref = _per_step_reference(*case, pq_dim, pq_bits, 10, True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    # a dead slot's sentinel fills a short step, at the lowest dead slots
+    empty = (phys == 6)
+    assert bool(torch.isinf(vals[empty]).all())
+    assert torch.equal(slots[empty][0], torch.arange(10, dtype=torch.int32))
+
+
+def test_scan_refuses_bad_shapes():
+    case = _scan_case(2, 3, 16, 8, 8, "float32", 3, seed=1)
+    block, sizes, ids, phys, lut, probe_ord, base, csum, scale = case
+    with pytest.raises(LogicError, match="probe_ord"):
+        ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, None, base, csum,
+                                 None, 8, 8, 256, 4)
+    with pytest.raises(LogicError, match="kk"):
+        ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, probe_ord, base,
+                                 csum, None, 8, 8, 256, 17)

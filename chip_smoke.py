@@ -23,8 +23,16 @@ Phases, one JSON line each:
    the kernels are built from ``raft_tpu_torch/kernels/csrc`` (nvcc, one
    process per source, all at once).
 2. kernels — B1, B2 and B3 against their plain PyTorch versions on the
-   card at the main paths' shapes (B1 and B3 also at the PQ codebook
-   training shape, 262,144 × 256 × 2) and at ragged edge shapes, with
+   card at the main paths' shapes (B1 at the build path's four: the list
+   assignment 1,000,000 × 1,024 × 128, B3's E-step 500,000 × 1,024 ×
+   128, the meso assignment 1,000,000 × 32 × 128 and one mesocluster's
+   fine clustering 16,384 × 32 × 128, each beside the product alone
+   (``x @ y.T``), the float32 bound outside the tensor cores and the
+   bound of its three TF32 products, with a row's bits the same in
+   batches of 1 to 4,097 rows; B1 and B3 also at the PQ codebook
+   training shape, 262,144 × 256 × 2; B1's float32 FMA kernel, which no
+   main path runs, at 1,000 × 1,000 × 300 and with ``bf16_dot``) and at
+   ragged edge shapes, with
    their median device times, the plain versions', one PyTorch library
    call's where one computes the same function, and the least time the
    card could take (bound).  B3 also for all 64 PQ subspaces in one
@@ -39,13 +47,17 @@ Phases, one JSON line each:
    must have launched.  Checks: coalesced results equal solo ``search``
    per request, recall@10 against exact neighbours (``torch.cdist`` +
    ``torch.topk``, the checker) of 1,000 queries, and the kernel path's
-   recall within 0.002 of the plain path's.
+   recall within 0.002 of the plain path's (the same index searched
+   with ``engine="torch"``); then an index built through the plain
+   versions and searched through them, whose recall the kernel-built
+   index's must lie within ``BUILD_RECALL_TOL`` of.
 4. IVF-PQ main path — the same with ``ivf_pq.build`` and an IVF-PQ
    ``ServeEngine``: B1, B2, B3 and B4's scan mode must have launched, B4's
    per-step raw mode never, and the build at most ``MAX_PQ_BUILD_B3``
    times B3.  Checks: coalesced equals solo, kernel-path recall@10 within
    0.002 of the plain path's at the float32 LUT and, for a solo search,
-   at the fp8 LUT.
+   at the fp8 LUT, and within ``BUILD_RECALL_TOL`` of a plain-built
+   index's (float32 LUT).
 5. B4's raw mode against its plain version at the IVF-PQ main path's step
    shape (1,024 queries × the index's capacity, pq_dim 64, 8 bits) for
    all four LUT types, and at ragged shapes (nq 1 and 37, capacities off
@@ -82,7 +94,8 @@ Phases, one JSON line each:
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
-of each engine (``torch.profiler``).
+of each engine and over one IVF-Flat and one IVF-PQ build
+(``torch.profiler``).
 
 Any failed check exits non-zero before the last line.  Float32 products
 run in full float32 (TF32 off for matmul and cuDNN).
@@ -92,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -105,6 +119,7 @@ F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
 #: float32 instructions issued per second outside the tensor cores (the
 #: flop rate counts a fused multiply-add as two)
 F32_INSTR_PER_S = F32_FLOP_PER_S / 2
+TF32_FLOP_PER_S = 495e12  # tensor cores, TF32 operands, float32 sums
 
 #: cycles the card sleeps before a timed call, ahead of the host's
 #: enqueue (about 1 ms)
@@ -129,6 +144,15 @@ SOURCE = {
 #: B3 launches an IVF-PQ build may take: the coarse balancing EM (20 + 5
 #: iterations) and one per codebook Lloyd iteration (20) for all subspaces
 MAX_PQ_BUILD_B3 = 50
+#: how far the recall@10 of an index built through the kernels may lie
+#: from that of one built through their plain versions.  The plain build
+#: does not repeat (its M-step's ``index_add_`` adds in a new order each
+#: run): two plain builds of one seed differ with a standard deviation of
+#: 0.002 (IVF-Flat) and 0.005 (IVF-PQ), at most 0.0044 and 0.0159
+#: (``tools/b1_probe.py --quality`` over thirty seeds on an H100).  About
+#: five of those deviations: this catches a broken build, not a shift of
+#: a few thousandths, which the probe's seeds resolve.
+BUILD_RECALL_TOL = {"ivf_flat": 0.01, "ivf_pq": 0.02}
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "ivf_flat": ("fused_l2_nn", "fused_l2_nn_partials", "select_k"),
@@ -212,21 +236,25 @@ def mixture(gen, n, dim, centers, noise, device):
                                                device=device)
 
 
-def near_ties(x, y, rows: int = 1 << 15, of_norms: bool = False):
+def near_ties(x, y, rows: int = 1 << 15, of_norms: bool = False,
+              bf16_dot: bool = False):
     """Per row of x: whether its two nearest rows of y (float64) lie
     within 1e-5 relative of each other — of the nearer distance, or with
     *of_norms* of ‖x‖² + ‖y‖² of the nearer row, the scale at which the
     float32 expanded form rounds (a row that is itself a centre has a
-    distance of 0 and a neighbour a rounding step away)."""
+    distance of 0 and a neighbour a rounding step away).  With *bf16_dot*
+    the dot products are those of the bfloat16-rounded operands."""
     import torch
 
     yd = y.double()
     yn = (yd * yd).sum(1)
+    yp = y.bfloat16().double() if bf16_dot else yd
     out = []
     for r in range(0, x.shape[0], rows):
         xd = x[r:r + rows].double()
         xn = (xd * xd).sum(1)
-        d = xn[:, None] + yn[None] - 2 * xd @ yd.T
+        xp = x[r:r + rows].bfloat16().double() if bf16_dot else xd
+        d = xn[:, None] + yn[None] - 2 * xp @ yp.T
         two = torch.topk(d, 2, dim=1, largest=False)
         scale = (xn + yn[two.indices[:, 0]] if of_norms
                  else two.values[:, 0].clamp_min(1e-30))
@@ -234,14 +262,125 @@ def near_ties(x, y, rows: int = 1 << 15, of_norms: bool = False):
     return torch.cat(out)
 
 
-def check_labels(name, idx, ref_idx, x, y, of_norms: bool = False):
+def check_labels(name, idx, ref_idx, x, y, of_norms: bool = False,
+                 bf16_dot: bool = False):
     diff = idx != ref_idx
     n_diff = int(diff.sum())
     if n_diff:
-        ties = near_ties(x, y, of_norms=of_norms)
+        ties = near_ties(x, y, of_norms=of_norms, bf16_dot=bf16_dot)
         check(not bool((diff & ~ties).any()),
               f"{name}: labels differ outside near ties")
     return n_diff
+
+
+def b1_phase(device, x, centers, rep: int):
+    """B1 against its plain version at the build path's shapes — the list
+    assignment (every row × n_lists), B3's wide-row E-step (the half
+    trainset × n_lists), the meso assignment (every row × √n_lists
+    mesoclusters) and one mesocluster's fine clustering (its 16,384-row
+    bucket × 32 centres): labels equal except at near ties, values
+    within 1e-5 of ‖x‖² + ‖y‖² (and, at the list assignment, to rtol
+    1e-5, atol 1e-4), a row's bits the same in batches of 1, 7, 1,000 and
+    4,097 rows and at other positions in its block; each shape's time
+    beside the plain version's, the product alone (``x @ y.T`` in full
+    float32, a yardstick: it finds no minimum), the float32 bound outside
+    the tensor cores and the bound of three TF32 products on them.
+    Returns the list assignment's row."""
+    import torch
+
+    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.kernels import fused_l2nn
+
+    n_meso = max(2, int(math.sqrt(centers.shape[0]) + 0.5))
+    shapes = {"list_assignment": (x, centers),
+              "b3_e_step": (x[: x.shape[0] // 2], centers),
+              "meso_assignment": (x, centers[:n_meso]),
+              "fine_cluster": (x[:16384], centers[:32])}
+    by_shape = {}
+    for name, (xs, y) in shapes.items():
+        m, d = xs.shape
+        k = y.shape[0]
+        val, idx = fused_l2nn.fused_l2_nn(xs, y)
+        pv, pi = plain_nn.fused_l2_nn_plain(xs, y)
+        n_diff = check_labels(f"fused_l2_nn {name}", idx, pi, xs, y)
+        scale = (xs * xs).sum(1) + (y * y).sum(1)[idx.long()]
+        err = (val - pv).abs()
+        check(bool((err <= 1e-5 * scale).all()),
+              f"fused_l2_nn {name}: values beyond 1e-5 of the norms")
+        if name == "list_assignment":
+            check(torch.allclose(val, pv, rtol=1e-5, atol=1e-4),
+                  "fused_l2_nn: values beyond rtol 1e-5, atol 1e-4")
+            for mb in (1, 7, 1000, 4097):
+                v, i = fused_l2nn.fused_l2_nn(xs[:mb], y)
+                check(torch.equal(v, val[:mb]) and torch.equal(i, idx[:mb]),
+                      f"fused_l2_nn: rows of a {mb}-row batch differ")
+            for r0 in (5, 127, 4096 + 60):
+                v, i = fused_l2nn.fused_l2_nn(xs[r0:r0 + 7], y)
+                check(torch.equal(v, val[r0:r0 + 7])
+                      and torch.equal(i, idx[r0:r0 + 7]),
+                      f"fused_l2_nn: rows {r0}.. differ in a batch of 7")
+        bound, by = bound_ms(4.0 * (m * d + k * d + 2 * m),
+                             6.0 * m * k * d, TF32_FLOP_PER_S)
+        bound_f32, _ = bound_ms(0.0, 2.0 * m * k * d)
+        ms = timed(lambda: fused_l2nn.fused_l2_nn(xs, y), device, rep)
+        by_shape[name] = dict(
+            shape=[m, k, d], ms=ms,
+            plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(xs, y),
+                           device, 3),
+            product_only_ms=timed(lambda: xs @ y.T, device, 3),
+            bound_ms=bound, bound_by=by, bound_f32_ms=bound_f32,
+            share_of_bound=bound / ms, share_of_f32_bound=bound_f32 / ms,
+            max_abs_err=float(err.max()),
+            max_err_of_norms=float((err / scale).max()),
+            label_diffs_near_ties=n_diff)
+        emit({"phase": "kernel", "name": f"fused_l2_nn@{name}",
+              **by_shape[name]})
+        del val, idx, pv, pi, err, scale
+    top = by_shape["list_assignment"]
+    return dict(max_abs_err=top["max_abs_err"], ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=None,
+                bound_f32_ms=top["bound_f32_ms"],
+                product_only_ms=top["product_only_ms"],
+                rows_batch_independent=True, by_shape=by_shape)
+
+
+def b1_fma_phase(device, gen, x, y, rep: int):
+    """B1's float32 FMA kernel, which no main path runs: rows wider than
+    ``TC_MAX_D`` (1,000 × 1,000 × 300) and ``bf16_dot`` (the first 65,536
+    rows of x against the list centres), each against the plain version
+    with its labels equal except near ties and values to rtol 1e-5, atol
+    1e-4 (``bf16_dot``: both sum the same exact products of bfloat16
+    operands in float32, in other orders); returns their times."""
+    import torch
+
+    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.kernels import fused_l2nn
+
+    xw = torch.randn(1000, 300, generator=gen, device=device)
+    yw = torch.randn(1000, 300, generator=gen, device=device)
+    xb = x[:65536]
+    out = {}
+    for name, (xs, ys, bf16) in {"wide_d300": (xw, yw, False),
+                                 "bf16_dot": (xb, y, True)}.items():
+        check(not fused_l2nn.tensor_cores(xs.shape[1], bf16),
+              f"fused_l2_nn {name}: not dispatched to the FMA kernel")
+        val, idx = fused_l2nn.fused_l2_nn(xs, ys, bf16_dot=bf16)
+        pv, pi = plain_nn.fused_l2_nn_plain(xs, ys, bf16_dot=bf16)
+        n_diff = check_labels(f"fused_l2_nn {name}", idx, pi, xs, ys,
+                              bf16_dot=bf16)
+        check(torch.allclose(val, pv, rtol=1e-5, atol=1e-4),
+              f"fused_l2_nn {name}: values beyond rtol 1e-5, atol 1e-4")
+        out[name] = dict(
+            shape=[xs.shape[0], ys.shape[0], xs.shape[1]],
+            ms=timed(lambda: fused_l2nn.fused_l2_nn(xs, ys, bf16_dot=bf16),
+                     device, rep),
+            plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(
+                xs, ys, bf16_dot=bf16), device, 3),
+            max_abs_err=float((val - pv).abs().max()),
+            label_diffs_near_ties=n_diff)
+    emit({"phase": "kernel", "name": "fused_l2_nn@fma_kernel", **out})
+    return out
 
 
 def kernel_phase(device, x, queries, centers_probe, rep: int):
@@ -255,16 +394,11 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     rows = {}
     gen = torch.Generator(device=device).manual_seed(11)
 
-    # B1 at the list-assignment shape (n × n_lists × dim) and a ragged one
+    # B1 at the build path's shapes, and a ragged one
     y = centers_probe
     m, d = x.shape
     k = y.shape[0]
-    val, idx = fused_l2nn.fused_l2_nn(x, y)
-    pv, pi = plain_nn.fused_l2_nn_plain(x, y)
-    n_diff = check_labels("fused_l2_nn", idx, pi, x, y)
-    err = float((val - pv).abs().max())
-    check(torch.allclose(val, pv, rtol=1e-5, atol=1e-4),
-          "fused_l2_nn: values beyond rtol 1e-5, atol 1e-4")
+    rows["fused_l2_nn"] = b1_phase(device, x, y, rep)
     xr = torch.randn(1000, 100, generator=gen, device=device)
     yr = torch.randn(1000, 100, generator=gen, device=device)
     rv, ri = fused_l2nn.fused_l2_nn(xr, yr)
@@ -272,14 +406,9 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     n_diff_r = check_labels("fused_l2_nn ragged", ri, pri, xr, yr)
     check(torch.allclose(rv, prv, rtol=1e-5, atol=1e-4),
           "fused_l2_nn ragged: values beyond tolerance")
-    ms = timed(lambda: fused_l2nn.fused_l2_nn(x, y), device, rep)
-    plain_ms = timed(lambda: plain_nn.fused_l2_nn_plain(x, y), device, 3)
-    b, by = bound_ms(4.0 * (m * d + k * d + 2 * m), 2.0 * m * k * d)
-    rows["fused_l2_nn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b, bound_by=by, library_ms=None)
-    emit({"phase": "kernel", "name": "fused_l2_nn", "shape": [m, k, d],
-          "label_diffs_near_ties": n_diff, "ragged_shape": [1000, 1000, 100],
-          "ragged_label_diffs_near_ties": n_diff_r, **rows["fused_l2_nn"]})
+    emit({"phase": "kernel", "name": "fused_l2_nn@ragged",
+          "shape": [1000, 1000, 100], "label_diffs_near_ties": n_diff_r})
+    rows["fused_l2_nn"]["fma_kernel"] = b1_fma_phase(device, gen, x, y, rep)
 
     # B3 at the balancing-EM shape (trainset × n_lists × dim)
     xt = x[: m // 2]
@@ -305,11 +434,19 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     m_ms = (timed(lambda: fused_l2nn._launch_cluster_partials(
         xt, out[1], None, k), device, rep) if device.type == "cuda" else None)
     m_bound, _ = bound_ms(4.0 * (mt * d + mt + k * d + k), 0.0)
-    b, by = bound_ms(4.0 * (mt * d + 2 * k * d + 2 * mt + k),
-                     2.0 * mt * k * d + mt * d)
+    # the E-step's products as three TF32 passes on the tensor cores and
+    # the M-step's adds in float32, each at its own rate; beside it the
+    # float32 bound of the products as they were before
+    t_bytes = 4.0 * (mt * d + 2 * k * d + 2 * mt + k) / HBM_BYTES_PER_S
+    t_ops = (6.0 * mt * k * d / TF32_FLOP_PER_S
+             + 1.0 * mt * d / F32_FLOP_PER_S)
+    b = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    b_f32, _ = bound_ms(0.0, 2.0 * mt * k * d + mt * d)
     rows["fused_l2_nn_partials"] = dict(max_abs_err=err3, ms=ms,
                                         plain_ms=plain_ms, bound_ms=b,
                                         bound_by=by, library_ms=None,
+                                        bound_f32_ms=b_f32,
                                         m_step_ms=m_ms,
                                         m_step_bound_ms=m_bound)
     emit({"phase": "kernel", "name": "fused_l2_nn_partials",
@@ -512,6 +649,81 @@ def profile_serve(path, eng, q_host, device, top: int = 12):
                   for e in events[:top]]})
 
 
+#: kernel names of the port's own kernels in a profile (the rest are
+#: PyTorch's and cuBLAS's)
+OWN_KERNELS = ("fused_l2nn", "tile_y", "em_small", "cluster_partials",
+               "reduce_partials", "select_", "lut_", "pairwise")
+
+
+def profile_build(path, device, x, n_lists: int, top: int = 12):
+    """Wall seconds of three builds (median), then device time by kernel
+    (torch.profiler) over one more, stage by stage: IVF-Flat's build
+    whole, IVF-PQ's training (coarse k-means, list assignment, rotation,
+    codebooks) and its population (encode, pack); B1's and B3's kernels
+    and PyTorch's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    mod = {"ivf_flat": ivf_flat, "ivf_pq": ivf_pq}[path]
+    params = mod.IndexParams(n_lists=n_lists)
+
+    def synced(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        synced(lambda: mod.build(params, x, device=device))
+        walls.append(time.perf_counter() - t0)
+    if path == "ivf_pq":
+        model = {}
+
+        def train():
+            model["m"] = ivf_pq._train_model(params, x, None)
+
+        def populate():
+            centers, labels, rotation, codebooks = model["m"]
+            index = ivf_pq._empty_index(centers, rotation, codebooks,
+                                        params.metric, params.pq_bits,
+                                        "float32")
+            ivf_pq._populate(index, x, None, labels)
+
+        stages = {"train": train, "populate": populate}
+    else:
+        stages = {"build": lambda: mod.build(params, x, device=device)}
+    for stage, fn in stages.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            synced(fn)
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+
+        def ms(keys, own=True):
+            return sum(e.self_device_time_total for e in events
+                       if any(k in e.key for k in keys) == own) / 1e3
+
+        emit({"phase": "profile_build", "path": path, "stage": stage,
+              "build_wall_s": statistics.median(walls),
+              "build_walls_s": walls,
+              "device_ms": ms(OWN_KERNELS) + ms(OWN_KERNELS, own=False),
+              "kernel_launches": sum(e.count for e in events),
+              "b1_ms": ms(("fused_l2nn", "tile_y")),
+              "b1_launches": sum(e.count for e in events
+                                 if "fused_l2nn" in e.key),
+              "b3_m_step_ms": ms(("em_small", "cluster_partials",
+                                  "reduce_partials")),
+              "torch_kernels_ms": ms(OWN_KERNELS, own=False),
+              "top": [{"name": e.key[:90], "calls": e.count,
+                       "device_ms": e.self_device_time_total / 1e3}
+                      for e in events[:top]]})
+
+
 def ragged_calls(q_host, n_queries: int):
     """Ragged requests covering every query, eight to a call."""
     pattern = [1, 7, 64, 300, 1500, 33, 128, 900, 2, 511]
@@ -601,6 +813,18 @@ def _first_ids(results, nr, device):
                            device=device).long()
 
 
+def plain_build_recall(mod, index_params, search_params, x, qr, k, truth,
+                       device):
+    """Recall@10 of the whole plain path — the index built through the
+    kernels' plain versions (``engine="torch"``) and searched through
+    them — and that build's seconds."""
+    t0 = time.perf_counter()
+    index = mod.build(index_params, x, device=device, engine="torch")
+    build_s = _synced_seconds(device, t0)
+    _, ids = mod.search(search_params, index, qr, k, engine="torch")
+    return recall(ids.long(), truth), build_s
+
+
 def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                   n_probes, k):
     """The IVF-Flat main path and its checks; returns (engine, launches)."""
@@ -628,12 +852,20 @@ def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     _, ids_plain = ivf_flat.search(params, index, qr, k, engine="torch")
     r_kernel = recall(ids_kernel, truth)
     r_plain = recall(ids_plain.long(), truth)
+    r_pb, pb_s = plain_build_recall(ivf_flat,
+                                    ivf_flat.IndexParams(n_lists=n_lists),
+                                    params, x, qr, k, truth, device)
     emit({"phase": "checks", "path": "ivf_flat",
           "coalesced_equals_solo": True, "recall_at_10": r_kernel,
-          "recall_at_10_plain_path": r_plain, "recall_queries": nr})
+          "recall_at_10_plain_path": r_plain,
+          "recall_at_10_plain_build": r_pb, "plain_build_s": pb_s,
+          "recall_queries": nr})
     check(abs(r_kernel - r_plain) <= 0.002,
           "ivf_flat: kernel-path recall is not within 0.002 of the plain "
           "path's")
+    check(abs(r_kernel - r_pb) <= BUILD_RECALL_TOL["ivf_flat"],
+          f"ivf_flat: the kernel-built index's recall is not within "
+          f"{BUILD_RECALL_TOL['ivf_flat']} of the plain-built index's")
     return eng, launches
 
 
@@ -685,9 +917,13 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     _, ids8_plain = ivf_pq.search(p8, index, qr, k, engine="torch")
     r8, r8_plain = recall(ids8.long(), truth), recall(ids8_plain.long(),
                                                       truth)
+    r_pb, pb_s = plain_build_recall(ivf_pq,
+                                    ivf_pq.IndexParams(n_lists=n_lists),
+                                    params, x, qr, k, truth, device)
     emit({"phase": "checks", "path": "ivf_pq",
           "coalesced_equals_solo": True, "recall_at_10": r_kernel,
           "recall_at_10_plain_path": r_plain,
+          "recall_at_10_plain_build": r_pb, "plain_build_s": pb_s,
           "recall_at_10_fp8": r8, "recall_at_10_fp8_plain_path": r8_plain,
           "fp8_batch_cap": ivf_pq.hoisted_batch_cap(index, n_probes,
                                                     "float8_e4m3"),
@@ -698,6 +934,9 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     check(abs(r8 - r8_plain) <= 0.002,
           "ivf_pq fp8: kernel-path recall is not within 0.002 of the plain "
           "path's")
+    check(abs(r_kernel - r_pb) <= BUILD_RECALL_TOL["ivf_pq"],
+          f"ivf_pq: the kernel-built index's recall is not within "
+          f"{BUILD_RECALL_TOL['ivf_pq']} of the plain-built index's")
     return index, eng, launches
 
 
@@ -1190,6 +1429,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         profile_serve("ivf_flat", eng_flat, q_host, device)
         profile_serve("ivf_pq", eng_pq, q_host, device)
         profile_serve("brute_force", eng_bf, q_host, device)
+        profile_build("ivf_flat", device, x, n_lists)
+        profile_build("ivf_pq", device, x, n_lists)
     return rows
 
 

@@ -74,6 +74,7 @@
 
 #include <atomic>
 
+#include "bulk_copy.cuh"
 #include "warp_select.cuh"
 
 namespace {
@@ -89,38 +90,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 v) {
   return static_cast<float>(v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- the LUT's bulk copy (TMA engine) and its mbarrier ----
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  // generic-proxy reads of the buffer (ordered by the caller's barrier)
-  // come before the async proxy's writes
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t phase) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
-  }
 }
 
 // ---- the codes' cp.async copies ----

@@ -6,6 +6,11 @@ Replace ``raft_tpu/kernels/fused_l2nn.py`` ``fused_l2_nn_pallas`` and
 version (``raft_tpu_torch.distance.fused_l2_nn``); a CUDA tensor launches
 the kernel or raises — there is no quiet fallback.
 
+B1 has two kernels, picked by :func:`tensor_cores` from the row width
+and the product type alone: float32 products of rows up to ``TC_MAX_D``
+features run on the tensor cores as three TF32 products (hi·lo splits of
+both operands), wider rows and ``bf16_dot`` on plain float32 FMA.
+
 B3 forms its M-step partials without atomics and without ordering the rows
 by label: each block sums its fixed chunk of rows into its own partials
 and a second launch adds the chunks in chunk order, so the sums repeat bit
@@ -34,6 +39,12 @@ MAX_D = 2048
 #: the narrow-row kernel's limits (``EM_MAX_D`` / ``EM_MAX_K`` in the source)
 EM_MAX_D = 16
 EM_MAX_K = 256
+#: widest rows of B1's 3xTF32 tensor-core kernel (``TC_MAX_D`` in the
+#: source): a block's 128 rows of x must fit in shared memory.  It is
+#: faster than the float32 FMA kernel at every narrower width, down to 1
+#: (``tools/b1_probe.py --widths`` of this checkout against the FMA-only
+#: parent), so it has no lower limit.
+TC_MAX_D = 256
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -50,19 +61,34 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def tensor_cores(d: int, bf16_dot: bool) -> bool:
+    """Whether B1 takes its 3xTF32 tensor-core kernel at row width *d*
+    (float32 products, ``1 <= d <= TC_MAX_D``) or its float32 FMA
+    kernel; a function of the width and product type alone, so a row's
+    bits never depend on the batch it rides in."""
+    return not bf16_dot and 1 <= d <= TC_MAX_D
+
+
 def _launch_nn(x: torch.Tensor, y: torch.Tensor, bf16_dot: bool):
+    """B1 on aligned float32 x, y, through the kernel that
+    :func:`tensor_cores` picks."""
     lib = native.library("fused_l2nn")
     m, d = x.shape
     k = y.shape[0]
-    xn = _row_norms(x)
+    tc = tensor_cores(d, bf16_dot)
+    # the tensor-core kernel forms x's norms from its copy of the rows
+    xn = x.new_empty(0) if tc else _row_norms(x)
     yn = _row_norms(y)
     val = torch.empty(m, dtype=torch.float32, device=x.device)
     idx = torch.empty(m, dtype=torch.int32, device=x.device)
+    yt = torch.empty(int(lib.raft_fused_l2nn_scratch(k, d)) if tc else 0,
+                     dtype=torch.float32, device=x.device)
     err = lib.raft_fused_l2nn(x.data_ptr(), xn.data_ptr(), y.data_ptr(),
                               yn.data_ptr(), val.data_ptr(), idx.data_ptr(),
-                              m, k, d, int(bool(bf16_dot)),
-                              native.stream_handle(x.device))
-    native.check(lib, err, "fused_l2nn_kernel")
+                              m, k, d, int(bool(bf16_dot)), int(bool(tc)),
+                              yt.data_ptr(), native.stream_handle(x.device))
+    native.check(lib, err, "fused_l2nn_tc_kernel" if tc
+                 else "fused_l2nn_kernel")
     return val, idx
 
 
@@ -74,9 +100,7 @@ def fused_l2_nn(x: torch.Tensor, y: torch.Tensor, bf16_dot: bool = False
     if x.device.type == "cpu":
         return plain.fused_l2_nn_plain(x, y, bf16_dot)
     expects(x.device.type == "cuda", f"fused_l2_nn: device {x.device}")
-    x = x.float().contiguous()
-    y = y.float().contiguous()
-    out = _launch_nn(x, y, bf16_dot)
+    out = _launch_nn(_aligned(x), _aligned(y), bf16_dot)
     native.LAUNCHES["fused_l2_nn"] += 1
     return out
 

@@ -118,8 +118,12 @@ _F = ctypes.c_float
 #: error code (int) unless given beside them
 _SIGNATURES = {
     "fused_l2nn": {
-        # x, xn, y, yn, val, idx, m, k, d, bf16_dot, stream
-        "raft_fused_l2nn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, xn, y, yn, val, idx, m, k, d, bf16_dot, tensor_cores, yt,
+        # stream
+        "raft_fused_l2nn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P],
+        # k, d -> floats of the tensor-core kernel's tiled y
+        "raft_fused_l2nn_scratch": ([_I, _I], _L),
         # x, w (nullable), w_stride, y, S, n, k, ds, val, idx, part, sums,
         # wsum, inertia, stream
         "raft_em_small": [_P, _P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,

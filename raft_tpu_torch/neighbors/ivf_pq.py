@@ -53,7 +53,8 @@ from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
 from raft_tpu_torch.kernels import ivf_pq_lut
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors._common import (empty_result, expand_probes,
+from raft_tpu_torch.neighbors._common import (_SCAN_STACK_MIN_K,
+                                              empty_result, expand_probes,
                                               pack_lists, scan_probe_lists,
                                               subsample_trainset)
 from raft_tpu_torch.neighbors.ivf_flat import (_assign_lists,
@@ -698,8 +699,16 @@ def _select_scanned(vals: torch.Tensor, slots: torch.Tensor,
     the steps' runs laid end to end (step-major, each best-first), so
     earlier steps, then lower slots, win ties — the running merge's order;
     ids come from ``list_indices`` for the winners only.  Fewer than k
-    candidates leave the worst value and id −1."""
+    candidates leave the worst value and id −1.
+
+    Below :data:`_SCAN_STACK_MIN_K` (or with fewer than k slots in all)
+    the per-step path runs a running merge seeded with (sentinel, −1),
+    whose seed wins ties: there a winner no better than the sentinel (a
+    live candidate scoring ±inf, or NaN) becomes (sentinel, −1) too.  At
+    or above it the per-step path selects over the stacked masked tiles,
+    as this select does, and such a winner keeps its id."""
     nq, n_steps, kk = vals.shape
+    sentinel = float("inf") if select_min else float("-inf")
     flat = vals.reshape(nq, n_steps * kk)
     kt = min(k, flat.shape[1])
     best_d, pos = select_k(flat, kt, select_min, engine=engine)
@@ -707,10 +716,15 @@ def _select_scanned(vals: torch.Tensor, slots: torch.Tensor,
     slot = torch.gather(slots.reshape(nq, -1), 1, pos).long()
     row = torch.gather(phys, 1, torch.div(pos, kk, rounding_mode="floor"))
     best_i = list_indices[row.long(), slot]
+    if not (k >= _SCAN_STACK_MIN_K and n_steps * list_indices.shape[1] >= k):
+        beats = best_d < sentinel if select_min else best_d > sentinel
+        best_d = torch.where(beats, best_d, torch.full_like(best_d,
+                                                            sentinel))
+        best_i = torch.where(beats, best_i, torch.full_like(best_i, -1))
     if kt < k:
         best_d = torch.cat([best_d, torch.full(
-            (nq, k - kt), float("inf") if select_min else float("-inf"),
-            dtype=best_d.dtype, device=best_d.device)], dim=1)
+            (nq, k - kt), sentinel, dtype=best_d.dtype,
+            device=best_d.device)], dim=1)
         best_i = torch.cat([best_i, torch.full(
             (nq, k - kt), -1, dtype=best_i.dtype, device=best_i.device)],
             dim=1)

@@ -7,7 +7,9 @@ them on a machine with a card with
 machine need not have).
 Tolerances: select_k positions and values bit-identical; fused L2 NN
 labels identical except near ties (two best distances within 1e-5
-relative), values to rtol 1e-5; M-step partials from equal labels to
+relative), values to rtol 1e-5 or, where the distance is far below the
+norms (B1's 3xTF32 products), to 1e-5 of ‖x‖² + ‖y‖², and a row's bits
+the same in any batch; M-step partials from equal labels to
 1e-5 of the members' absolute sums (the kernel adds each block's rows and
 then the blocks in a fixed order, the plain version's ``index_add_`` in
 its own), and bit for bit from run to run and between one launch for S
@@ -83,6 +85,172 @@ def test_fused_l2_nn_kernel_bf16_dot_matches_plain(dev):
         two = torch.topk(d, 2, dim=1, largest=False).values
         near = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].clamp_min(1e-30)
         assert not bool((diff & ~near).any())
+
+
+def _assert_nn_close(x, y, val, idx, pv, pi):
+    """B1's contract against its plain version: labels equal except near
+    ties; values within 1e-5 of ‖x‖² + ‖y‖² of the row's label (the scale
+    at which the float32 expanded form rounds)."""
+    diff = idx != pi
+    if bool(diff.any()):
+        assert not bool((diff & ~_near_tie(x, y)).any())
+    scale = (x * x).sum(1) + (y * y).sum(1)[idx.long()]
+    assert bool(((val - pv).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("m,k,d", [
+    (1, 1, 128), (1, 1000, 33), (7, 63, 100), (130, 64, 33), (129, 65, 128),
+    (1000, 1, 8), (257, 1000, 9), (300, 500, 256), (50, 20, 4),
+    (200, 100, 2), (100, 50, 300), (4097, 31, 64)])
+def test_fused_l2_nn_kernel_widths_and_edges(dev, m, k, d):
+    """B1 at widths off 4 and off the 32-feature stage (33, 100, 9), narrow
+    and wide rows on either side of the tensor-core kernel's range, k below
+    and just above a 64-centroid tile, k = 1, m = 1, and a duplicate
+    centroid (the lower index wins)."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
+    from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn
+
+    g = torch.Generator(device="cpu").manual_seed(m * 7 + k * 3 + d)
+    x = torch.randn(m, d, generator=g).to(dev)
+    y = torch.randn(k, d, generator=g).to(dev)
+    if k > 3:
+        y[k - 1] = y[1]
+    val, idx = fused_l2_nn(x, y)
+    torch.cuda.synchronize()
+    assert val.shape == (m,) and idx.dtype == torch.int32
+    _assert_nn_close(x, y, val, idx, *fused_l2_nn_plain(x, y))
+    if k > 3:
+        assert not bool((idx == k - 1).any())
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_fused_l2_nn_kernel_cancellation(dev, d):
+    """Rows of x that are rows of y plus noise at 1e-3 of their norm: the
+    distance is 1e-6 of the norms, where the products' error shows first.
+    Each row finds its source row, with the value to 1e-5 of the norms."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
+    from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn
+
+    g = torch.Generator(device="cpu").manual_seed(d)
+    y = torch.randn(1024, d, generator=g) * 10.0
+    src = torch.randint(0, 1024, (20000,), generator=g)
+    noise = torch.randn(20000, d, generator=g)
+    noise *= 1e-3 * y[src].norm(dim=1, keepdim=True) / noise.norm(
+        dim=1, keepdim=True)
+    x = (y[src] + noise).to(dev)
+    y = y.to(dev)
+    val, idx = fused_l2_nn(x, y)
+    pv, pi = fused_l2_nn_plain(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.cpu().long(), src)
+    _assert_nn_close(x, y, val, idx, pv, pi)
+
+
+def test_fused_l2_nn_rows_do_not_depend_on_the_batch(dev):
+    """A row's (value, label) bits are the same whether it rides in a
+    batch of 1, 7, 1,000 or 4,097 rows, at any position in its block."""
+    from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(4097, 128, generator=g).to(dev)
+    y = torch.randn(1024, 128, generator=g).to(dev)
+    val, idx = fused_l2_nn(x, y)
+    for m in (1, 7, 1000, 4097):
+        v, i = fused_l2_nn(x[:m], y)
+        assert torch.equal(v, val[:m]) and torch.equal(i, idx[:m])
+    for r0 in (5, 127, 1000):
+        v, i = fused_l2_nn(x[r0:r0 + 7], y)
+        assert torch.equal(v, val[r0:r0 + 7])
+        assert torch.equal(i, idx[r0:r0 + 7])
+
+
+def test_fused_l2_nn_kernel_nan_never_wins(dev):
+    """A NaN centroid is never the label; a NaN row gets label 0."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
+    from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    x = torch.randn(500, 64, generator=g).to(dev)
+    y = torch.randn(200, 64, generator=g).to(dev)
+    y[3, 10] = float("nan")
+    x[7, 0] = float("nan")
+    val, idx = fused_l2_nn(x, y)
+    far = y.clone()
+    far[3] = 1e30           # never the nearest row
+    pv, pi = fused_l2_nn_plain(x, far)
+    torch.cuda.synchronize()
+    assert not bool((idx == 3).any())
+    assert int(idx[7]) == 0
+    keep = torch.ones(500, dtype=torch.bool, device=dev)
+    keep[7] = False
+    _assert_nn_close(x[keep], far, val[keep], idx[keep], pv[keep], pi[keep])
+
+
+@pytest.mark.parametrize("m,k,d", [(1000, 1000, 300), (300, 70, 257),
+                                   (129, 65, 2048)])
+def test_fused_l2_nn_fma_kernel_wide_rows(dev, m, k, d):
+    """Rows wider than TC_MAX_D take the float32 FMA kernel, which holds
+    the contract against the plain version."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
+    from raft_tpu_torch.kernels.fused_l2nn import (TC_MAX_D, fused_l2_nn,
+                                                   tensor_cores)
+
+    assert d > TC_MAX_D and not tensor_cores(d, False)
+    g = torch.Generator(device="cpu").manual_seed(m + k + d)
+    x = torch.randn(m, d, generator=g).to(dev)
+    y = torch.randn(k, d, generator=g).to(dev)
+    y[k - 1] = y[1]
+    val, idx = fused_l2_nn(x, y)
+    torch.cuda.synchronize()
+    _assert_nn_close(x, y, val, idx, *fused_l2_nn_plain(x, y))
+    assert not bool((idx == k - 1).any())
+
+
+@pytest.mark.parametrize("d", [2, 33, 128])
+def test_fused_l2_nn_bf16_dot_keeps_the_fma_kernel(dev, d):
+    """bf16_dot is dispatched to the float32 FMA kernel (its bfloat16
+    products are exact in float32) at every width, also where float32
+    products take the tensor cores; it sums the plain version's exact
+    products in another order."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
+    from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn, tensor_cores
+
+    assert not tensor_cores(d, True) and tensor_cores(d, False)
+    g = torch.Generator(device="cpu").manual_seed(4 + d)
+    x = torch.randn(2000, d, generator=g).to(dev)
+    y = torch.randn(300, d, generator=g).to(dev)
+    val, idx = fused_l2_nn(x, y, bf16_dot=True)
+    pv, pi = fused_l2_nn_plain(x, y, bf16_dot=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(val, pv, rtol=1e-5, atol=1e-4)
+    diff = idx != pi
+    if bool(diff.any()):
+        xb, yb = x.bfloat16().double(), y.bfloat16().double()
+        dd = ((x.double() ** 2).sum(1)[:, None] + (y.double() ** 2).sum(1)
+              - 2 * xb @ yb.T)
+        two = torch.topk(dd, 2, dim=1, largest=False).values
+        near = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].clamp_min(1e-30)
+        assert not bool((diff & ~near).any())
+
+
+def test_fused_l2_nn_partials_wide_e_step_is_b1(dev):
+    """B3 at wide rows takes B1's tensor-core E-step: its labels and
+    distances are B1's bits, its partials hold their contract."""
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_partials_plain
+    from raft_tpu_torch.kernels.fused_l2nn import (fused_l2_nn,
+                                                   fused_l2_nn_partials,
+                                                   tensor_cores)
+
+    g = torch.Generator(device="cpu").manual_seed(21)
+    x = torch.randn(30000, 128, generator=g).to(dev)
+    y = x[torch.randperm(30000, generator=g)[:1024].to(dev)]
+    assert tensor_cores(128, False)
+    out = fused_l2_nn_partials(x, y)
+    val, idx = fused_l2_nn(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], val) and torch.equal(out[1], idx)
+    _assert_partials_close(x, y, None, out,
+                           fused_l2_nn_partials_plain(x, y))
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -33,63 +33,17 @@ which adds it where the host is the slower side).
 """
 
 import argparse
-import json
 import pathlib
-import subprocess
 import sys
-import tempfile
 
 import torch
+
+from probe_common import (HBM_BYTES_PER_S, elapsed_ms, emit, mixture,
+                          nvidia_smi, ptxas)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from raft_tpu_torch.kernels import native  # noqa: E402
-
-HBM_BYTES_PER_S = 3.35e12
-#: cycles the card sleeps per timed call, ahead of the host's enqueue
-SLEEP_CYCLES = 200_000
-
-
-def elapsed_ms(fn, reps: int = 20, sleep: bool = True) -> float:
-    """Milliseconds per call.  With *sleep* the card sleeps while the host
-    enqueues the calls, so this is device time; without, the calls run
-    back to back and the host's launch overhead counts where it is the
-    slower side."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    if sleep:
-        torch.cuda._sleep(SLEEP_CYCLES * reps)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def ptxas() -> None:
-    for name in native.SOURCES:
-        with tempfile.TemporaryDirectory() as tmp:
-            out = subprocess.run([native._nvcc(), *native.NVCC_FLAGS,
-                                  "-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
-                                  str(native.CSRC / f"{name}.cu")],
-                                 capture_output=True, text=True)
-        lines = [ln for ln in (out.stdout + out.stderr).splitlines()
-                 if "registers" in ln or "spill" in ln or "error" in ln
-                 or "Compiling entry" in ln]
-        print(f"== {name}.cu rc={out.returncode}")
-        print("\n".join(lines)[-6000:], flush=True)
-
-
-def mixture(gen, n, dim, comps, dev):
-    idx = torch.randint(0, comps.shape[0], (n,), generator=gen, device=dev)
-    return comps[idx] + 0.7 * torch.randn(n, dim, generator=gen, device=dev)
 
 
 def select_shapes(dev, gen):
@@ -138,16 +92,11 @@ def b3_split(dev, gen, x, y, name):
     k = y.shape[0]
     lib = native.library("fused_l2nn")
     st = native.stream_handle(dev)
-    xn, yn = _row_norms(x), _row_norms(y)
-    val = torch.empty(m, dtype=torch.float32, device=dev)
-    idx = torch.empty(m, dtype=torch.int32, device=dev)
 
-    def e_step():
-        lib.raft_fused_l2nn(x.data_ptr(), xn.data_ptr(), y.data_ptr(),
-                            yn.data_ptr(), val.data_ptr(), idx.data_ptr(),
-                            m, k, d, 0, st)
+    def e_step():   # B1 with its row norms
+        return fused_l2nn._launch_nn(x, y, False)
 
-    e_step()
+    val, idx = e_step()
     stages = {"row_norms_x_and_y": lambda: (_row_norms(x), _row_norms(y)),
               "e_step_b1": e_step}
     out = {"probe": "b3_split", "shape": name, "m": m, "k": k, "d": d}
@@ -270,13 +219,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.ptxas:
-        ptxas()
+        ptxas(native, native.SOURCES)
     native.load_all()
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    emit({"probe": "device", "nvidia_smi": smi})
+    emit({"probe": "device", "nvidia_smi": nvidia_smi()})
     gen = torch.Generator(device=dev).manual_seed(0)
     select_shapes(dev, gen)
     xc = torch.randn(262144, 2, generator=gen, device=dev)

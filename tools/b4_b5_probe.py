@@ -37,50 +37,13 @@ enqueued while the card sleeps.
 
 import argparse
 import collections
-import json
 import pathlib
 import re
 import subprocess
 import sys
-import tempfile
 
-HBM_BYTES_PER_S = 3.35e12
-F32_INSTR_PER_S = 67e12 / 2
-SLEEP_CYCLES = 200_000
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def elapsed_ms(fn, reps: int = 20) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES * reps)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def ptxas(native) -> None:
-    for name in ("pairwise", "ivf_pq_lut", "select_k"):
-        with tempfile.TemporaryDirectory() as tmp:
-            out = subprocess.run([native._nvcc(), *native.NVCC_FLAGS,
-                                  "-Xptxas", "-v", "-o", f"{tmp}/{name}.so",
-                                  str(native.CSRC / f"{name}.cu")],
-                                 capture_output=True, text=True)
-        lines = [ln for ln in (out.stdout + out.stderr).splitlines()
-                 if "registers" in ln or "spill" in ln or "error" in ln
-                 or "Compiling entry" in ln]
-        emit({"probe": "ptxas", "source": f"{name}.cu", "rc": out.returncode,
-              "lines": lines[-80:]})
+from probe_common import (F32_INSTR_PER_S, HBM_BYTES_PER_S, elapsed_ms, emit,
+                          nvidia_smi, ptxas)
 
 
 def sass(native) -> None:
@@ -272,12 +235,9 @@ def main() -> int:
         print("b4_b5_probe: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    emit({"probe": "device", "root": args.root, "nvidia_smi": smi})
+    emit({"probe": "device", "root": args.root, "nvidia_smi": nvidia_smi()})
     if args.ptxas:
-        ptxas(native)
+        ptxas(native, ("pairwise", "ivf_pq_lut", "select_k"))
     native.load_all()
     if args.sass:
         sass(native)

@@ -51,13 +51,33 @@ Phases, one JSON line each:
    with ``engine="torch"``); then an index built through the plain
    versions and searched through them, whose recall the kernel-built
    index's must lie within ``BUILD_RECALL_TOL`` of.
+   Then its open-loop phase ``serve_stream``: launch counts reset, a
+   fresh engine like the serve phase's fed through ``submit()`` from a
+   feeder thread, the ragged requests arriving as a Poisson process at
+   0.5× and 0.9× the serve phase's qps over all queries, every fourth a
+   ``ServeRequest`` with a deadline of 10× the serve phase's per-call
+   p50; each line gives achieved qps, the engine's
+   ``latency_quantiles((0.5, 0.99))`` (from a ``search()`` entry), the
+   open-loop latency p50/p99 (from the request's scheduled arrival to its
+   result) with how late the feeder ran, rejections by reason and the
+   engine's admission and scheduler counters, beside the card's name and
+   power limit.  Checks: every served request bit for bit the serve
+   phase's result, every other one a typed ``RejectedError``, none
+   hung; one injected transient dispatch fault retried once with
+   identical results; ``/metrics`` holds the request latency histogram
+   and ``/healthz`` answers 200 (``serve_http(0)``); ``close()``
+   resolves what is pending and a later ``submit()`` is refused; the
+   launch counts read after show B2 (and for IVF-PQ B4's scan mode).
 4. IVF-PQ main path — the same with ``ivf_pq.build`` and an IVF-PQ
    ``ServeEngine``: B1, B2, B3 and B4's scan mode must have launched, B4's
    per-step raw mode never, and the build at most ``MAX_PQ_BUILD_B3``
    times B3.  Checks: coalesced equals solo, kernel-path recall@10 within
    0.002 of the plain path's at the float32 LUT and, for a solo search,
    at the fp8 LUT, and within ``BUILD_RECALL_TOL`` of a plain-built
-   index's (float32 LUT).
+   index's (float32 LUT).  Then its ``serve_stream`` phase as above,
+   which also ``refresh``-es the engine with the index while ``submit()``
+   traffic flows: every future resolves without error, bit for bit, and
+   ``stats["refreshes"]`` is 1.
 5. B4's raw mode against its plain version at the IVF-PQ main path's step
    shape (1,024 queries × the index's capacity, pq_dim 64, 8 bits) for
    all four LUT types, and at ragged shapes (nq 1 and 37, capacities off
@@ -76,7 +96,9 @@ Phases, one JSON line each:
    equals solo ``knn`` per request bit for bit; on 1,000 queries, ids
    equal ``torch.cdist(p=1)`` + ``torch.topk`` (the checker) except at
    near ties and distances to rtol 1e-5; on every query, the kernel path
-   against the plain path (``engine="torch"``) in the same way.
+   against the plain path (``engine="torch"``) in the same way.  Then a
+   short ``serve_stream`` pass: 1,024 queries at 0.5×, so B5 runs under
+   the scheduler.
 7. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
    1,024 × 16,384 × 128 against ``engine="torch"`` (rtol 1e-5, atol
    1e-5); the seven B5 metrics must launch B5 and the others must not.
@@ -104,11 +126,13 @@ run in full float32 (TF32 off for matmul and cuDNN).
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -160,6 +184,24 @@ PATH_KERNELS = {
                "lut_scan"),
     "brute_force": ("pairwise_accumulate", "select_k"),
 }
+#: the kernels each serving path's open-loop phase must launch (serving
+#: builds nothing)
+STREAM_KERNELS = {"ivf_flat": ("select_k",),
+                  "ivf_pq": ("select_k", "lut_scan"),
+                  "brute_force": ("pairwise_accumulate", "select_k")}
+#: open-loop arrival rates, as fractions of the serve phase's qps
+STREAM_RATES = (0.5, 0.9)
+#: every 4th submitted request carries a deadline of 10 × the serve
+#: phase's per-call p50
+STREAM_DEADLINE_EVERY = 4
+STREAM_DEADLINE_X = 10
+#: the longest the open-loop phase waits on one future (a request that
+#: takes longer counts as hung)
+STREAM_WAIT_S = 120.0
+#: the engine counters each serve_stream line reports
+STREAM_STATS = ("admitted", "sheds", "expired", "sched_dispatches",
+                "sched_waits", "super_batches", "solo_fallbacks",
+                "retries", "dispatch_errors")
 #: batch sizes whose rows must equal the first rows of the 1,024-row
 #: batch (the serving buckets, a solo query and one size off the ladder)
 BUCKET_ROWS = (1, 8, 16, 32, 37, 64, 128, 256, 512)
@@ -754,23 +796,229 @@ def serve_path(path, device, eng, k, reqs, calls, n_queries):
         call_s.append(time.perf_counter() - t0)
     serve_s = time.perf_counter() - t_serve
     launches = dict(native.LAUNCHES)
-    emit({"phase": "serve", "path": path, "requests": len(reqs),
-          "calls": len(calls), "queries": n_queries,
-          "max_batch": eng.max_batch, "warmup_signatures": n_warm,
-          "warmup_s": warm_s, "serve_s": serve_s,
-          "qps": n_queries / serve_s,
-          "call_ms_p50": float(np.percentile(call_s, 50) * 1e3),
-          "call_ms_p99": float(np.percentile(call_s, 99) * 1e3),
-          "stats": eng.stats, "launches": launches,
-          "peak_mem_bytes": (torch.cuda.max_memory_allocated()
-                             if device.type == "cuda" else None)})
+    row = {"phase": "serve", "path": path, "requests": len(reqs),
+           "calls": len(calls), "queries": n_queries,
+           "max_batch": eng.max_batch, "warmup_signatures": n_warm,
+           "warmup_s": warm_s, "serve_s": serve_s,
+           "qps": n_queries / serve_s,
+           "call_ms_p50": float(np.percentile(call_s, 50) * 1e3),
+           "call_ms_p99": float(np.percentile(call_s, 99) * 1e3),
+           "stats": dict(eng.stats), "launches": launches,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                              if device.type == "cuda" else None)}
+    emit(row)
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{path} main path never launched {name}")
     for q, (d, i) in zip(reqs, results):
         check(isinstance(d, np.ndarray), f"a request failed: {d!r}")
         check(d.shape == (q.shape[0], k) and np.isfinite(d).all(),
               "results must be finite (n, k)")
-    return results, launches
+    return results, launches, row
+
+
+#: what a serving path hands its open-loop phase: the serve phase's
+#: results (one (distances, ids) pair per ragged request, every query in
+#: order), its emitted row, and a factory of an engine like its own
+Served = collections.namedtuple("Served", "results row make")
+
+
+def _stream_pass(eng, reqs, rate_qps, deadline_s, seed, during=None):
+    """Submit *reqs* from a feeder thread as a Poisson process of
+    *rate_qps* queries a second (exponential gaps of mean rows / rate);
+    every ``STREAM_DEADLINE_EVERY``-th request is a ``ServeRequest``
+    with *deadline_s* (None: no deadlines).  *during* runs in this
+    thread while the feeder submits.  Returns each request's result or
+    exception, the time it was due (its arrival on the schedule, from
+    which an open loop times it), its submit time and its completion
+    time."""
+    import concurrent.futures
+
+    from raft_tpu_torch.serve import ServeRequest
+
+    n = len(reqs)
+    mean_rows = float(np.mean([q.shape[0] for q in reqs]))
+    gaps = np.random.default_rng(seed).exponential(mean_rows / rate_qps, n)
+    arrivals = np.cumsum(gaps) - gaps[0]
+    futs, t_due, t_sub, t_done = [None] * n, [0.0] * n, [0.0] * n, [None] * n
+
+    def stamp(j):
+        return lambda _f: t_done.__setitem__(j, time.perf_counter())
+
+    def feed():
+        t0 = time.perf_counter()
+        for j, q in enumerate(reqs):
+            delay = t0 + arrivals[j] - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            t_due[j] = t0 + arrivals[j]
+            req = (ServeRequest(q, timeout_s=deadline_s)
+                   if deadline_s is not None
+                   and j % STREAM_DEADLINE_EVERY == STREAM_DEADLINE_EVERY - 1
+                   else q)
+            t_sub[j] = time.perf_counter()
+            f = eng.submit(req)
+            f.add_done_callback(stamp(j))
+            futs[j] = f
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    if during is not None:
+        during()
+    feeder.join(float(arrivals[-1]) + STREAM_WAIT_S)
+    check(not feeder.is_alive(), "serve_stream: the feeder hung")
+    outs = []
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=STREAM_WAIT_S))
+        except concurrent.futures.TimeoutError:
+            check(False, "serve_stream: a submitted request never resolved")
+        except Exception as e:   # typed rejections, checked by the caller
+            outs.append(e)
+    return outs, t_due, t_sub, t_done
+
+
+def _check_stream(path, outs, reqs, offsets, ref_d, ref_i, rejections_ok):
+    """Every served request bit for bit the serve phase's rows; every other
+    one a typed ``RejectedError`` (if *rejections_ok*).  Returns the
+    rejection counts by reason."""
+    from raft_tpu_torch.serve import RejectedError
+
+    rejected: dict = {}
+    for q, off, out in zip(reqs, offsets, outs):
+        if isinstance(out, tuple):
+            d, i = out
+            n = q.shape[0]
+            check(np.array_equal(d, ref_d[off:off + n])
+                  and np.array_equal(i, ref_i[off:off + n]),
+                  f"{path} serve_stream: a result differs from the serve "
+                  "phase's search() result")
+            continue
+        check(rejections_ok and isinstance(out, RejectedError),
+              f"{path} serve_stream: a request failed: {out!r}")
+        rejected[out.reason] = rejected.get(out.reason, 0) + 1
+    return rejected
+
+
+def _stream_row(path, rate, eng, reqs, timed, rejected, offered_qps,
+                deadline_s, smi):
+    outs, t_due, t_sub, t_done = timed
+    served = [j for j, o in enumerate(outs) if isinstance(o, tuple)]
+    rows = sum(reqs[j].shape[0] for j in served)
+    e2e = [t_done[j] - t_due[j] for j in served]
+    span = (max(t_done[j] for j in served) - min(t_due)) if served else 0.0
+    p50, p99 = eng.latency_quantiles((0.5, 0.99))
+    stats = dict(eng.stats)
+    arrivals = max(t_due) - min(t_due)
+    return {"phase": "serve_stream", "path": path, "rate": rate,
+            "offered_qps": offered_qps,
+            "arrival_qps": (sum(q.shape[0] for q in reqs) / arrivals
+                            if arrivals else None),
+            "achieved_qps": rows / span if span else None,
+            "requests": len(reqs), "served_requests": len(served),
+            "queries": sum(q.shape[0] for q in reqs), "served_queries": rows,
+            "deadline_every": STREAM_DEADLINE_EVERY, "deadline_s": deadline_s,
+            "latency_s_p50": p50, "latency_s_p99": p99,
+            "e2e_latency_s_p50": (float(np.percentile(e2e, 50))
+                                  if e2e else None),
+            "e2e_latency_s_p99": (float(np.percentile(e2e, 99))
+                                  if e2e else None),
+            "generator_late_s_max": max(b - a for a, b in zip(t_due, t_sub)),
+            "rejected": rejected,
+            "stats": {key: stats[key] for key in STREAM_STATS},
+            "card": smi}
+
+
+def serve_stream(path, device, served, q_host, n_queries, smi, seed,
+                 rates=STREAM_RATES, refresh_index=None, checks=True):
+    """The open-loop phase of one serving path: fresh engines like the
+    serve phase's, fed through ``submit()`` at each rate (a fraction of
+    the serve phase's qps) with the serve phase's ragged requests over
+    *n_queries*; then, with *checks*, a transient dispatch fault, a
+    ``refresh`` under traffic (of *refresh_index*), the scrape surface and
+    ``close()``.  Launch counts are reset before it and read after;
+    returns them."""
+    import urllib.request
+
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.serve import RejectedError
+    from raft_tpu_torch.testing import faults
+
+    ref_d = np.concatenate([r[0] for r in served.results])
+    ref_i = np.concatenate([r[1] for r in served.results])
+    reqs, _ = ragged_calls(q_host, n_queries)
+    offsets = np.cumsum([0] + [q.shape[0] for q in reqs[:-1]])
+    qps = served.row["qps"]
+    deadline_s = STREAM_DEADLINE_X * served.row["call_ms_p50"] / 1e3
+    _reset(device)
+    eng = None
+    for r, rate in enumerate(rates):
+        if eng is not None:
+            eng.close()
+        eng = served.make()
+        eng.warmup()
+        timed = _stream_pass(eng, reqs, rate * qps, deadline_s, seed + r)
+        rejected = _check_stream(path, timed[0], reqs, offsets, ref_d,
+                                 ref_i, rejections_ok=True)
+        emit(_stream_row(path, rate, eng, reqs, timed, rejected, rate * qps,
+                         deadline_s, smi))
+    out = {"phase": "serve_stream_checks", "path": path, "card": smi}
+    if checks:
+        # one transient dispatch fault: retried on the other lane
+        check(eng.stats["retries"] == 0, f"{path}: retries before the fault")
+        with faults.plan("dispatch:n=1:raise"):
+            futs = [eng.submit(q) for q in reqs[:8]]
+            eng.flush()
+            outs = [f.result(timeout=STREAM_WAIT_S) for f in futs]
+        _check_stream(path, outs, reqs[:8], offsets[:8], ref_d, ref_i,
+                      rejections_ok=False)
+        check(eng.stats["retries"] == 1,
+              f"{path}: one injected fault gave {eng.stats['retries']} "
+              "retries")
+        out["fault_retries"] = eng.stats["retries"]
+        if refresh_index is not None:
+            t0 = time.perf_counter()
+            outs = _stream_pass(
+                eng, reqs, rates[0] * qps, None, seed + len(rates),
+                during=lambda: eng.refresh(refresh_index))[0]
+            out["refresh_s"] = time.perf_counter() - t0
+            _check_stream(path, outs, reqs, offsets, ref_d, ref_i,
+                          rejections_ok=False)
+            check(eng.stats["refreshes"] == 1,
+                  f"{path}: refreshes {eng.stats['refreshes']} != 1")
+            out["refreshes"] = eng.stats["refreshes"]
+        srv = eng.serve_http(0)
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=10) as rsp:
+            metrics = rsp.read().decode()
+        check("raft_tpu_serve_request_latency_seconds" in metrics,
+              f"{path}: /metrics lacks the request latency histogram")
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=10) as rsp:
+            check(rsp.status == 200, f"{path}: /healthz {rsp.status}")
+            out["healthz"] = rsp.status
+        # close() resolves what is pending; a later submit() is refused
+        futs = [eng.submit(q) for q in reqs[:8]]
+        eng.close()
+        outs = []
+        for f in futs:
+            try:
+                outs.append(f.result(timeout=STREAM_WAIT_S))
+            except RejectedError as e:
+                outs.append(e)
+        _check_stream(path, outs, reqs[:8], offsets[:8], ref_d, ref_i,
+                      rejections_ok=True)
+        out["closed_pending"] = sum(not isinstance(o, tuple) for o in outs)
+        try:
+            eng.submit(reqs[0])
+            check(False, f"{path}: submit() after close() was accepted")
+        except RejectedError:
+            pass
+    eng.close()
+    launches = dict(native.LAUNCHES)
+    for name in STREAM_KERNELS[path]:
+        check(launches[name] > 0,
+              f"{path} serve_stream never launched {name}")
+    out["launches"] = launches
+    emit(out)
+    return launches
 
 
 def emit_build(path, index, build_s, build_info):
@@ -827,7 +1075,8 @@ def plain_build_recall(mod, index_params, search_params, x, qr, k, truth,
 
 def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                   n_probes, k):
-    """The IVF-Flat main path and its checks; returns (engine, launches)."""
+    """The IVF-Flat main path and its checks; returns (engine, launches,
+    served)."""
     from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.serve import ServeEngine
 
@@ -842,8 +1091,8 @@ def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                {"physical_rows": int(index.list_data.shape[0]),
                 "index_bytes": index.list_data.numel() * 4})
     eng = ServeEngine(index, k, params, max_batch=1024)
-    results, launches = serve_path("ivf_flat", device, eng, k, reqs, calls,
-                                   n_queries)
+    results, launches, row = serve_path("ivf_flat", device, eng, k, reqs,
+                                        calls, n_queries)
     check_coalesced("ivf_flat",
                     lambda q: ivf_flat.search(params, index, q, k),
                     reqs, results)
@@ -866,13 +1115,14 @@ def ivf_flat_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     check(abs(r_kernel - r_pb) <= BUILD_RECALL_TOL["ivf_flat"],
           f"ivf_flat: the kernel-built index's recall is not within "
           f"{BUILD_RECALL_TOL['ivf_flat']} of the plain-built index's")
-    return eng, launches
+    return eng, launches, Served(
+        results, row, lambda: ServeEngine(index, k, params, max_batch=1024))
 
 
 def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                 n_probes, k):
     """The IVF-PQ main path and its checks; returns (index, engine,
-    launches)."""
+    launches, served)."""
     from raft_tpu_torch.kernels import native
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.serve import ServeEngine
@@ -901,8 +1151,8 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
                 "codes_bytes": index.list_codes.numel(),
                 "index_bytes": leaf_bytes})
     eng = ServeEngine(index, k, params, max_batch=1024)
-    results, launches = serve_path("ivf_pq", device, eng, k, reqs, calls,
-                                   n_queries)
+    results, launches, row = serve_path("ivf_pq", device, eng, k, reqs,
+                                        calls, n_queries)
     check(launches["lut_score"] == 0, "ivf_pq: the scan launched B4's "
           "per-step raw mode instead of one scan-mode launch per batch")
     check_coalesced("ivf_pq", lambda q: ivf_pq.search(params, index, q, k),
@@ -937,7 +1187,8 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
     check(abs(r_kernel - r_pb) <= BUILD_RECALL_TOL["ivf_pq"],
           f"ivf_pq: the kernel-built index's recall is not within "
           f"{BUILD_RECALL_TOL['ivf_pq']} of the plain-built index's")
-    return index, eng, launches
+    return index, eng, launches, Served(
+        results, row, lambda: ServeEngine(index, k, params, max_batch=1024))
 
 
 def lut_phase(device, index, queries, rep: int):
@@ -1197,7 +1448,7 @@ def check_knn(name, d, i, ref_d, ref_i, tie_d):
 
 def brute_force_path(device, x, queries, reqs, calls, n_queries, qr, k):
     """The brute-force main path (exact kNN under L1 over the whole
-    dataset) and its checks; returns (engine, launches)."""
+    dataset) and its checks; returns (engine, launches, served)."""
     import torch
 
     from raft_tpu_torch.neighbors import brute_force
@@ -1205,8 +1456,8 @@ def brute_force_path(device, x, queries, reqs, calls, n_queries, qr, k):
 
     _reset(device)
     eng = ServeEngine(x, k, metric="l1", max_batch=1024, device=device)
-    results, launches = serve_path("brute_force", device, eng, k, reqs,
-                                   calls, n_queries)
+    results, launches, row = serve_path("brute_force", device, eng, k, reqs,
+                                        calls, n_queries)
     check_coalesced("brute_force",
                     lambda q: brute_force.knn(x, q, k, "l1", device=device),
                     reqs, results)
@@ -1237,7 +1488,9 @@ def brute_force_path(device, x, queries, reqs, calls, n_queries, qr, k):
           "plain_path_queries": n_queries, "plain_path_s": plain_s,
           "id_diffs_at_near_ties_vs_plain_path": ties_plain,
           "index_bytes": x.numel() * x.element_size()})
-    return eng, launches
+    return eng, launches, Served(
+        results, row, lambda: ServeEngine(x, k, metric="l1", max_batch=1024,
+                                          device=device))
 
 
 def pairwise_distance_phase(device, rep: int):
@@ -1410,18 +1663,27 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     del dist
     args = (device, x, reqs, calls, n_queries, truth, qr, n_lists, n_probes,
             k)
-    eng_flat, launches_flat = ivf_flat_path(*args)
-    index_pq, eng_pq, launches_pq = ivf_pq_path(*args)
+    smi = nvidia_smi() if device.type == "cuda" else "cpu"
+    eng_flat, launches_flat, served = ivf_flat_path(*args)
+    stream_flat = serve_stream("ivf_flat", device, served, q_host, n_queries,
+                               smi, seed)
+    index_pq, eng_pq, launches_pq, served = ivf_pq_path(*args)
+    stream_pq = serve_stream("ivf_pq", device, served, q_host, n_queries,
+                             smi, seed, refresh_index=index_pq)
     rows["lut_score"] = lut_phase(device, index_pq, queries, rep)
     rows["lut_scan"] = lut_scan_phase(device, index_pq, queries, n_probes, k,
                                       rep)
-    eng_bf, launches_bf = brute_force_path(device, x, queries, reqs, calls,
-                                           n_queries, qr, k)
+    eng_bf, launches_bf, served = brute_force_path(device, x, queries, reqs,
+                                                   calls, n_queries, qr, k)
+    stream_bf = serve_stream("brute_force", device, served, q_host,
+                             min(1024, n_queries), smi, seed,
+                             rates=STREAM_RATES[:1], checks=False)
     pairwise_distance_phase(device, rep)
     rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
                                                         rep)
-    by_path = {"ivf_flat": launches_flat, "ivf_pq": launches_pq,
-               "brute_force": launches_bf}
+    by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
+               "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
+               "brute_force": launches_bf, "brute_force_stream": stream_bf}
     for name, row in rows.items():
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -19,6 +19,17 @@ class LogicError(RaftError):
     """Invalid API usage / failed precondition (``raft::logic_error``)."""
 
 
+class CudaError(RaftError):
+    """A failure the card reported (a refused or faulted kernel launch)."""
+
+
+class DeviceError(CudaError):
+    """The name the port raises device failures under.  Not a
+    ``RuntimeError``: the serving supervisor never retries it, since a
+    sticky CUDA error (an illegal address) poisons the context and a
+    retry on it fails the same way."""
+
+
 def expects(condition: bool, message: str = "precondition violated") -> None:
     """``RAFT_EXPECTS``: raise :class:`LogicError` unless *condition* holds."""
     if not condition:

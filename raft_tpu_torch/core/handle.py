@@ -59,12 +59,13 @@ class Stream:
         with torch.cuda.stream(self._stream):
             yield self
 
-    def record(self) -> Optional[torch.cuda.Event]:
+    def record(self, timing: bool = False) -> Optional[torch.cuda.Event]:
         """Mark the end of the work issued so far; returns the mark (None
-        on the CPU, where work is already done)."""
+        on the CPU, where work is already done).  A *timing* mark can be
+        read with ``elapsed_time`` against another timing mark."""
         if self._stream is None:
             return None
-        self._event = torch.cuda.Event()
+        self._event = torch.cuda.Event(enable_timing=timing)
         self._event.record(self._stream)
         return self._event
 

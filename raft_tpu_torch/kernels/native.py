@@ -26,6 +26,8 @@ import subprocess
 import threading
 from typing import Dict
 
+from raft_tpu_torch.core.error import DeviceError
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "raft_tpu_torch_kernels")
@@ -170,12 +172,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise when a launch returned a CUDA error code (the launch check
-    each C entry point runs right after its kernel launch)."""
+    """Raise :class:`DeviceError` when a launch returned a CUDA error code
+    (the launch check each C entry point runs right after its kernel
+    launch)."""
     if err != 0:
         msg = lib.raft_cuda_error_string(err).decode()
-        raise RuntimeError(f"raft_tpu_torch: {what} launch failed: CUDA "
-                           f"error {err} ({msg})")
+        raise DeviceError(f"raft_tpu_torch: {what} launch failed: CUDA "
+                          f"error {err} ({msg})")
 
 
 def stream_handle(device) -> int:

@@ -1,45 +1,99 @@
 """Batched query serving over brute force, IVF-Flat and IVF-PQ (port of
-``raft_tpu/serve/engine.py``: ``_BruteForceBackend`` :110,
-``_IvfFlatBackend`` :155, ``_IvfPqBackend`` :214, ``_make_backend`` :527,
-``ServeEngine`` :544 with ``warmup`` :777, the drain-all planner
-``_plan`` :1104, ``_bucket_for`` :1126 and ``search`` :1138).
+``raft_tpu/serve/engine.py``: the backends :110-291, ``_make_backend``
+:527, ``ServeEngine`` :544-1633).
 
-The ported engine behaves as the JAX one does with ``scheduler=False,
-admission=False``: concurrent ragged requests are packed in arrival order
-into super-batches of at most ``max_batch`` rows, each padded on the host
-to its power-of-two bucket and searched as ONE batch; results are sliced
-back per request.  Every query row's result is independent of the other
-rows of its batch, so a request's answer equals what the solo ``search``
-of its index type (``knn`` for a dense index) returns for it.  A request
-larger than the largest bucket is served solo.  An IVF-PQ engine with a
-compressed LUT clamps its super-batch to ``ivf_pq.hoisted_batch_cap`` (32
-queries at fp8 on sift-128 with the default index), bounding the
-per-batch combined-LUT transients.  Super-batches alternate over the handle's
-stream pool, so the host assembles batch i+1 while the card still runs
-batch i; collection waits on each lane's event.
+* **Request coalescing** — concurrent ragged requests are packed in
+  arrival order into super-batches of at most ``max_batch`` rows, each
+  padded on the host to its power-of-two bucket and searched as ONE
+  batch; results are sliced back per request.  Every query row's result
+  is independent of the other rows of its batch, so a request's answer
+  equals what the solo ``search`` of its index type (``knn`` for a dense
+  index) returns for it.  A request larger than the largest warmed
+  bucket is served solo.  An IVF-PQ engine with a compressed LUT clamps
+  its super-batch to ``ivf_pq.hoisted_batch_cap``.
+* **Continuous batching** (ON by default) — the telemetry-steered
+  chooser (``schedule.choose_batches``) cuts the queue where the measured
+  per-bucket costs say; cold, it packs as the drain-all planner does.
+  :meth:`ServeEngine.submit` feeds a quantum-paced scheduler thread that
+  coalesces submissions across callers (``schedule.should_dispatch``).
+  ``scheduler=False`` pins the drain-all planner.
+* **Admission** (ON by default) — requests may carry deadlines
+  (:class:`~raft_tpu_torch.serve.admission.ServeRequest`); a request whose
+  budget cannot cover its projected completion is shed with a typed
+  :class:`~raft_tpu_torch.serve.admission.RejectedError` in its slot.
+  With no deadlines and no queue bound nothing is shed.
+* **Supervised dispatch** — super-batches alternate over the handle's two
+  stream lanes, so the host assembles batch i+1 while the card runs batch
+  i.  Collection waits on each lane's event under a
+  :class:`~raft_tpu_torch.serve.supervise.DispatchSupervisor` (watchdog,
+  bounded retry with backoff for transient failures, fail-fast for logic
+  bugs and device errors).  A re-dispatch goes to the other lane: a CUDA
+  kernel cannot be cancelled, so it must not queue behind stalled work.
+  A request that fails ingest fails alone; a failed multi-member
+  super-batch is split and re-dispatched member by member.  Nothing
+  falls back to the plain PyTorch versions.
+* ``refresh()`` swaps the index atomically (the old backend keeps serving
+  until the new one has run every warmed bucket), ``close()`` is bounded
+  and idempotent.
+* **Telemetry** — ``serve.*`` spans (host wall time only, no device
+  synchronisation), a per-engine latency histogram
+  (:meth:`ServeEngine.latency_quantiles`), ``stats`` as a registry-backed
+  counter view, per-dispatch host time into
+  ``raft_tpu_aot_dispatch_seconds{fn,sig}`` and sampled device time (CUDA
+  events on the lane, read after collection has waited anyway) into
+  ``raft_tpu_device_seconds{fn}`` — the costs admission and the chooser
+  read.  :meth:`ServeEngine.serve_http` serves ``/metrics``, ``/healthz``,
+  ``/varz`` and ``/debug/slow``.
 
-Not ported yet: the sharded, replica, tiered and mutable backends,
-admission, the continuous-batching scheduler, supervision and retries,
-autotuning, telemetry, the HTTP surface, ``submit``/``flush`` and
-``refresh``.
+Requests are ingested as float32 (``warmed_signatures()`` reports
+``{"float32": [...]}``).  Not ported yet: serving other query types as
+themselves, the sharded, replica, tiered and mutable backends (with
+replica routing), autotuning (``attach_tuner``, ``apply_tuning``,
+``shadow_samples``) and the executable store's persisted cost rows.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
-import time
+from concurrent import futures
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from raft_tpu_torch import telemetry
 from raft_tpu_torch.core.buckets import bucket_dim
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, fail
 from raft_tpu_torch.core.handle import Handle, resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import as_float_tensor
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.serve.admission import (AdmissionController,
+                                            RejectedError, ServeRequest)
+from raft_tpu_torch.serve.schedule import (CostModel, SchedulerConfig,
+                                           choose_batches, should_dispatch)
+from raft_tpu_torch.serve.supervise import DispatchSupervisor
+from raft_tpu_torch.testing import faults as _faults
+
+#: Bound on the per-call latency list (``last_latencies``) and on the
+#: latency histogram's reservoir.
+LATENCY_RESERVOIR = 4096
+
+#: the one type requests are served in (every backend ingests to it)
+_DTYPE = "float32"
+
+#: the serving statistics every engine reports (the reference's keys; the
+#: replica keys stay 0 until a replica backend is ported)
+_STAT_KEYS = ("requests", "queries", "super_batches", "solo_fallbacks",
+              "coalesced_requests", "refreshes", "admitted", "sheds",
+              "expired", "retries", "watchdog_timeouts", "isolation_splits",
+              "ingest_errors", "dispatch_errors", "sched_dispatches",
+              "sched_waits", "replica_faults", "replica_reroutes")
+
+#: per-instance ordinal labeling each engine's metrics in the registry
+_ENGINE_IDS = itertools.count()
 
 
 class _BruteForceBackend:
@@ -47,6 +101,9 @@ class _BruteForceBackend:
     card by default) → ``brute_force._knn_scan_impl``."""
 
     name = "brute_force"
+    #: the backend's program: its ``__qualname__`` labels the telemetry
+    #: the admission and scheduler cost models read
+    fn = staticmethod(brute_force._knn_scan_impl)
 
     def __init__(self, index, k: int, metric, metric_arg: float,
                  batch_size_index: int, device, engine: Optional[str]):
@@ -74,7 +131,7 @@ class _BruteForceBackend:
         return q.astype(np.float32, copy=False)
 
     def dispatch(self, qb: torch.Tensor):
-        return brute_force._knn_scan_impl(
+        return self.fn(
             self.index, qb.to(self.index.dtype), self.k, self.metric,
             self.metric_arg, self.tile, self.select_min, self.engine)
 
@@ -88,6 +145,7 @@ class _IvfFlatBackend:
     """Adapter: ``ivf_flat.Index`` → ``ivf_flat._search_batch_impl``."""
 
     name = "ivf_flat"
+    fn = staticmethod(ivf_flat._search_batch_impl)
 
     def __init__(self, index: ivf_flat.Index, k: int,
                  params: Optional[ivf_flat.SearchParams],
@@ -120,9 +178,8 @@ class _IvfFlatBackend:
         return q
 
     def dispatch(self, qb: torch.Tensor):
-        return ivf_flat._search_batch_impl(qb, self.index, self.k,
-                                           self.n_probes, self.sqrt,
-                                           self.engine)
+        return self.fn(qb, self.index, self.k, self.n_probes, self.sqrt,
+                       self.engine)
 
     def solo(self, q):
         return ivf_flat.search(self.params, self.index,
@@ -135,6 +192,7 @@ class _IvfPqBackend:
     select + probe scan of one batch)."""
 
     name = "ivf_pq"
+    fn = staticmethod(ivf_pq._full_search_impl)
 
     def __init__(self, index: ivf_pq.Index, k: int,
                  params: Optional[ivf_pq.SearchParams],
@@ -171,9 +229,8 @@ class _IvfPqBackend:
                                         self.params.lut_dtype)
 
     def dispatch(self, qb: torch.Tensor):
-        return ivf_pq._full_search_impl(qb, self.index, self.k,
-                                        self.n_probes, self.params.lut_dtype,
-                                        self.engines)
+        return self.fn(qb, self.index, self.k, self.n_probes,
+                       self.params.lut_dtype, self.engines)
 
     def solo(self, q):
         return ivf_pq.search(self.params, self.index, q, self.k,
@@ -190,6 +247,40 @@ def _make_backend(index, k, params, engine, metric, metric_arg,
                               batch_size_index, device, engine)
 
 
+def _make_backend(index, k, params, engine, metric, metric_arg,
+                  batch_size_index, device):
+    if isinstance(index, ivf_flat.Index):
+        return _IvfFlatBackend(index, k, params, engine)
+    if isinstance(index, ivf_pq.Index):
+        return _IvfPqBackend(index, k, params, engine)
+    return _BruteForceBackend(index, k, metric, metric_arg,
+                              batch_size_index, device, engine)
+
+
+def _warm(backend, buckets) -> None:
+    """Run *backend* once at every bucket on the caller's current stream
+    and wait for that stream, so kernels are built and the allocator has
+    seen each shape before the backend serves."""
+    for b in sorted(buckets):
+        backend.dispatch(torch.zeros((b, backend.dim), dtype=torch.float32,
+                                     device=backend.device))
+    if backend.device.type == "cuda":
+        torch.cuda.current_stream(backend.device).synchronize()
+
+
+class _KeepParams:
+    """Sentinel type — :data:`KEEP_PARAMS` is its only instance."""
+
+    def __repr__(self) -> str:
+        return "KEEP_PARAMS"
+
+
+#: :meth:`ServeEngine.refresh`'s ``params`` default: keep the current
+#: serving params.  Any OTHER value — including ``None`` — is applied
+#: verbatim (``None`` rebuilds the backend with its default params).
+KEEP_PARAMS = _KeepParams()
+
+
 class ServeEngine:
     """Coalescing query server for one (index, k, params) serving key.
 
@@ -201,38 +292,139 @@ class ServeEngine:
     coalesced super-batch (clamped to the backend's batch cap, if it has
     one) and is the largest bucket :meth:`warmup` runs by default;
     ``handle`` supplies the stream pool (default: two lanes on the
-    index's device).  :meth:`search` may be called from several threads;
-    calls are serialized under a lock."""
+    index's device).
+
+    Serving knobs, as in the reference: ``admission`` (an
+    :class:`AdmissionController`, default one, or ``False``),
+    ``scheduler`` (a :class:`SchedulerConfig`, default one, or ``False``
+    for the drain-all planner), and the supervisor's ``watchdog_s``,
+    ``max_retries``, ``retry_backoff_s``, ``retry_backoff_cap_s`` and
+    ``retry_seed``.  :meth:`search` and :meth:`submit` may be called from
+    several threads; dispatch is serialized under a lock."""
 
     def __init__(self, index, k: int, params=None, *,
                  metric=DistanceType.L2SqrtExpanded, metric_arg: float = 2.0,
                  max_batch: int = 1024, batch_size_index: int = 16384,
                  handle: Optional[Handle] = None,
-                 engine: Optional[str] = None, device=None):
+                 engine: Optional[str] = None, device=None,
+                 admission=None, watchdog_s: Optional[float] = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.05,
+                 retry_backoff_cap_s: float = 1.0, retry_seed: int = 0,
+                 scheduler=None):
         expects(max_batch >= 8, "max_batch must be >= 8")
         self._backend = _make_backend(index, k, params, engine, metric,
                                       metric_arg, batch_size_index, device)
-        self.max_batch = int(max_batch)
-        cap = getattr(self._backend, "batch_cap", lambda: None)()
-        if cap is not None:
-            self.max_batch = max(8, min(self.max_batch, cap))
+        self._index = index
+        # refresh() rebuilds a backend with the same serving knobs, and
+        # re-derives the batch cap from the new index
+        self._ctor = dict(k=int(k), params=params, engine=engine,
+                          metric=metric, metric_arg=metric_arg,
+                          batch_size_index=batch_size_index, device=device)
+        self._requested_max_batch = int(max_batch)
+        self.max_batch = self._capped_max_batch(self._backend)
         self._device = self._backend.device
         self._handle = (handle if handle is not None
                         else Handle(self._device, n_streams=2))
-        self._warmed: set = set()
+        self._warmed: Dict[str, set] = {}   # dtype -> {buckets}
         self._lock = threading.Lock()
-        self.stats: Dict[str, int] = {
-            key: 0 for key in ("requests", "queries", "super_batches",
-                               "solo_fallbacks", "coalesced_requests",
-                               "ingest_errors", "dispatch_errors")}
+        # guards _warmed against the LOCKLESS /healthz reader; writers hold
+        # self._lock first, so the order is always _lock → this
+        self._warmed_mut = threading.Lock()
+        self._refreshing = False   # /healthz: refresh in flight
+        self._closed = False       # close(): new requests reject typed
+        self._recorder = None      # slow-request flight recorder
+        self._http = None          # the live scrape server, if started
+        self._engine_id = str(next(_ENGINE_IDS))
+        #: Serving statistics: a counter view over the registry
+        #: (``raft_tpu_serve_engine_stats{engine,key}``) — reads like a
+        #: dict (``dict(stats)`` for a plain one), increments are atomic.
+        self.stats: telemetry.LegacyCounterView = telemetry.legacy_counter(
+            "raft_tpu_serve_engine_stats", "ServeEngine serving statistics",
+            labelnames=("engine", "key"), fixed=(self._engine_id,))
+        for key in _STAT_KEYS:
+            self.stats[key] = 0
+        if scheduler is False:
+            self._sched_cfg: Optional[SchedulerConfig] = None
+        else:
+            self._sched_cfg = (scheduler if isinstance(
+                scheduler, SchedulerConfig) else SchedulerConfig())
+        #: per-(dtype, bucket) cost EWMA, fed after every collected
+        #: super-batch, registry-seeded
+        self._cost = CostModel(
+            fn=self._backend_fn(),
+            static_batch_s=(self._sched_cfg.static_batch_s
+                            if self._sched_cfg is not None else 0.05),
+            use_telemetry=(self._sched_cfg.use_telemetry
+                           if self._sched_cfg is not None else True))
+        #: submit(): pending (request, future, arrival) envelopes and the
+        #: scheduler thread, started lazily
+        self._pending: List[Any] = []
+        self._pending_cv = threading.Condition()
+        self._sched_thread: Optional[threading.Thread] = None
+        if admission is False:
+            self._admission: Optional[AdmissionController] = None
+        else:
+            self._admission = (admission if admission is not None
+                               else AdmissionController())
+            self._admission.bind(self._engine_id)
+        self._supervisor = DispatchSupervisor(
+            watchdog_s=watchdog_s, max_retries=max_retries,
+            backoff_s=retry_backoff_s, backoff_cap_s=retry_backoff_cap_s,
+            seed=retry_seed, on_event=self._sup_event)
+        #: per-request completion latency (from ``search()`` entry to the
+        #: request's results on the host): fixed-memory histogram plus a
+        #: bounded reservoir
+        self.latency_hist: telemetry.Histogram = telemetry.histogram(
+            "raft_tpu_serve_request_latency_seconds",
+            "per-request completion latency within one search() call",
+            labelnames=("engine",), reservoir=LATENCY_RESERVOIR)
         self._last_latencies: List[float] = []
 
     @property
+    def backend(self) -> str:
+        return self._backend.name
+
+    @property
+    def k(self) -> int:
+        return self._backend.k
+
+    @property
+    def index(self):
+        """The served index, as last constructed or refreshed."""
+        return self._index
+
+    def _capped_max_batch(self, backend) -> int:
+        cap = getattr(backend, "batch_cap", lambda: None)()
+        if cap is None:
+            return self._requested_max_batch
+        return max(8, min(self._requested_max_batch, cap))
+
+    def _sup_event(self, kind: str) -> None:
+        self.stats.inc({"retry": "retries",
+                        "watchdog_timeout": "watchdog_timeouts"}[kind])
+
+    def _backend_fn(self) -> Optional[str]:
+        """The backend program's telemetry label — the cost models' key."""
+        return getattr(getattr(self._backend, "fn", None), "__qualname__",
+                       None)
+
+    # -- latency telemetry --------------------------------------------------
+    @property
     def last_latencies(self) -> List[float]:
-        """Per-request completion latency (seconds, from ``search()``
-        entry to the request's results on the host) of the last call."""
+        """Per-request completion latencies (seconds) of the LAST
+        ``search()`` call, at most :data:`LATENCY_RESERVOIR` of them."""
         return list(self._last_latencies)
 
+    def latency_quantiles(self, qs: Sequence[float] = (0.5, 0.99)
+                          ) -> List[Optional[float]]:
+        """Completion-latency quantile estimates over the engine's WHOLE
+        serving history, from the fixed-memory log-bucketed histogram
+        (within ~one bucket ratio of exact).  ``None`` entries when
+        nothing was recorded (e.g. telemetry disabled)."""
+        return [self.latency_hist.quantile(q, (self._engine_id,))
+                for q in qs]
+
+    # -- warmup -------------------------------------------------------------
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> int:
         """Run one search at every bucket — every power of two from 8 up to
         ``max_batch`` by default — so the kernels are built and the
@@ -240,6 +432,7 @@ class ServeEngine:
         *buckets* narrow the range: requests too large for the largest
         warmed bucket are served solo.  Returns the number of buckets
         warmed."""
+        expects(not self._closed, "warmup() on a closed engine")
         if buckets is None:
             buckets, b = [], 8
             while b < self.max_batch:
@@ -251,14 +444,168 @@ class ServeEngine:
             for b in buckets:
                 expects(8 <= b <= self.max_batch,
                         f"bucket {b} outside [8, max_batch={self.max_batch}]")
-                self._backend.dispatch(torch.zeros(
-                    (b, self._backend.dim), dtype=torch.float32,
-                    device=self._device))
-                self._warmed.add(b)
-            if self._device.type == "cuda":
-                torch.cuda.synchronize(self._device)
+            _warm(self._backend, buckets)
+            with self._warmed_mut:
+                self._warmed.setdefault(_DTYPE, set()).update(buckets)
         return len(buckets)
 
+    def warmed_buckets(self, dtype=_DTYPE) -> List[int]:
+        name = (str(dtype).replace("torch.", "")
+                if isinstance(dtype, torch.dtype) else np.dtype(dtype).name)
+        with self._warmed_mut:
+            return sorted(self._warmed.get(name, ()))
+
+    def warmed_signatures(self) -> Dict[str, List[int]]:
+        """The warmed buckets as a plain mapping (dtype → sorted
+        buckets)."""
+        with self._warmed_mut:
+            return {dt: sorted(bs) for dt, bs in self._warmed.items()}
+
+    # -- autotuning: not ported yet -------------------------------------------
+    def shadow_samples(self):
+        fail("ServeEngine.shadow_samples (autotuning) is not ported yet")
+
+    def attach_tuner(self, tuner) -> None:
+        fail("ServeEngine.attach_tuner (autotuning) is not ported yet")
+
+    def apply_tuning(self, **knobs):
+        fail("ServeEngine.apply_tuning (autotuning) is not ported yet")
+
+    # -- index refresh ------------------------------------------------------
+    def refresh(self, index, params=KEEP_PARAMS) -> None:
+        """Swap the served index for *index* without cold-serving a single
+        request.  The replacement backend (same k; *params* defaults to
+        :data:`KEEP_PARAMS`, any other value — ``None`` too — is applied
+        verbatim) is built and run at EVERY warmed bucket, and that work is
+        complete on the card, BEFORE the swap, all outside the engine lock;
+        the swap itself is atomic under the lock.  ``max_batch`` re-derives
+        from the requested bound and the new index's cap; warmed buckets
+        above it are dropped.  Both indexes are on the device until the
+        old one's last reference goes."""
+        expects(not self._closed, "refresh() on a closed engine")
+        self._refreshing = True   # /healthz reports the swap in flight
+        try:
+            with telemetry.span("serve.refresh"):
+                self._refresh(index, params)
+        finally:
+            self._refreshing = False
+
+    def _refresh(self, index, params):
+        # crash window 1: nothing built yet
+        _faults.check("refresh", stage="pre_warm")
+        with self._lock:   # snapshot under the lock: warmup() mutates it
+            c = dict(self._ctor)
+            snapshot = {dt: set(bs) for dt, bs in self._warmed.items()}
+        if params is KEEP_PARAMS:
+            params = c["params"]
+        backend = _make_backend(index, c["k"], params, c["engine"],
+                                c["metric"], c["metric_arg"],
+                                c["batch_size_index"], c["device"])
+        max_batch = self._capped_max_batch(backend)
+        warmed = {dt: {b for b in bs if b <= max_batch}
+                  for dt, bs in snapshot.items()}
+        _warm(backend, warmed.get(_DTYPE, ()))
+        # crash window 2: BETWEEN warm and swap — a crash here discards
+        # the warmed replacement and the OLD backend keeps serving
+        _faults.check("refresh", stage="pre_swap")
+        with self._lock:
+            # buckets a concurrent warmup() added since the snapshot are
+            # warmed here, under the lock (rare; blocks briefly)
+            late = ({b for b in self._warmed.get(_DTYPE, ()) if b <= max_batch}
+                    - warmed.get(_DTYPE, set()))
+            if late:
+                _warm(backend, late)
+                warmed.setdefault(_DTYPE, set()).update(late)
+            self._backend = backend
+            self._index = index
+            self._ctor = dict(c, params=params)
+            self.max_batch = max_batch
+            with self._warmed_mut:
+                self._warmed = warmed
+            self._cost.bind_fn(self._backend_fn())
+            self.stats.inc("refreshes")
+
+    # -- live scrape surface ------------------------------------------------
+    def _health(self) -> Dict[str, Any]:
+        """The /healthz body: ready iff at least one bucket is warmed, no
+        refresh is mid-swap and the engine is open.  Takes no engine lock
+        (a probe must not queue behind an in-flight search)."""
+        with self._warmed_mut:
+            warmed = {dt: sorted(bs) for dt, bs in self._warmed.items()}
+        ready = (any(warmed.values()) and not self._refreshing
+                 and not self._closed)
+        body = {"ready": bool(ready), "backend": self.backend, "k": self.k,
+                "max_batch": self.max_batch, "warmed": warmed,
+                "refresh_in_flight": bool(self._refreshing),
+                "closed": bool(self._closed),
+                "stats": dict(self.stats)}
+        # overload is DEGRADED, not down: recent shedding flags the body
+        # while the probe stays 200
+        adm = self._admission
+        body["degraded"] = (adm.degraded(telemetry.now())
+                            if adm is not None else False)
+        if adm is not None:
+            body["admission"] = adm.health(telemetry.now())
+        if self._sched_cfg is not None:
+            body["scheduler"] = {"quantum_s": self._sched_cfg.quantum_s,
+                                 "pending": len(self._pending)}
+        return body
+
+    def serve_http(self, port: int = 0, host: str = "127.0.0.1", *,
+                   slow_threshold_s: Optional[float] = None,
+                   slow_cap: Optional[int] = None):
+        """Start the live scrape surface for this engine: ``/metrics``
+        (Prometheus text over the process registry), ``/healthz`` (503
+        until :meth:`warmup` ran, during a refresh and once closed),
+        ``/varz`` (snapshot JSON) and ``/debug/slow`` (a bounded ring of
+        span trees of ``search()`` calls slower than *slow_threshold_s*).
+        ``port=0`` binds an ephemeral port — read it from the returned
+        server's ``.port``.  Idempotent; ``close()`` stops it."""
+        from raft_tpu_torch.telemetry import http as telemetry_http
+
+        expects(not self._closed, "serve_http() on a closed engine")
+        with self._lock:
+            if self._http is None:
+                self._recorder = telemetry_http.FlightRecorder(
+                    telemetry_http.DEFAULT_SLOW_THRESHOLD_S
+                    if slow_threshold_s is None else slow_threshold_s,
+                    telemetry_http.DEFAULT_SLOW_CAP
+                    if slow_cap is None else slow_cap)
+                self._http = telemetry_http.TelemetryServer(
+                    port, host, health=self._health,
+                    recorder=self._recorder).start()
+            return self._http
+
+    def close(self, timeout_s: float = 5.0) -> None:
+        """Bounded, idempotent shutdown: later requests reject with
+        ``RejectedError(reason="closed")``; requests queued by
+        :meth:`submit` reject the same way; an in-flight ``search()``
+        drains (close waits up to *timeout_s* for the engine lock); the
+        scrape server stops.  ``/healthz`` reports ``ready: false``."""
+        if self._closed:
+            return
+        self._closed = True
+        with self._pending_cv:
+            pending, self._pending = list(self._pending), []
+            self._pending_cv.notify_all()
+        for _r, f, _t in pending:
+            if not f.done():
+                f.set_exception(RejectedError(
+                    "closed", "engine closed with the request still "
+                    "queued in the scheduler"))
+        t = self._sched_thread
+        if t is not None:
+            t.join(timeout=min(1.0, timeout_s))
+        acquired = self._lock.acquire(timeout=timeout_s)   # drain in-flight
+        try:
+            http, self._http, self._recorder = self._http, None, None
+        finally:
+            if acquired:
+                self._lock.release()
+        if http is not None:
+            http.close()
+
+    # -- the request path ---------------------------------------------------
     def _plan(self, sizes: List[int], max_bucket: int
               ) -> Tuple[List[List[Tuple[int, int, int]]], List[int]]:
         """Greedy in-order packing: (super_batches, solo) where each
@@ -291,102 +638,408 @@ class ServeEngine:
                 b = min(bigger)
         return b
 
-    @staticmethod
-    def _to_host(out):
-        d, i = out
-        return (d.to("cpu", non_blocking=True), i.to("cpu", non_blocking=True))
-
     def search(self, requests: Sequence[Any]
                ) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Serve a batch of concurrent requests: one (n_j, dim) query
-        matrix each (ragged, n_j >= 0).  Returns one ``(distances (n_j, k),
-        indices (n_j, k))`` numpy pair per request, in request order; a
-        request that fails ingest or dispatch gets its exception in its
-        slot instead, while the other requests are served."""
+        matrix each (ragged, n_j >= 0), optionally wrapped in a
+        :class:`ServeRequest` carrying a deadline.  Returns one
+        ``(distances (n_j, k), indices (n_j, k))`` numpy pair per request,
+        in request order.  A request that is shed, fails ingest or whose
+        dispatch fails after supervision gets ITS EXCEPTION in its slot,
+        while the other requests are served; ``search()`` itself raises
+        only on a closed engine.
+
+        Each phase runs under a span (``serve.request`` →
+        ``serve.ingest`` / ``serve.admit`` / ``serve.coalesce`` /
+        ``serve.assemble`` / ``serve.dispatch`` / ``serve.deliver``)."""
+        if self._closed:
+            raise RejectedError("closed", "ServeEngine is closed — new "
+                                "requests reject; see close()")
+        rec = self._recorder
+        if rec is None or not telemetry.enabled():
+            with self._lock:
+                with telemetry.span("serve.request"):
+                    return self._search_locked(requests)
         with self._lock:
-            return self._search_locked(requests)
+            t0 = telemetry.now()
+            with telemetry.collect_spans() as col:
+                with telemetry.span("serve.request"):
+                    out = self._search_locked(requests)
+            dur = telemetry.now() - t0
+            if dur >= rec.threshold_s:
+                rec.record(col.events, dur_s=round(dur, 6),
+                           requests=len(requests),
+                           queries=sum(
+                               int(np.shape(q.q if isinstance(
+                                   q, ServeRequest) else q)[0])
+                               for q in requests))
+            return out
+
+    # -- streaming continuous batching (submit/flush) -----------------------
+    def submit(self, request) -> "futures.Future":
+        """Enqueue ONE request (an array or a :class:`ServeRequest`) for
+        continuous batching; returns a ``concurrent.futures.Future``
+        resolving to the same ``(distances, indices)`` pair ``search()``
+        gives for it, or raising its typed rejection / ingest / dispatch
+        error.
+
+        The scheduler thread dispatches the pending requests as one
+        ``search()`` call when they fill the largest warmed bucket, when
+        the oldest has waited one quantum, or when waiting longer would
+        jeopardize an admitted deadline; otherwise it waits one quantum
+        (``stats["sched_dispatches"]`` / ``stats["sched_waits"]``).  A
+        scheduler thread that dies fails the pending futures with its
+        error; the next ``submit()`` starts a new one."""
+        expects(self._sched_cfg is not None,
+                "submit() requires the continuous-batching scheduler "
+                "(engine constructed with scheduler=False)")
+        if self._closed:
+            raise RejectedError("closed", "ServeEngine is closed — new "
+                                "requests reject; see close()")
+        fut: futures.Future = futures.Future()
+        with self._pending_cv:
+            self._pending.append((request, fut, telemetry.now()))
+            if self._sched_thread is None \
+                    or not self._sched_thread.is_alive():
+                self._sched_thread = threading.Thread(
+                    target=self._sched_loop, daemon=True,
+                    name=f"raft-tpu-torch-serve-sched-{self._engine_id}")
+                self._sched_thread.start()
+            self._pending_cv.notify_all()
+        return fut
+
+    def flush(self) -> None:
+        """Dispatch everything pending in the submit() queue NOW, in the
+        caller's thread, without waiting out the quantum."""
+        with self._pending_cv:
+            batch, self._pending = list(self._pending), []
+        if batch:
+            self._serve_pending(batch)
+
+    @staticmethod
+    def _fail_futures(batch, exc: BaseException) -> None:
+        for _r, f, _t in batch:
+            if not f.done():
+                f.set_exception(exc)
+
+    def _serve_pending(self, batch) -> None:
+        try:
+            outs = self.search([r for r, _f, _t in batch])
+        except Exception as e:   # engine-level (e.g. closed)
+            self._fail_futures(batch, e)
+            return
+        for (_r, f, _t), out in zip(batch, outs):
+            if f.done():
+                continue
+            if isinstance(out, BaseException):
+                f.set_exception(out)
+            else:
+                f.set_result(out)
+
+    def _sched_loop(self) -> None:
+        """The scheduler thread behind :meth:`submit`.  If it fails, the
+        requests it holds and every pending one get its error, so no
+        future is left unresolved."""
+        batch: List[Any] = []
+        try:
+            cfg = self._sched_cfg
+            while True:
+                batch = []
+                with self._pending_cv:
+                    if not self._pending:
+                        if self._closed:
+                            return
+                        self._pending_cv.wait(timeout=cfg.quantum_s)
+                        if not self._pending:
+                            if self._closed:
+                                return
+                            continue
+                    now = telemetry.now()
+                    rows = 0
+                    dls: List[float] = []
+                    for r, _f, _t in self._pending:
+                        q = r.q if isinstance(r, ServeRequest) else r
+                        rows += int(np.shape(q)[0])
+                        if isinstance(r, ServeRequest):
+                            dl = r.resolve_deadline(now)
+                            if dl is not None:
+                                dls.append(dl)
+                    oldest = now - self._pending[0][2]
+                    with self._warmed_mut:
+                        largest = max((max(bs) for bs in
+                                       self._warmed.values() if bs),
+                                      default=self.max_batch)
+                    est = self._cost.batch_cost_s(_DTYPE, largest)
+                    if self._closed or should_dispatch(
+                            rows, largest, oldest, cfg.quantum_s, dls, now,
+                            est):
+                        batch, self._pending = list(self._pending), []
+                        self.stats.inc("sched_dispatches")
+                    else:
+                        # wait one quantum to fill a larger bucket
+                        self.stats.inc("sched_waits")
+                        self._pending_cv.wait(timeout=cfg.quantum_s)
+                        continue
+                self._serve_pending(batch)
+        except Exception as e:
+            with self._pending_cv:
+                pending, self._pending = list(self._pending), []
+            self._fail_futures(batch + pending, e)
+
+    def _dispatch(self, block: np.ndarray, lane: int, bucket: int,
+                  cold: bool):
+        """Dispatch one padded block on stream lane *lane*; never raises.
+        Returns ``(out, start)``: *out* is ``(distances, indices, done)``
+        — host tensors the lane copies into and its end-of-work event — or
+        the exception the dispatch raised (collection raises it, so it is
+        retried or isolated like a failure on the card); *start* is the
+        timing event of a device-time sample, else None."""
+        be = self._backend
+        fn = self._backend_fn() or be.name
+        timed = not cold and telemetry.device_sample_due(fn)
+        stream = self._handle.get_next_usable_stream(lane)
+        start = None
+        t0 = telemetry.now()
+        try:
+            with stream.context():
+                if timed and self._device.type == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                qb = torch.from_numpy(block).to(self._device,
+                                                non_blocking=True)
+                d, i = be.dispatch(qb)
+                out = (d.to("cpu", non_blocking=True),
+                       i.to("cpu", non_blocking=True),
+                       stream.record(timing=start is not None))
+        except Exception as e:
+            return e, None
+        host_s = telemetry.now() - t0
+        telemetry.record_dispatch(fn, f"{_DTYPE}[{bucket},{be.dim}]", cold,
+                                  host_s)
+        if timed and self._device.type != "cuda":
+            # the CPU runs the dispatch to its end before it returns
+            telemetry.record_device_sample(fn, host_s)
+        return out, start
+
+    def _dispatch_solo(self, q, lane: int):
+        """The backend's solo entry on lane *lane* (same contract as
+        :meth:`_dispatch`, never timed)."""
+        stream = self._handle.get_next_usable_stream(lane)
+        try:
+            with stream.context():
+                d, i = self._backend.solo(q)
+                return (d.to("cpu", non_blocking=True),
+                        i.to("cpu", non_blocking=True), stream.record())
+        except Exception as e:
+            return e
+
+    def _record_device_time(self, out, start) -> None:
+        """A sampled dispatch's device time, read once its end-of-work
+        event has completed — collection waited on it already, so this
+        adds no synchronisation (skipped if a retry on the other lane
+        served the batch before it completed)."""
+        done = out[2] if isinstance(out, tuple) else None
+        if start is None or done is None or not done.query():
+            return
+        telemetry.record_device_sample(self._backend_fn() or
+                                       self._backend.name,
+                                       start.elapsed_time(done) / 1e3)
 
     def _search_locked(self, requests):
-        t_entry = time.perf_counter()
+        t_entry = telemetry.now()
         be = self._backend
-        results: List[Any] = [None] * len(requests)
-        latencies = [0.0] * len(requests)
-        ingested: List[Optional[np.ndarray]] = [None] * len(requests)
-        for j, q in enumerate(requests):
-            try:
-                ingested[j] = be.ingest(q)
-            except Exception as e:  # a poisoned request fails alone
-                results[j] = e
-                self.stats["ingest_errors"] += 1
-        self.stats["requests"] += len(requests)
-        self.stats["queries"] += sum(int(q.shape[0]) for q in ingested
-                                     if q is not None)
+        sup = self._supervisor
+        adm = self._admission
+        raw = [r.q if isinstance(r, ServeRequest) else r for r in requests]
+        results: List[Any] = [None] * len(raw)
+        latencies = [0.0] * len(raw)
+        ingested: List[Optional[np.ndarray]] = [None] * len(raw)
+        with telemetry.span("serve.ingest"):
+            for j, q in enumerate(raw):
+                try:
+                    ingested[j] = be.ingest(q)
+                except Exception as e:   # a poisoned request fails alone
+                    results[j] = e
+                    self.stats.inc("ingest_errors")
+        self.stats.inc("requests", len(raw))
+        self.stats.inc("queries", sum(int(q.shape[0]) for q in ingested
+                                      if q is not None))
 
-        idxs = []   # the requests to serve (all float32 after ingest)
-        for j, q in enumerate(ingested):
-            if q is None:
-                continue
-            if q.shape[0] == 0:
-                results[j] = (np.zeros((0, be.k), np.float32),
-                              np.full((0, be.k), -1, np.int32))
-                continue
-            idxs.append(j)
+        # deadline-aware admission in arrival order, BEFORE planning
+        deadlines: List[Optional[float]] = [None] * len(raw)
+        if adm is not None:
+            with telemetry.span("serve.admit"):
+                est = adm.batch_cost_s(self._backend_fn())
+                queued = 0
+                for j, r in enumerate(requests):
+                    if results[j] is not None or ingested[j] is None:
+                        continue
+                    n = int(ingested[j].shape[0])
+                    if n == 0:
+                        continue
+                    now = telemetry.now()
+                    if isinstance(r, ServeRequest):
+                        deadlines[j] = r.resolve_deadline(now)
+                    rej = adm.admit(n, deadlines[j], now, queued,
+                                    queued // self.max_batch, est)
+                    if rej is not None:
+                        results[j] = rej
+                        self.stats.inc("sheds")
+                    else:
+                        self.stats.inc("admitted")
+                        queued += n
 
-        warmed = self._warmed
-        max_bucket = (min(max(warmed), self.max_batch) if warmed
-                      else self.max_batch)
-        batches, solo = self._plan(
-            [int(ingested[j].shape[0]) for j in idxs], max_bucket)
-        inflight = []   # (members, host results, end-of-work event)
+        with telemetry.span("serve.coalesce"):
+            idxs = []
+            for j, q in enumerate(ingested):
+                if results[j] is not None or q is None:
+                    continue
+                if q.shape[0] == 0:
+                    results[j] = (np.zeros((0, be.k), np.float32),
+                                  np.full((0, be.k), -1, np.int32))
+                    continue
+                idxs.append(j)
+            warmed = self._warmed.get(_DTYPE, set())
+            max_bucket = (min(max(warmed), self.max_batch) if warmed
+                          else self.max_batch)
+            sizes = [int(ingested[j].shape[0]) for j in idxs]
+            if self._sched_cfg is not None:
+                # the continuous-batching chooser: buckets come ONLY from
+                # the _bucket_for ladder, so it stays on warmed shapes
+                batches, solo = choose_batches(
+                    sizes, [deadlines[j] for j in idxs],
+                    lambda total: self._bucket_for(total, warmed),
+                    max_bucket, self._cost, _DTYPE, telemetry.now())
+            else:
+                batches, solo = self._plan(sizes, max_bucket)
+
+        # (kind, members, out, start, redo, t0, bucket)
+        inflight = []
         lane = 0
         for batch in batches:
             members = [(idxs[jj], start, n) for jj, start, n in batch]
+            members = self._drop_expired(members, deadlines, results)
+            if not members:
+                continue
             total = members[-1][1] + members[-1][2]
             bucket = self._bucket_for(total, warmed)
-            # host-side assembly: one padded block, one transfer
-            block = np.zeros((bucket, be.dim), np.float32)
-            for j, start, n in members:
-                block[start:start + n] = ingested[j]
-            stream = self._handle.get_next_usable_stream(lane)
+            with telemetry.span("serve.assemble"):
+                block = np.zeros((bucket, be.dim), np.float32)
+                for j, start, n in members:
+                    block[start:start + n] = ingested[j]
+            t0 = telemetry.now()
+            with telemetry.span("serve.dispatch"):
+                out, start = self._dispatch(block, lane, bucket,
+                                            bucket not in warmed)
+            # a retry goes to the OTHER lane: a stalled kernel cannot be
+            # cancelled, and the same lane would queue behind it
+            redo = (lambda blk=block, ln=lane + 1, b=bucket:
+                    self._dispatch(blk, ln, b, False)[0])
             lane += 1
-            try:
-                with stream.context():
-                    qb = torch.from_numpy(block).to(self._device,
-                                                    non_blocking=True)
-                    out = self._to_host(be.dispatch(qb))
-                    done = stream.record()
-            except Exception as e:
-                self.stats["dispatch_errors"] += 1
-                for j, _s, _n in members:
-                    results[j] = e
-                continue
-            inflight.append((members, out, done))
-            self.stats["super_batches"] += 1
-            self.stats["coalesced_requests"] += len(members)
+            inflight.append(("coalesced", members, out, start, redo, t0,
+                             bucket))
+            self.stats.inc("super_batches")
+            self.stats.inc("coalesced_requests", len(members))
         for jj in solo:
             j = idxs[jj]
-            stream = self._handle.get_next_usable_stream(lane)
-            lane += 1
-            try:
-                with stream.context():
-                    # the RAW request: the solo entry applies its own
-                    # ingest prologue
-                    out = self._to_host(be.solo(requests[j]))
-                    done = stream.record()
-            except Exception as e:
-                results[j] = e
-                self.stats["dispatch_errors"] += 1
+            if not self._drop_expired([(j, 0, 0)], deadlines, results):
                 continue
-            inflight.append(([(j, 0, int(ingested[j].shape[0]))], out, done))
-            self.stats["solo_fallbacks"] += 1
+            # the RAW request: the solo entry applies its own ingest
+            with telemetry.span("serve.dispatch"):
+                out = self._dispatch_solo(raw[j], lane)
+            redo = (lambda q=raw[j], ln=lane + 1: self._dispatch_solo(q, ln))
+            lane += 1
+            inflight.append(("solo", [(j, 0, int(ingested[j].shape[0]))],
+                             out, None, redo, telemetry.now(), None))
+            self.stats.inc("solo_fallbacks")
 
-        for members, (d, i), done in inflight:
-            if done is not None:
-                done.synchronize()
-            d, i = d.numpy(), i.numpy()
-            t_done = time.perf_counter() - t_entry
-            for j, start, n in members:
-                results[j] = (d[start:start + n], i[start:start + n])
-                latencies[j] = t_done
-        self._last_latencies = latencies
+        # collect in dispatch order; later batches keep running meanwhile
+        with telemetry.span("serve.deliver"):
+            for kind, members, out, start, redo, t0, bucket in inflight:
+                try:
+                    d, i = sup.collect(out, redo=redo, label=kind)
+                except Exception as e:
+                    self.stats.inc("dispatch_errors")
+                    if kind == "coalesced" and len(members) > 1:
+                        self.stats.inc("isolation_splits")
+                        self._isolate(members, ingested, warmed, results,
+                                      latencies, t_entry)
+                    else:
+                        done = telemetry.now() - t_entry
+                        for j, _start, _n in members:
+                            results[j] = e
+                            latencies[j] = done
+                    continue
+                self._record_device_time(out, start)
+                now = telemetry.now()
+                if kind == "coalesced":
+                    # per-(dtype, bucket) service time → the chooser's
+                    # cost model
+                    self._cost.observe(_DTYPE, bucket, now - t0)
+                for j, start_row, n in members:
+                    results[j] = (d[start_row:start_row + n],
+                                  i[start_row:start_row + n])
+                    latencies[j] = now - t_entry
+        n_batches = sum(1 for kind, *_ in inflight if kind == "coalesced")
+        if adm is not None and n_batches:
+            adm.observe_batches(n_batches, telemetry.now() - t_entry)
+        eng = (self._engine_id,)
+        for j, v in enumerate(latencies):
+            if isinstance(results[j], tuple):   # served: record latency
+                self.latency_hist.observe(v, eng)
+        self._last_latencies = latencies[:LATENCY_RESERVOIR]
         return results
+
+    def _drop_expired(self, members, deadlines, results):
+        """Dispatch-time deadline pass over one planned batch: admitted
+        requests whose deadline already passed are counted expired (and,
+        under shed-over-deadline, dropped — their slots get the typed
+        rejection and the survivors re-pack contiguously)."""
+        adm = self._admission
+        if adm is None:
+            return members
+        live, start = [], 0
+        for j, _start, n in members:
+            dl = deadlines[j]
+            now = telemetry.now()
+            if dl is not None and now > dl:
+                self.stats.inc("expired")
+                rej = adm.expire(dl, now)
+                if rej is not None:
+                    results[j] = rej
+                    continue
+            live.append((j, start, n))
+            start += n
+        return live
+
+    def _isolate(self, members, ingested, warmed, results, latencies,
+                 t_entry):
+        """Per-request isolation: re-dispatch each member of a failed
+        super-batch ALONE through the warmed bucket ladder.  Members that
+        fail alone get their error; the rest are served."""
+        sup = self._supervisor
+        for lane, (j, _start, n) in enumerate(members):
+            bucket = self._bucket_for(n, warmed)
+            block = np.zeros((bucket, self._backend.dim), np.float32)
+            block[:n] = ingested[j]
+            out, _ = self._dispatch(block, lane, bucket, False)
+            redo = (lambda blk=block, ln=lane + 1, b=bucket:
+                    self._dispatch(blk, ln, b, False)[0])
+            try:
+                d, i = sup.collect(out, redo=redo, label="isolated")
+                results[j] = (d[:n], i[:n])
+            except Exception as e:
+                self.stats.inc("dispatch_errors")
+                results[j] = e
+            latencies[j] = telemetry.now() - t_entry
+
+    def sync(self) -> None:
+        """Wait for every recorded in-flight dispatch (delegates to the
+        handle; ``search`` already collected its own results)."""
+        self._handle.sync()
+
+    def __repr__(self) -> str:   # pragma: no cover - cosmetic
+        return (f"ServeEngine(backend={self.backend}, k={self.k}, "
+                f"max_batch={self.max_batch}, "
+                f"warmed={self.warmed_signatures()}, "
+                f"stats={dict(self.stats)})")

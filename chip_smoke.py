@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive raft_tpu_torch's IVF-Flat, IVF-PQ and brute-force serving paths on
-one NVIDIA card.
+"""Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ and brute-force
+serving paths on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -41,7 +41,33 @@ Phases, one JSON line each:
    balancing-EM shape; B2 also at a brute-force scan step (1,024 ×
    16,384, k = 10, ``torch.topk`` as the yardstick), all on float32,
    float16 and bfloat16 rows.
-3. IVF-Flat main path — launch counts reset, then ``ivf_flat.build``,
+3. k-means path — BASELINE.json configs[1], "raft::cluster::kmeans —
+   100k×128, k=1024" (reference cpp/bench/cluster/kmeans.cu):
+   ``make_blobs(RngState(seed), 100,000, 128, n_clusters=1,024,
+   cluster_std=1.0)`` on the card, nothing cut.  ``kmeans``: launch
+   counts reset, ``fit_predict(KMeansParams(n_clusters=1024), x)`` with
+   the reference defaults (k-means‖, max_iter 300, tol 1e-4), then,
+   warm, ``fit_predict`` again, the init alone and the EM from its
+   centroids: their seconds, ``n_iter``, inertia, ARI against the
+   blobs' labels (at least ``KMEANS_ARI_FLOOR``), B1 and B3 launched,
+   and the EM from the init's centroids equal to the fit bit for bit.
+   ``kmeans_checks``: from those centroids 20 iterations (``tol`` 0,
+   ``loop="fori"``) through the kernels and twice through the plain
+   versions: ARI and inertia within ``KMEANS_ARI_GAP`` / the E-step's
+   value contract, ``predict`` labels equal except near ties; the
+   k-means‖ buffer (10,241 rows, one round filled, the rest copies of the
+   first centre or of the sampled rows): no copy slot owns a row.  ``kmeans_l1`` (5 iterations, B5 must
+   launch) and ``kmeans_cosine`` (5 iterations, no kernel may launch;
+   ``transform`` under L2 and L1 against ``engine="torch"``, rtol 1e-5,
+   atol 1e-5) as ``kmeans_checks``.  ``silhouette``: the batched
+   silhouette of 10,000 rows of the fit's labels under L2 and L1 (B5),
+   within 1e-5 of the plain path's.  Then B1 at the E-step (100,000 ×
+   1,024 × 128) and at the k-means‖ width (100,000 × 10,241 × 128), B3
+   at the EM step (its labels, values and inertia against the plain
+   version's, then its partials) and B5 L1 at one E-step block (2,048 × 1,024 × 128,
+   ``torch.cdist`` as the yardstick), each against its plain version
+   with its time and bound (the kernels line's ``kmeans_shapes``).
+4. IVF-Flat main path — launch counts reset, then ``ivf_flat.build``,
    ``ServeEngine(...).warmup()`` and ragged coalesced ``search()`` calls
    covering all queries; the counts are read right after and B1, B2, B3
    must have launched.  Checks: coalesced results equal solo ``search``
@@ -68,7 +94,7 @@ Phases, one JSON line each:
    and ``/healthz`` answers 200 (``serve_http(0)``); ``close()``
    resolves what is pending and a later ``submit()`` is refused; the
    launch counts read after show B2 (and for IVF-PQ B4's scan mode).
-4. IVF-PQ main path — the same with ``ivf_pq.build`` and an IVF-PQ
+5. IVF-PQ main path — the same with ``ivf_pq.build`` and an IVF-PQ
    ``ServeEngine``: B1, B2, B3 and B4's scan mode must have launched, B4's
    per-step raw mode never, and the build at most ``MAX_PQ_BUILD_B3``
    times B3.  Checks: coalesced equals solo, kernel-path recall@10 within
@@ -78,7 +104,7 @@ Phases, one JSON line each:
    which also ``refresh``-es the engine with the index while ``submit()``
    traffic flows: every future resolves without error, bit for bit, and
    ``stats["refreshes"]`` is 1.
-5. B4's raw mode against its plain version at the IVF-PQ main path's step
+6. B4's raw mode against its plain version at the IVF-PQ main path's step
    shape (1,024 queries × the index's capacity, pq_dim 64, 8 bits) for
    all four LUT types, and at ragged shapes (nq 1 and 37, capacities off
    the 256-slot block, pq_bits 4/5/7 with odd code bytes, LUT rows wider
@@ -90,7 +116,7 @@ Phases, one JSON line each:
    step, the running merge), the live share of the (query, slot) pairs
    the per-step path scores, and its time beside its plain twin's, the
    per-step path's and a bound counted on live slots.
-6. brute-force main path — launch counts reset, then
+7. brute-force main path — launch counts reset, then
    ``ServeEngine(x, 10, metric="l1", max_batch=1024).warmup()`` and the
    same ragged calls; B5 and B2 must have launched.  Checks: coalesced
    equals solo ``knn`` per request bit for bit; on 1,000 queries, ids
@@ -99,10 +125,10 @@ Phases, one JSON line each:
    against the plain path (``engine="torch"``) in the same way.  Then a
    short ``serve_stream`` pass: 1,024 queries at 0.5×, so B5 runs under
    the scheduler.
-7. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
+8. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
    1,024 × 16,384 × 128 against ``engine="torch"`` (rtol 1e-5, atol
    1e-5); the seven B5 metrics must launch B5 and the others must not.
-8. B5 against its plain version: all six ops × float32 / bfloat16 /
+9. B5 against its plain version: all six ops × float32 / bfloat16 /
    float16 at the scan step (bucket 1,024 × tile 16,384 × 128), ragged
    shapes (m 1 and 37, n 1, 129 and 16,385, k 1, 3, 127 and 960, one NaN
    in x), and the rows of every bucket size (1 to 512, and 37) equal to
@@ -112,11 +138,12 @@ Phases, one JSON line each:
    0; Canberra has none) and the bound, counted from at least
    ``B5_OPS_PER_ELEMENT`` float32 instructions per element at the card's
    instruction rate against the bytes moved.
-9. the ``{"kernels": [...]}`` line, then the last line
+10. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
-of each engine and over one IVF-Flat and one IVF-PQ build
+of each engine, over one IVF-Flat and one IVF-PQ build, and over the
+k-means path's k-means‖ init and its weighted k-means++ finish alone
 (``torch.profiler``).
 
 Any failed check exits non-zero before the last line.  Float32 products
@@ -212,6 +239,30 @@ BUCKET_ROWS = (1, 8, 16, 32, 37, 64, 128, 256, 512)
 #: of two abs, a reciprocal and multiply, and an add)
 B5_OPS_PER_ELEMENT = {"l1": 2, "l2": 2, "linf": 2, "lp": 5, "hamming": 2,
                       "canberra": 5}
+
+#: the k-means path: BASELINE.json configs[1], "raft::cluster::kmeans —
+#: 100k×128, k=1024" (reference cpp/bench/cluster/kmeans.cu), with the
+#: reference's defaults (k-means||, max_iter 300, tol 1e-4)
+KMEANS_SHAPE = (100_000, 128, 1024)
+#: the fit's ARI against make_blobs' labels, at least: a sanity floor (a
+#: broken init or EM lands far below it)
+KMEANS_ARI_FLOOR = 0.95
+#: EM iterations (tol 0) of the kernel-against-plain comparisons
+KMEANS_CHECK_ITERS = {"l2": 20, "l1": 5, "cosine": 5}
+#: how far the kernel path's fit may lie from the plain path's after those
+#: iterations from one init.  The plain path does not repeat (its
+#: M-step's ``index_add_`` adds in a new order each run): two plain fits
+#: on an H100 gave ARI 1.0 between them and inertia 7.4e-8 apart
+#: (relative; ``plain_ari_vs_plain``, ``plain_inertia_gap``, printed with
+#: every run).  So the kernel fit's labels must reach ARI 1 −
+#: KMEANS_ARI_GAP against the plain fit's (a thousandth of the pairs:
+#: room for a few near-tie rows to move), and its inertia lie within the
+#: E-step's value contract — per row 1e-5 of ‖x‖² + ‖c‖² for B1 (its
+#: 3xTF32 products; the norms are ~64× the distances here, and the first
+#: run's gap was 6.5e-5), 1e-5 of the distance for every other metric —
+#: plus KMEANS_INERTIA_GAP, about 13× the plain fits' own spread.
+KMEANS_ARI_GAP = 1e-3
+KMEANS_INERTIA_GAP = 1e-6
 
 
 class CheckFailed(Exception):
@@ -761,6 +812,68 @@ def profile_build(path, device, x, n_lists: int, top: int = 12):
               "b3_m_step_ms": ms(("em_small", "cluster_partials",
                                   "reduce_partials")),
               "torch_kernels_ms": ms(OWN_KERNELS, own=False),
+              "top": [{"name": e.key[:90], "calls": e.count,
+                       "device_ms": e.self_device_time_total / 1e3}
+                      for e in events[:top]]})
+
+
+def profile_kmeans(device, x, params, top: int = 12):
+    """Where the k-means‖ init's time goes: wall seconds of three inits
+    (median), then device time by kernel (torch.profiler) over one more;
+    the same for its weighted k-means++ finish alone, on a candidate
+    buffer of the init's width (1 + 5·l rows of x) weighted by the rows
+    each owns.  The device's busy share is device time over wall time;
+    the finish's launches a step are its launches over its k − 1 greedy
+    steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.cluster import kmeans, min_cluster_and_distance
+    from raft_tpu_torch.random import RngState
+
+    n, k = x.shape[0], params.n_clusters
+    l = int(params.oversampling_factor * k)
+    cap = 1 + 5 * l
+    gen = torch.Generator(device=device).manual_seed(params.seed + 41)
+    cand = x[torch.randperm(n, generator=gen, device=device)[:cap]]
+    owner = min_cluster_and_distance(x, cand).key.long()
+    counts = torch.zeros(cap, device=device).index_add_(
+        0, owner, torch.ones(n, device=device))
+    u = torch.rand((k, kmeans.local_trials(k)), dtype=torch.float64,
+                   generator=gen, device=device)
+    stages = {
+        "init_plus_plus": lambda: kmeans.init_plus_plus(
+            RngState(params.seed), x, k, params.oversampling_factor,
+            metric=params.metric),
+        "finish": lambda: kmeans._weighted_kmeans_pp(u, cand, counts, k)}
+    for stage, fn in stages.items():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        wall_ms = statistics.median(walls) * 1e3
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        launches = sum(e.count for e in events)
+        emit({"phase": "profile_kmeans", "stage": stage,
+              "shape": [n, x.shape[1], k], "candidates": cap,
+              "local_trials": kmeans.local_trials(k),
+              "wall_ms": wall_ms, "walls_s": walls, "device_ms": device_ms,
+              "device_busy_share": device_ms / wall_ms,
+              "kernel_launches": launches,
+              "launches_per_finish_step": (launches / (k - 1)
+                                           if stage == "finish" else None),
+              "b1_launches": sum(e.count for e in events
+                                 if "fused_l2nn" in e.key),
               "top": [{"name": e.key[:90], "calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3}
                       for e in events[:top]]})
@@ -1633,6 +1746,372 @@ def pairwise_kernel_phase(device, x, queries, rep: int):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the k-means path (BASELINE.json configs[1])
+# ---------------------------------------------------------------------------
+
+def kmeans_near_ties(x, y, metric, rows: int = 8192):
+    """Per row of x: whether its two nearest rows of y (float64) under
+    *metric* lie within 1e-5 relative of each other — of ‖x‖² + ‖y‖² of
+    the nearer row for the L2 family (B1's 3xTF32 products), of the
+    nearer distance otherwise."""
+    import torch
+
+    from raft_tpu_torch.distance import DistanceType, L2_METRICS
+
+    if metric in L2_METRICS:
+        return near_ties(x, y, rows=rows, of_norms=True)
+    yd = y.double()
+    out = []
+    for r in range(0, x.shape[0], rows):
+        xd = x[r:r + rows].double()
+        if metric == DistanceType.L1:
+            d = torch.cdist(xd, yd, p=1.0)
+        else:   # cosine
+            d = 1.0 - (torch.nn.functional.normalize(xd, dim=1)
+                       @ torch.nn.functional.normalize(yd, dim=1).T)
+        two = torch.topk(d, 2, dim=1, largest=False).values
+        out.append((two[:, 1] - two[:, 0])
+                   <= 1e-5 * two[:, 0].abs().clamp_min(1e-30))
+    return torch.cat(out)
+
+
+def kmeans_labels(name, idx, ref_idx, x, y, metric):
+    """Labels equal except at near ties (:func:`kmeans_near_ties`);
+    returns the count that differ."""
+    diff = idx != ref_idx
+    n_diff = int(diff.sum())
+    if n_diff:
+        tied = kmeans_near_ties(x[diff], y, metric)
+        check(bool(tied.all()), f"{name}: labels differ outside near ties")
+    return n_diff
+
+
+def kmeans_compare(name, device, x, c0, metric, iters: int):
+    """From the init centroids *c0*, *iters* EM iterations (``tol`` 0 and
+    ``loop="fori"``: every iteration runs, ``n_iter`` counts those before
+    the centroids stopped moving) through the kernels (``engine="cuda"``)
+    and twice through the plain versions (``engine="torch"``); the kernel
+    fit's labels and inertia held to the
+    first plain fit's within ``KMEANS_ARI_GAP`` / ``KMEANS_INERTIA_GAP``
+    (the second plain fit shows the plain path's own spread), and
+    ``predict`` under the kernel fit's centroids equal on both engines
+    except at near ties.  Returns (the line's fields, the kernel fit's
+    launches, its centroids)."""
+    from raft_tpu_torch import cluster, stats
+    from raft_tpu_torch.cluster import InitMethod, KMeansParams
+    from raft_tpu_torch.distance import L2_METRICS
+    from raft_tpu_torch.kernels import native
+
+    k = c0.shape[0]
+    p = KMeansParams(n_clusters=k, init=InitMethod.Array, max_iter=iters,
+                     tol=0.0, metric=metric)
+    _reset(device)
+    t0 = time.perf_counter()
+    kern = cluster.fit(p, x, centroids=c0, loop="fori", engine="cuda")
+    kern_s = _synced_seconds(device, t0)
+    launches = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    plain = cluster.fit(p, x, centroids=c0, loop="fori", engine="torch")
+    plain_s = _synced_seconds(device, t0)
+    plain2 = cluster.fit(p, x, centroids=c0, loop="fori", engine="torch")
+    lk, _ = cluster.predict(p, x, kern.centroids, engine="cuda")
+    lp, _ = cluster.predict(p, x, plain.centroids, engine="torch")
+    lp2, _ = cluster.predict(p, x, plain2.centroids, engine="torch")
+    ik, ip, ip2 = (float(o.inertia) for o in (kern, plain, plain2))
+    # the E-step's value contract, summed over the rows
+    if metric in L2_METRICS:
+        cn = (kern.centroids.double() ** 2).sum(1)
+        slack = 1e-5 * float((x.double() ** 2).sum() + cn[lk.long()].sum())
+    else:
+        slack = 1e-5 * ip
+    out = dict(
+        metric=metric.name, iters=iters, n_iter=int(kern.n_iter),
+        plain_n_iter=int(plain.n_iter),
+        kernel_fit_s=kern_s, plain_fit_s=plain_s,
+        kernel_iters_per_s=iters / kern_s, plain_iters_per_s=iters / plain_s,
+        inertia=ik, plain_inertia=ip, plain2_inertia=ip2,
+        inertia_gap=abs(ik - ip) / ip, inertia_gap_bound=(
+            slack / ip + KMEANS_INERTIA_GAP),
+        plain_inertia_gap=abs(ip2 - ip) / ip,
+        ari_vs_plain=float(stats.adjusted_rand_index(lk, lp)),
+        plain_ari_vs_plain=float(stats.adjusted_rand_index(lp2, lp)),
+        launches=launches)
+    check(out["ari_vs_plain"] >= 1.0 - KMEANS_ARI_GAP,
+          f"{name}: ARI against the plain path {out['ari_vs_plain']}")
+    check(out["inertia_gap"] <= out["inertia_gap_bound"],
+          f"{name}: inertia {ik} against the plain path's {ip}")
+    lt, _ = cluster.predict(p, x, kern.centroids, engine="torch")
+    out["predict_label_diffs_near_ties"] = kmeans_labels(
+        f"{name} predict", lk, lt, x, kern.centroids, metric)
+    return out, launches, kern.centroids
+
+
+def kmeans_ties(device, x, k: int, l: int, n_rounds: int, seed: int):
+    """The k-means‖ buffer (1 + n_rounds·l rows) as one round leaves it:
+    the first centre, l sampled rows, and copies — of the first centre,
+    then (a second buffer) of the sampled rows, so copies sit in other
+    tiles and lanes than their originals.  Through B1 every copy slot must
+    own no row.  Returns (the fields, the first buffer)."""
+    import torch
+
+    from raft_tpu_torch.cluster import min_cluster_and_distance
+
+    n, dim = x.shape
+    cap = 1 + n_rounds * l
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    rows = x[torch.randperm(n, generator=gen, device=device)[:l]]
+    buf = x[:1].expand(cap, dim).clone()
+    buf[1:1 + l] = rows
+    buf2 = buf.clone()
+    reps = -(-(cap - 1 - l) // l)
+    buf2[1 + l:] = rows.repeat(reps, 1)[:cap - 1 - l]
+    out = {"cap": cap, "filled": 1 + l}
+    for name, b in (("copies_of_first", buf), ("copies_of_sampled", buf2)):
+        nn = min_cluster_and_distance(x, b, engine="cuda")
+        counts = torch.bincount(nn.key.long(), minlength=cap)
+        owned = int(counts[1 + l:].sum())
+        out[f"{name}_rows_owned"] = owned
+        check(owned == 0, f"k-means|| buffer ties ({name}): copy slots own "
+              f"{owned} rows")
+    return out, buf
+
+
+def kmeans_kernel_rows(device, x, c, buf, rep: int):
+    """B1 at the k-means E-step (n × k × d) and at the k-means‖ width
+    (n × (1 + 5·2k) × d), B3 at the EM step (n × k × d) and B5 L1 at one
+    E-step block (2,048 × k × d), each against its plain version, with its
+    time, the plain version's, the library call's where one computes the
+    same function, and the bound."""
+    import torch
+
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.kernels import fused_l2nn, pairwise as pk
+
+    n, d = x.shape
+    k = c.shape[0]
+    rows = {"fused_l2_nn": {}}
+    for name, y in (("kmeans_e_step", c), ("kmeans_pp_width", buf)):
+        ky = y.shape[0]
+        val, idx = fused_l2nn.fused_l2_nn(x, y)
+        pv, pi = plain_nn.fused_l2_nn_plain(x, y)
+        n_diff = kmeans_labels(f"fused_l2_nn {name}", idx, pi, x, y,
+                               DistanceType.L2Expanded)
+        scale = (x * x).sum(1) + (y * y).sum(1)[idx.long()]
+        err = (val - pv).abs()
+        check(bool((err <= 1e-5 * scale).all()),
+              f"fused_l2_nn {name}: values beyond 1e-5 of the norms")
+        bound, by = bound_ms(4.0 * (n * d + ky * d + 2 * n),
+                             6.0 * n * ky * d, TF32_FLOP_PER_S)
+        rows["fused_l2_nn"][name] = dict(
+            shape=[n, ky, d], max_abs_err=float(err.max()),
+            label_diffs_near_ties=n_diff,
+            ms=timed(lambda: fused_l2nn.fused_l2_nn(x, y), device, rep),
+            plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(x, y), device,
+                           3),
+            product_only_ms=timed(lambda: x @ y.T, device, 3),
+            bound_ms=bound, bound_by=by, library_ms=None)
+        emit({"phase": "kernel", "name": f"fused_l2_nn@{name}",
+              **rows["fused_l2_nn"][name]})
+        del val, idx, pv, pi, err, scale
+
+    # B3's E-step against the plain version's: labels equal except at
+    # near ties, values within 1e-5 of ‖x‖² + ‖c‖², the inertia within
+    # the sum of those bounds (and of B3's own values); then its M-step
+    # partials keyed by its labels, which are the plain labels but at the
+    # near ties just checked
+    out = fused_l2nn.fused_l2_nn_partials(x, c)
+    ref = plain_nn.fused_l2_nn_partials_plain(x, c)
+    n_diff3 = kmeans_labels("fused_l2_nn_partials kmeans", out[1], ref[1], x,
+                            c, DistanceType.L2Expanded)
+    scale = (x * x).sum(1) + (c * c).sum(1)[out[1].long()]
+    check(bool(((out[0] - ref[0]).abs() <= 1e-5 * scale).all()),
+          "fused_l2_nn_partials kmeans: values beyond 1e-5 of the norms")
+    own = float(out[0].double().sum())
+    inertia_gap = abs(float(out[4]) - float(ref[4]))
+    check(inertia_gap <= 1e-5 * float(scale.double().sum()) + 1e-5 * own
+          and abs(float(out[4]) - own) <= 1e-5 * own,
+          f"fused_l2_nn_partials kmeans: inertia {float(out[4])} against "
+          f"the plain version's {float(ref[4])} and its values' sum {own}")
+    sums, wsum = plain_nn.cluster_partials_plain(x, out[1], k)
+    mag, _ = plain_nn.cluster_partials_plain(x.abs(), out[1], k)
+    check(bool(((out[2] - sums).abs() <= 1e-4 * mag + 1e-6).all())
+          and torch.allclose(out[3], wsum, rtol=1e-4),
+          "fused_l2_nn_partials kmeans: partials beyond tolerance")
+    del ref, scale
+    t_bytes = 4.0 * (n * d + 2 * k * d + 2 * n + k) / HBM_BYTES_PER_S
+    t_ops = 6.0 * n * k * d / TF32_FLOP_PER_S + 1.0 * n * d / F32_FLOP_PER_S
+    rows["fused_l2_nn_partials"] = {"kmeans_em_step": dict(
+        shape=[n, k, d], max_abs_err=float((out[2] - sums).abs().max()),
+        label_diffs_near_ties=n_diff3, inertia_gap=inertia_gap,
+        ms=timed(lambda: fused_l2nn.fused_l2_nn_partials(x, c), device, rep),
+        plain_ms=timed(lambda: plain_nn.fused_l2_nn_partials_plain(x, c),
+                       device, 3),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)}
+    emit({"phase": "kernel", "name": "fused_l2_nn_partials@kmeans_em_step",
+          **rows["fused_l2_nn_partials"]["kmeans_em_step"]})
+
+    xb = x[:2048]
+    acc = pk.pairwise_accumulate(xb, c, "l1")
+    ref = pk.pairwise_accumulate_plain(xb, c, "l1")
+    err = (acc - ref).abs()
+    check(bool((err <= 1e-5 * ref).all()),
+          "pairwise l1 kmeans: beyond 1e-5 × Σ|terms| of the plain version")
+    m = xb.shape[0]
+    b, by = bound_ms(4.0 * (m * d + k * d + m * k),
+                     float(B5_OPS_PER_ELEMENT["l1"]) * m * k * d,
+                     F32_INSTR_PER_S)
+    rows["pairwise_accumulate"] = {"kmeans_l1_e_step_block": dict(
+        shape=[m, k, d], max_abs_err=float(err.max()),
+        ms=timed(lambda: pk.pairwise_accumulate(xb, c, "l1"), device, rep),
+        plain_ms=timed(lambda: pk.pairwise_accumulate_plain(xb, c, "l1"),
+                       device, 3),
+        library_ms=timed(lambda: torch.cdist(xb, c, p=1.0), device, rep),
+        bound_ms=b, bound_by=by)}
+    emit({"phase": "kernel", "name": "pairwise_accumulate@kmeans_l1",
+          "library": "torch.cdist(p=1)",
+          **rows["pairwise_accumulate"]["kmeans_l1_e_step_block"]})
+    return rows
+
+
+def kmeans_path(device, seed: int, rep: int, smi):
+    """The k-means main path at ``KMEANS_SHAPE`` — ``fit_predict`` with
+    the reference defaults on ``make_blobs`` data — then its checks (the
+    ``kmeans``, ``kmeans_checks``, ``kmeans_l1``, ``kmeans_cosine`` and
+    ``silhouette`` lines) and the kernels at its shapes.  Returns (launch
+    counts by path, the kernels' k-means fields, the data and the fit's
+    parameters for ``--profile``)."""
+    import torch
+
+    from raft_tpu_torch import cluster, stats
+    from raft_tpu_torch.cluster import InitMethod, KMeansParams
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.random import RngState, make_blobs
+
+    n, dim, k = KMEANS_SHAPE
+    t0 = time.perf_counter()
+    x, truth, _ = make_blobs(RngState(seed), n, dim, n_clusters=k,
+                             cluster_std=1.0, device=device)
+    data_s = _synced_seconds(device, t0)
+    params = KMeansParams(n_clusters=k, seed=seed)
+
+    # 1. the main path
+    _reset(device)
+    t0 = time.perf_counter()
+    out = cluster.fit_predict(params, x)
+    fit_s = _synced_seconds(device, t0)
+    launches = dict(native.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    # the first call pays CUDA's lazy loading of every kernel it meets
+    t0 = time.perf_counter()
+    cluster.fit_predict(params, x)
+    warm_s = _synced_seconds(device, t0)
+    # the fit again in its two stages, warm: the init from the same seed
+    # (the fit's own first draw), then EM from those centroids
+    t0 = time.perf_counter()
+    c0 = cluster.init_plus_plus(RngState(seed), x, k,
+                                params.oversampling_factor,
+                                metric=params.metric)
+    init_s = _synced_seconds(device, t0)
+    t0 = time.perf_counter()
+    again = cluster.fit(KMeansParams(n_clusters=k, init=InitMethod.Array,
+                                     seed=seed), x, centroids=c0)
+    em_s = _synced_seconds(device, t0)
+    n_iter = int(out.n_iter)
+    repeats = (torch.equal(again.centroids, out.centroids)
+               and int(again.n_iter) == n_iter)
+    ari = float(stats.adjusted_rand_index(truth, out.labels))
+    emit({"phase": "kmeans", "config": "BASELINE.json configs[1]: "
+          "raft::cluster::kmeans 100k x 128, k=1024", "n": n, "dim": dim,
+          "n_clusters": k, "init": "k-means||", "max_iter": params.max_iter,
+          "tol": params.tol, "seed": seed, "card": smi, "data_s": data_s,
+          "fit_predict_s": fit_s, "fit_predict_warm_s": warm_s,
+          "init_s": init_s, "em_s": em_s,
+          "n_iter": n_iter, "em_iters_per_s": n_iter / em_s,
+          "inertia": float(out.inertia), "ari_vs_make_blobs": ari,
+          "array_init_fit_repeats_fit": repeats, "launches": launches,
+          "peak_mem_bytes": peak})
+    for name in ("fused_l2_nn", "fused_l2_nn_partials"):
+        check(launches[name] > 0, f"kmeans main path never launched {name}")
+    check(out.labels.shape == (n,) and out.centroids.shape == (k, dim)
+          and bool(torch.isfinite(out.centroids).all())
+          and math.isfinite(float(out.inertia)),
+          "kmeans: labels (n,), finite centroids (k, d) and inertia")
+    check(ari >= KMEANS_ARI_FLOOR, f"kmeans: ARI {ari} against make_blobs")
+    check(repeats, "kmeans: a fit from init_plus_plus's centroids differs "
+          "from fit_predict's")
+
+    # 2. kernel path against plain path from the same init
+    row, _, c_fit = kmeans_compare("kmeans_checks", device, x, c0,
+                                   DistanceType.L2Expanded,
+                                   KMEANS_CHECK_ITERS["l2"])
+    ties, buf = kmeans_ties(device, x, k, int(params.oversampling_factor * k),
+                            5, seed)
+    emit({"phase": "kmeans_checks", "card": smi, **row, **ties})
+
+    # 3. L1: B5 serves the E-step
+    row, launches_l1, c_l1 = kmeans_compare("kmeans_l1", device, x, c0,
+                                            DistanceType.L1,
+                                            KMEANS_CHECK_ITERS["l1"])
+    check(launches_l1["pairwise_accumulate"] > 0,
+          "kmeans_l1 never launched pairwise_accumulate")
+    emit({"phase": "kmeans_l1", "card": smi, **row})
+
+    # 4. cosine runs no kernel; transform under L2 and L1
+    row, launches_cos, _ = kmeans_compare("kmeans_cosine", device, x, c0,
+                                          DistanceType.CosineExpanded,
+                                          KMEANS_CHECK_ITERS["cosine"])
+    check(not any(launches_cos.values()),
+          f"kmeans_cosine launched a kernel: {launches_cos}")
+    for metric, c in ((DistanceType.L2Expanded, c_fit),
+                      (DistanceType.L1, c_l1)):
+        p = KMeansParams(n_clusters=k, metric=metric)
+        _reset(device)
+        got = cluster.transform(p, x, c)
+        b5 = native.LAUNCHES["pairwise_accumulate"]
+        ref = cluster.transform(p, x, c, engine="torch")
+        check(got.shape == (n, k) and torch.allclose(got, ref, rtol=1e-5,
+                                                     atol=1e-5),
+              f"transform {metric.name}: beyond rtol 1e-5, atol 1e-5 of "
+              "the plain path")
+        row[f"transform_{metric.name}"] = {
+            "max_abs_err": float((got - ref).abs().max()),
+            "pairwise_accumulate_launches": b5}
+        del got, ref
+    emit({"phase": "kmeans_cosine", "card": smi, **row})
+
+    # 5. the silhouette of a subset of the fit's labels
+    ns = min(10_000, n)
+    xs, ls = x[:ns], out.labels[:ns]
+    sil = {}
+    for metric in (DistanceType.L2Expanded, DistanceType.L1):
+        s = float(stats.silhouette_score_batched(xs, ls, k, metric))
+        sp = float(stats.silhouette_score_batched(xs, ls, k, metric,
+                                                  engine="torch"))
+        # the seconds of a second, warm call of each
+        t0 = time.perf_counter()
+        stats.silhouette_score_batched(xs, ls, k, metric)
+        s_t = _synced_seconds(device, t0)
+        t0 = time.perf_counter()
+        stats.silhouette_score_batched(xs, ls, k, metric, engine="torch")
+        sp_t = _synced_seconds(device, t0)
+        check(abs(s - sp) <= 1e-5, f"silhouette {metric.name}: {s} against "
+              f"the plain path's {sp}")
+        sil[metric.name] = {"score": s, "plain_score": sp, "s": s_t,
+                            "plain_s": sp_t}
+    emit({"phase": "silhouette", "rows": ns, "n_clusters": k,
+          "batch_size": 4096, "card": smi, "by_metric": sil})
+
+    rows = kmeans_kernel_rows(device, x, c_fit, buf, rep)
+    return ({"kmeans": launches, "kmeans_l1": launches_l1}, rows,
+            (x, params))
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -1653,6 +2132,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
           "seed": seed, "seconds": time.perf_counter() - t0})
 
     rows = kernel_phase(device, x, queries, probe_centers, rep)
+    smi = nvidia_smi() if device.type == "cuda" else "cpu"
+    launches_km, km_rows, km_state = kmeans_path(device, seed, rep, smi)
 
     q_host = queries.cpu().numpy()
     reqs, calls = ragged_calls(q_host, n_queries)
@@ -1663,7 +2144,6 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     del dist
     args = (device, x, reqs, calls, n_queries, truth, qr, n_lists, n_probes,
             k)
-    smi = nvidia_smi() if device.type == "cuda" else "cpu"
     eng_flat, launches_flat, served = ivf_flat_path(*args)
     stream_flat = serve_stream("ivf_flat", device, served, q_host, n_queries,
                                smi, seed)
@@ -1683,7 +2163,10 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                                                         rep)
     by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
                "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
-               "brute_force": launches_bf, "brute_force_stream": stream_bf}
+               "brute_force": launches_bf, "brute_force_stream": stream_bf,
+               **launches_km}
+    for name, fields in km_rows.items():
+        rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -1693,6 +2176,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         profile_serve("brute_force", eng_bf, q_host, device)
         profile_build("ivf_flat", device, x, n_lists)
         profile_build("ivf_pq", device, x, n_lists)
+        profile_kmeans(device, *km_state)
     return rows
 
 
@@ -1707,8 +2191,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one 1024-query super-batch of each "
-                    "engine with torch.profiler and print device time by "
-                    "kernel")
+                    "engine, the builds and the k-means init with "
+                    "torch.profiler and print device time by kernel")
     args = ap.parse_args(argv)
 
     import torch

@@ -1,9 +1,29 @@
-from raft_tpu_torch.cluster.kmeans import (EMPartials, KeyValuePair,
-                                          centroids_from_sums, fused_em_step,
-                                          min_cluster_and_distance,
-                                          update_centroids)
-from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
+"""Clustering: k-means and balanced k-means (port of ``raft_tpu/cluster``;
+reference raft/cluster/).  Single linkage is not ported yet."""
 
-__all__ = ["EMPartials", "KeyValuePair", "build_hierarchical",
-           "centroids_from_sums", "fused_em_step", "min_cluster_and_distance",
+from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+from raft_tpu_torch.cluster.kmeans import (EMPartials, KMeans, KMeansOutput,
+                                           KeyValuePair, centroids_from_sums,
+                                           cluster_cost, fit, fit_predict,
+                                           fused_em_enabled, fused_em_step,
+                                           init_plus_plus, init_random,
+                                           kmeans_plus_plus,
+                                           min_cluster_and_distance,
+                                           pack_em_partials, predict,
+                                           sample_centroids,
+                                           shuffle_and_gather, transform,
+                                           unpack_em_partials,
+                                           update_centroids)
+from raft_tpu_torch.cluster.kmeans_balanced import (adjust_centers,
+                                                    build_clusters,
+                                                    build_hierarchical)
+
+__all__ = ["EMPartials", "InitMethod", "KMeans", "KMeansOutput",
+           "KMeansParams", "KeyValuePair", "adjust_centers",
+           "build_clusters", "build_hierarchical", "centroids_from_sums",
+           "cluster_cost", "fit", "fit_predict", "fused_em_enabled",
+           "fused_em_step", "init_plus_plus", "init_random",
+           "kmeans_plus_plus", "min_cluster_and_distance",
+           "pack_em_partials", "predict", "sample_centroids",
+           "shuffle_and_gather", "transform", "unpack_em_partials",
            "update_centroids"]

@@ -71,7 +71,7 @@ def _em_program(x: torch.Tensor, centers0: torch.Tensor, n_clusters: int,
     ``adjust_every``-th iteration re-seeds the small clusters."""
     centers = centers0
     for it in range(n_iters):
-        p = fused_em_step(x, centers, None, metric, engine,
+        p = fused_em_step(x, centers, None, metric, engine=engine,
                           return_labels=bool(adjust_every))
         centers = centroids_from_sums(p.sums, p.weights, centers, x.dtype)
         if adjust_every and it % adjust_every == adjust_every - 1:
@@ -144,7 +144,7 @@ def build_hierarchical(rng: RngState, x: torch.Tensor, n_clusters: int,
     meso_centers = build_clusters(rng, x, n_meso, n_iters, metric,
                                   engine=engine)
     meso_labels = min_cluster_and_distance(
-        x, meso_centers, metric, engine).key.cpu().numpy()
+        x, meso_centers, metric, engine=engine).key.cpu().numpy()
     sizes = np.bincount(meso_labels, minlength=n_meso)
     share = np.floor(sizes / n * n_clusters).astype(int)
     quota = np.where(sizes > 0, np.maximum(1, share), 0)

@@ -97,3 +97,19 @@ class Handle:
             s.synchronize()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+@contextlib.contextmanager
+def issued_on(handle: Optional[Handle]):
+    """Issue the enclosed work on *handle*'s next usable stream and mark
+    its end there; yields the handle's device (None without a handle, when
+    the work goes to the current stream).  As in the reference's
+    handle-first calling convention, a caller that passes a handle syncs
+    it (``handle.sync()``) before it reads the outputs elsewhere."""
+    if handle is None:
+        yield None
+        return
+    stream = handle.get_next_usable_stream()
+    with stream.context():
+        yield handle.device
+    stream.record()

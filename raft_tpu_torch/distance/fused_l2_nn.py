@@ -13,6 +13,12 @@ are held to, and what the kernel wrappers run for tensors on the CPU:
 * :func:`fused_l2_nn_partials_batched_plain` — that for S independent
   problems (the PER_SUBSPACE codebooks), one at a time, so it never holds
   an (S, n, k) distance tensor.
+
+Beside them the public surface of ``raft_tpu/distance/fused_l2_nn.py``:
+:func:`fused_l2_nn` (a :class:`KeyValuePair` per row, through kernel B1 on
+the card), :func:`fused_l2_nn_min_reduce`, :func:`fused_l2_nn_argmin`, and
+the JAX scan's tile hooks :func:`l2_nn_blocks` / :func:`l2_nn_tile` as
+plain functions with the same contracts (on the card B1 does their work).
 """
 
 from __future__ import annotations
@@ -21,7 +27,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.distance.pairwise import _row_norms
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.handle import issued_on
+from raft_tpu_torch.core.kvp import KeyValuePair, kvp_min
+from raft_tpu_torch.distance.pairwise import _row_norms, as_input
 from raft_tpu_torch.linalg.reduce import segment_sum
 
 #: rows per distance block: bounds the (rows, k) transient of the plain
@@ -30,18 +39,20 @@ _BLOCK_ROWS = 1 << 16
 
 
 def fused_l2_nn_plain(x: torch.Tensor, y: torch.Tensor,
-                      bf16_dot: bool = False
+                      bf16_dot: bool = False,
+                      x_norms: Optional[torch.Tensor] = None,
+                      y_norms: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(val (m,) f32, idx (m,) int32) of the nearest row of *y*.
 
     ``bf16_dot`` rounds both operands of the dot product to bfloat16 (the
     products are then exact in float32 and summed in float32) while the
     norms stay float32 — the ``precision="default"`` opt-in of the TPU
-    kernel."""
+    kernel.  Squared row norms may be given precomputed."""
     x = x.float()
     y = y.float()
-    xn = _row_norms(x)
-    yn = _row_norms(y)
+    xn = _row_norms(x) if x_norms is None else x_norms.float()
+    yn = _row_norms(y) if y_norms is None else y_norms.float()
     xd, yd = ((x.bfloat16().float(), y.bfloat16().float()) if bf16_dot
               else (x, y))
     m = x.shape[0]
@@ -91,3 +102,95 @@ def fused_l2_nn_partials_batched_plain(x: torch.Tensor, y: torch.Tensor,
         else (weights if weights.ndim == 1 else weights[i]))
         for i in range(x.shape[0])]
     return tuple(torch.stack(t) for t in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# the public surface (raft_tpu/distance/fused_l2_nn.py :110-230)
+# ---------------------------------------------------------------------------
+
+def l2_nn_blocks(y: torch.Tensor, y_norms: torch.Tensor, block_n: int,
+                 align: int = 1):
+    """Pre-block y for :func:`l2_nn_tile`: the row count padded to a whole
+    number of (``align``-rounded) blocks, padded rows with +inf norms so
+    they never win.  Returns (y_blocks (nb, bn, d), yn_blocks (nb, bn),
+    bases (nb,) int32)."""
+    n, d = y.shape
+    bn = min(block_n, n)
+    bn = -(-bn // align) * align
+    nb = -(-n // bn)
+    pad = nb * bn - n
+    y_p = torch.cat([y, y.new_zeros((pad, d))]) if pad else y
+    yn_p = (torch.cat([y_norms, y_norms.new_full((pad,), float("inf"))])
+            if pad else y_norms)
+    bases = torch.arange(nb, dtype=torch.int32, device=y.device) * bn
+    return y_p.reshape(nb, bn, d), yn_p.reshape(nb, bn), bases
+
+
+def l2_nn_tile(xb: torch.Tensor, y_blocks: torch.Tensor,
+               yn_blocks: torch.Tensor, bases: torch.Tensor,
+               precision: str = "highest",
+               xn: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest y-row (squared L2 value, int32 index) of every row of one
+    tile *xb* against :func:`l2_nn_blocks` output.  Blocks are ranked on
+    ``||y||² − 2 x·y`` and ``||x||²`` is added to the winner only (it
+    cannot change the argmin); the result is clamped at 0.  Ties go to the
+    lower index within and across blocks.  ``precision="default"`` takes
+    the bfloat16 dot products of :func:`fused_l2_nn_plain`."""
+    xf = xb.float()
+    if xn is None:
+        xn = _row_norms(xf)
+    best = None
+    for yb, ynb, base in zip(y_blocks, yn_blocks, bases):
+        yf = yb.float()
+        if precision == "default":
+            t = ynb[None, :] - 2.0 * (xf.bfloat16().float()
+                                      @ yf.bfloat16().float().T)
+        else:
+            t = ynb[None, :] - 2.0 * (xf @ yf.T)
+        val, arg = torch.min(t, dim=1)
+        kv = KeyValuePair(key=base + arg.to(torch.int32), value=val)
+        best = kv if best is None else kvp_min(best, kv)
+    return torch.clamp_min(xn + best.value, 0.0), best.key
+
+
+def fused_l2_nn(x, y, sqrt: bool = False, x_norms=None, y_norms=None,
+                precision: str = "highest", *, device=None,
+                engine: Optional[str] = None) -> KeyValuePair:
+    """For each row of x, its nearest row of y by squared L2 (by L2 with
+    *sqrt*) as ``KeyValuePair(key=index int32, value=distance f32)``
+    (reference ``fusedL2NN``, fused_l2_nn.cuh:89).  On the card this is
+    kernel B1 (``engine="cuda"``, the default there); *sqrt* is applied to
+    its clamped minimum.  Given norms are used by the plain path; B1 forms
+    the same norms from the rows itself.  ``precision="default"`` rounds
+    the dot products' operands to bfloat16 (B1's ``bf16_dot``).  Arrays go
+    to *device* (``None``: the card); tensors stay where they are."""
+    from raft_tpu_torch.kernels.engine import resolve_engine
+
+    x, y = as_input(x, device), as_input(y, device)
+    expects(x.shape[1] == y.shape[1], "x and y must share feature dim")
+    bf16 = precision == "default"
+    if resolve_engine("l2nn", x.device, engine=engine) == "cuda":
+        from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn as b1
+
+        val, idx = b1(x, y, bf16)
+    else:
+        val, idx = fused_l2_nn_plain(x, y, bf16, x_norms, y_norms)
+    return KeyValuePair(key=idx, value=torch.sqrt(val) if sqrt else val)
+
+
+def fused_l2_nn_min_reduce(x, y, sqrt: bool = False, **kw) -> KeyValuePair:
+    """Alias of :func:`fused_l2_nn` (reference ``fusedL2NNMinReduce``,
+    fused_l2_nn.cuh:192)."""
+    return fused_l2_nn(x, y, sqrt=sqrt, **kw)
+
+
+def fused_l2_nn_argmin(x, y, sqrt: bool = True, handle=None, *,
+                       device=None, engine: Optional[str] = None
+                       ) -> torch.Tensor:
+    """The nearest row's index alone (pylibraft ``fused_l2_nn_argmin``,
+    distance/fused_l2_nn.pyx:64).  A *handle* sets the device and issues
+    the work on its stream."""
+    with issued_on(handle) as dev:
+        return fused_l2_nn(x, y, sqrt=sqrt, device=dev or device,
+                           engine=engine).key

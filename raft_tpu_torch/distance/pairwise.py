@@ -426,6 +426,14 @@ def as_float_tensor(a, device: torch.device) -> torch.Tensor:
     return t.float() if t.dtype == torch.float64 else t
 
 
+def as_input(a, device=None) -> torch.Tensor:
+    """An entry point's input: a tensor stays where it is, anything else
+    goes to *device* (``None``: the card) through :func:`as_float_tensor`."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return as_float_tensor(a, resolve_device(device))
+
+
 def pairwise_distance(x, y, metric: Union[str, DistanceType] = "euclidean",
                       metric_arg: float = 2.0, p: Optional[float] = None, *,
                       device=None, engine: Optional[str] = None

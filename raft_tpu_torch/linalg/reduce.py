@@ -1,6 +1,7 @@
 """Keyed reductions (subset port of ``raft_tpu/linalg/reduce.py``:
-``one_hot_by_key``, ``segment_sum``) — the k-means M-step's building
-blocks."""
+``one_hot_by_key``, ``segment_sum``, ``reduce_rows_by_key``,
+``reduce_cols_by_key``) — the k-means M-step's and the silhouette score's
+building blocks."""
 
 from __future__ import annotations
 
@@ -41,3 +42,16 @@ def reduce_rows_by_key(data: torch.Tensor, keys: torch.Tensor,
     """``out[k, :] = Σ_{i: keys[i]==k} w_i · data[i, :]``."""
     vals = data if weights is None else data * weights[:, None]
     return segment_sum(vals, keys, n_unique_keys)
+
+
+def reduce_cols_by_key(data: torch.Tensor, keys: torch.Tensor,
+                       n_unique_keys: int) -> torch.Tensor:
+    """``out[i, k] = Σ_{j: keys[j]==k} data[i, j]`` (reference
+    linalg/reduce_cols_by_key.cuh), as ``data @ one_hot(keys)``: a product
+    adds each output in a fixed order on the card, where an indexed add
+    would take its atomics' order.  Half inputs sum in float32 and come
+    back in their own type."""
+    acc = torch.float32 if data.dtype in (torch.bfloat16,
+                                          torch.float16) else data.dtype
+    oh = one_hot_by_key(keys, n_unique_keys, acc)
+    return (data.to(acc) @ oh).to(data.dtype)

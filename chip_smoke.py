@@ -156,6 +156,7 @@ import argparse
 import collections
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -164,6 +165,8 @@ import time
 
 import numpy as np
 
+#: the checkout this script lies in
+ROOT = pathlib.Path(__file__).resolve().parent
 #: the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
@@ -182,6 +185,7 @@ REPLACES = {
     "select_k": "raft_tpu/kernels/select_k.py:155",
     "lut_score": "raft_tpu/kernels/ivf_pq_lut.py:98",
     "lut_scan": "raft_tpu/kernels/ivf_pq_lut.py:98",
+    "lut_scan_tombstones": "raft_tpu/kernels/ivf_pq_lut.py:98",
     "pairwise_accumulate": "raft_tpu/kernels/pairwise.py:81",
 }
 SOURCE = {
@@ -190,6 +194,7 @@ SOURCE = {
     "select_k": "raft_tpu_torch/kernels/csrc/select_k.cu",
     "lut_score": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
     "lut_scan": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
+    "lut_scan_tombstones": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
     "pairwise_accumulate": "raft_tpu_torch/kernels/csrc/pairwise.cu",
 }
 #: B3 launches an IVF-PQ build may take: the coarse balancing EM (20 + 5
@@ -210,6 +215,11 @@ PATH_KERNELS = {
     "ivf_pq": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
                "lut_scan"),
     "brute_force": ("pairwise_accumulate", "select_k"),
+    # extend's list assignment (B1), the compaction's rebuild (B1, B3),
+    # every scan's selects (B2) and, for IVF-PQ, the masked scans (B4)
+    "ivf_flat_mutable": ("fused_l2_nn", "fused_l2_nn_partials", "select_k"),
+    "ivf_pq_mutable": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
+                       "lut_scan_tombstones"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -1304,6 +1314,333 @@ def ivf_pq_path(device, x, reqs, calls, n_queries, truth, qr, n_lists,
         results, row, lambda: ServeEngine(index, k, params, max_batch=1024))
 
 
+#: the mutable paths' churn, tests/test_mutable.py's script at full width:
+#: upserts of live ids with fresh vectors, upserts of new ids, deletes of
+#: live ids, re-upserts of deleted ids, in write batches of MUT_BATCH rows
+MUT_UPSERT_LIVE = 5_000
+MUT_UPSERT_NEW = 5_000
+MUT_DELETE = 10_000
+MUT_REUPSERT = 1_000
+MUT_BATCH = 500
+#: batches of MUT_BATCH upserts of new ids and MUT_BATCH deletes that a
+#: writer thread applies while the engine serves
+MUT_WRITER_BATCHES = 20
+#: the churned index's recall@10 against the exact neighbours of its live
+#: rows lies within this of the unchurned index's (PERF.md §2)
+MUT_RECALL_TOL = {"ivf_flat": 0.01, "ivf_pq": 0.02}
+#: share of upserted rows that, queried by their own vector, return their
+#: id among the top 10 on IVF-PQ (IVF-Flat: all of them, at rank 1)
+MUT_SELF_PQ = 0.99
+#: where the mutable paths write their archives (inside the checkout's
+#: ignored build/ directory; removed afterwards)
+ARCHIVE_DIR = ROOT / "build" / "smoke_archives"
+
+
+def _serve_all(eng, calls, dead=None):
+    """One closed-loop pass of every call through *eng*: the seconds and
+    the ids of every request.  With *dead* (a device flag per id and the
+    lock its writer holds), no result may hold an id whose delete
+    returned before its call began."""
+    import torch
+
+    t0 = time.perf_counter()
+    ids = []
+    for call in calls:
+        if dead is not None:
+            with dead[1]:
+                gone = dead[0].clone()
+        outs = eng.search(call)
+        for out in outs:
+            check(isinstance(out, tuple), f"a mutable request failed: "
+                  f"{out!r}")
+        got = np.concatenate([o[1] for o in outs])
+        if dead is not None:
+            t = torch.as_tensor(got, device=gone.device).long()
+            check(not bool(gone[t.clamp_min(0)][t >= 0].any()),
+                  "a result holds an id deleted before its call")
+        ids.append(got)
+    return time.perf_counter() - t0, np.concatenate(ids)
+
+
+def _scan_steps(index, n_probes: int) -> int:
+    """Steps of one query's probe scan over *index* (``expand_probes``'
+    budget: its probes plus the index's continuation chunks)."""
+    n_rows = index.list_indices.shape[0]
+    probes = min(n_probes, index.n_lists)
+    return max(1, min(probes * index.chunk_table.shape[1],
+                      probes + max(0, n_rows - 1 - index.n_lists),
+                      n_rows - 1))
+
+
+def mutable_path(path, device, index, x, build_params, params, calls,
+                 n_queries, qr, truth, k, fresh, smi, seed):
+    """The mutable path of one family at full width: the main saved and
+    loaded, a ``MutableIndex`` over it churned, served on the mutable
+    backend while a writer thread writes, the triple saved and loaded,
+    then compacted while traffic runs (a faulted promote first, then a
+    ``Compactor`` tick); launch counts are reset before it and read
+    after.  Returns them."""
+    import shutil
+
+    import torch
+
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, mutable, serialize
+    from raft_tpu_torch.serve import ServeEngine
+    from raft_tpu_torch.testing import faults
+
+    tag = f"{path}_mutable"
+    flat = path == "ivf_flat"
+    fam = ivf_flat if flat else ivf_pq
+    save = serialize.save_ivf_flat if flat else serialize.save_ivf_pq
+    load = serialize.load_ivf_flat if flat else serialize.load_ivf_pq
+    n = x.shape[0]
+    _reset(device)
+    ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        # the main index: saved, loaded, the same bits
+        arch = {"phase": "mutable_archive", "path": path, "card": smi}
+        t0 = time.perf_counter()
+        save(ARCHIVE_DIR / path, index)
+        arch["save_main_s"] = time.perf_counter() - t0
+        arch["main_bytes"] = (ARCHIVE_DIR / f"{path}.npz").stat().st_size
+        t0 = time.perf_counter()
+        loaded = load(ARCHIVE_DIR / path, device=device)
+        arch["load_main_s"] = _synced_seconds(device, t0)
+        d0, i0 = fam.search(params, index, qr, k)
+        d1, i1 = fam.search(params, loaded, qr, k)
+        check(torch.equal(d0, d1) and torch.equal(i0, i1),
+              f"{path}: the loaded main searches other bits")
+        del loaded, d1, i1
+        r_unchurned = recall(i0.long(), truth)
+
+        # the churn
+        mut = mutable.MutableIndex(index, x, build_params=build_params)
+        rng = np.random.default_rng(seed)
+        # ids: the main's, then the churn's new ones, the writer thread's,
+        # and the last writes before the compaction
+        top = n + MUT_UPSERT_NEW + (MUT_WRITER_BATCHES + 2) * MUT_BATCH
+        alive = np.zeros(top, bool)
+        alive[:n] = True
+        dead = (torch.zeros(top, dtype=torch.bool, device=device),
+                threading.Lock())
+        vecs = {}
+        tally = {"upsert_s": 0.0, "upsert_rows": 0, "delete_s": 0.0,
+                 "delete_rows": 0}
+
+        def upsert(ids):
+            v = fresh(ids.size)
+            t0 = time.perf_counter()
+            mut.upsert(v, ids)
+            tally["upsert_s"] += _synced_seconds(device, t0)
+            tally["upsert_rows"] += ids.size
+            alive[ids] = True
+            with dead[1]:
+                dead[0][torch.as_tensor(ids, device=device)] = False
+            for r, j in enumerate(ids.tolist()):
+                vecs[j] = v[r]
+
+        def delete(ids):
+            t0 = time.perf_counter()
+            got = mut.delete(ids)
+            tally["delete_s"] += _synced_seconds(device, t0)
+            tally["delete_rows"] += got
+            check(got == ids.size, f"{tag}: a delete missed live ids")
+            alive[ids] = False
+            with dead[1]:
+                dead[0][torch.as_tensor(ids, device=device)] = True
+            for j in ids.tolist():
+                vecs.pop(j, None)
+
+        def batches(ids):
+            return [ids[b:b + MUT_BATCH] for b in range(0, ids.size,
+                                                        MUT_BATCH)]
+
+        for ids in batches(rng.choice(n, MUT_UPSERT_LIVE, replace=False)):
+            upsert(ids)
+        for ids in batches(np.arange(n, n + MUT_UPSERT_NEW)):
+            upsert(ids)
+        gone = rng.choice(np.nonzero(alive)[0], MUT_DELETE, replace=False)
+        for ids in batches(gone):
+            delete(ids)
+        for ids in batches(rng.choice(gone, MUT_REUPSERT, replace=False)):
+            upsert(ids)
+        check(mut.size == int(alive.sum()), f"{tag}: size after the churn")
+        emit({"phase": "mutable_churn", "path": path, "card": smi,
+              "size": mut.size, "delta_rows": mut.delta_rows,
+              "tombstones": mut.tombstone_count,
+              "upsert_rows_per_s": tally["upsert_rows"] / tally["upsert_s"],
+              "delete_rows_per_s": tally["delete_rows"] / tally["delete_s"],
+              "write_batch_rows": MUT_BATCH, **tally})
+
+        # the plain backend on the same main and traffic, then the mutable
+        # backend while a writer thread writes, then a final pass
+        plain = ServeEngine(index, k, params, max_batch=1024)
+        plain.warmup()
+        plain_s, _ = _serve_all(plain, calls)
+        plain.close()
+        eng = ServeEngine(mut, k, params, max_batch=1024)
+        eng.warmup()
+        errors = []
+
+        def writer():
+            try:
+                w = np.random.default_rng(seed + 1)
+                base = n + MUT_UPSERT_NEW
+                for b in range(MUT_WRITER_BATCHES):
+                    upsert(np.arange(base + b * MUT_BATCH,
+                                     base + (b + 1) * MUT_BATCH))
+                    delete(w.choice(np.nonzero(alive)[0], MUT_BATCH,
+                                    replace=False))
+            except Exception as e:   # noqa: BLE001 — checked below
+                errors.append(repr(e))
+
+        wt = threading.Thread(target=writer)
+        wt.start()
+        passes, during_s = 0, None
+        while wt.is_alive() or passes == 0:
+            s, _ = _serve_all(eng, calls, dead)
+            during_s = s if during_s is None else during_s
+            passes += 1
+        wt.join()
+        check(not errors, f"{tag}: the writer failed: {errors}")
+        final_s, ids = _serve_all(eng, calls, dead)
+        live_t = torch.as_tensor(alive, device=device)
+        it = torch.as_tensor(ids, device=device).long()
+        check(bool((it >= 0).all()) and bool(live_t[it].all()),
+              f"{tag}: a returned id is not live")
+        sample = rng.choice(np.array(sorted(vecs)), min(1000, len(vecs)),
+                            replace=False)
+        qv = torch.stack([vecs[int(j)] for j in sample])
+        _, si = mutable.search(mut, qv, k, params=params)
+        si = si.cpu().numpy()
+        self_rank1 = float(np.mean(si[:, 0] == sample))
+        self_top10 = float(np.mean((si == sample[:, None]).any(1)))
+        check(self_rank1 == 1.0 if flat else self_top10 >= MUT_SELF_PQ,
+              f"{tag}: upserted rows do not find themselves (rank 1 "
+              f"{self_rank1}, top 10 {self_top10})")
+        live_x, live_ids = mut.live_rows()
+        dist = torch.cdist(qr, live_x,
+                           compute_mode="donot_use_mm_for_euclid_dist")
+        exact = torch.as_tensor(live_ids, device=device)[
+            torch.topk(dist, k, dim=1, largest=False).indices]
+        del dist, live_x
+        _, mi = mutable.search(mut, qr, k, params=params)
+        r_mut = recall(mi.long(), exact)
+        core = mut._mut_core
+        emit({"phase": "mutable_serve", "path": path, "card": smi,
+              "main_scan_steps": _scan_steps(core.main, params.n_probes),
+              "delta_scan_steps": _scan_steps(core.delta, params.n_probes),
+              "delta_capacity": core.delta.capacity,
+              "queries": n_queries, "plain_qps": n_queries / plain_s,
+              "mutable_qps_during_writes": n_queries / during_s,
+              "mutable_qps": n_queries / final_s,
+              "passes_during_writes": passes,
+              "writer_batches": MUT_WRITER_BATCHES,
+              "delta_rows": mut.delta_rows,
+              "tombstones": mut.tombstone_count,
+              "recall_at_10": r_mut, "recall_at_10_unchurned": r_unchurned,
+              "self_rank1": self_rank1, "self_top10": self_top10,
+              "self_queries": int(sample.size), "stats": dict(eng.stats)})
+        check(abs(r_mut - r_unchurned) <= MUT_RECALL_TOL[path],
+              f"{tag}: recall {r_mut} not within {MUT_RECALL_TOL[path]} "
+              f"of the unchurned index's {r_unchurned}")
+
+        # the triple: saved after the churn, loaded, the same bits
+        t0 = time.perf_counter()
+        serialize.save_mutable(ARCHIVE_DIR / tag, mut)
+        arch["save_mutable_s"] = time.perf_counter() - t0
+        arch["mutable_bytes"] = (ARCHIVE_DIR / f"{tag}.npz").stat().st_size
+        t0 = time.perf_counter()
+        back = serialize.load_mutable(ARCHIVE_DIR / tag, device=device)
+        arch["load_mutable_s"] = _synced_seconds(device, t0)
+        da, ia = mutable.search(mut, qr, k, params=params)
+        db, ib = mutable.search(back, qr, k, params=params)
+        check(torch.equal(da, db) and torch.equal(ia, ib),
+              f"{tag}: the loaded triple searches other bits")
+        check(back.size == mut.size, f"{tag}: the loaded triple's size")
+        del back
+        emit(arch)
+
+        # compaction under closed-loop traffic: a faulted promote (the
+        # core is swapped, the engine keeps its backend), then fresh
+        # writes and a Compactor tick that promotes
+        stop = threading.Event()
+        served = [0]
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    _serve_all(eng, calls[:2])
+                    served[0] += 1
+            except Exception as e:   # noqa: BLE001 — checked below
+                errors.append(repr(e))
+
+        rt = threading.Thread(target=reader)
+        rt.start()
+        errors0 = mutable.mutable_counters["compaction_errors"]
+        t0 = time.perf_counter()
+        try:
+            with faults.plan("refresh:stage=pre_swap:raise"):
+                mut.compact(engine=eng)
+            check(False, f"{tag}: the injected refresh fault did not fire")
+        except faults.InjectedFault:
+            pass
+        faulted_s = time.perf_counter() - t0
+        check(mut.delta_rows == 0 and mut.tombstone_count == 0,
+              f"{tag}: the faulted compaction did not swap the core")
+        for ids in batches(np.arange(top - 2 * MUT_BATCH, top)):
+            upsert(ids)
+        for ids in batches(rng.choice(np.nonzero(alive[:n])[0],
+                                      2 * MUT_BATCH, replace=False)):
+            delete(ids)
+        ident = None
+        if flat:
+            full = ivf_flat.SearchParams(n_probes=index.n_lists)
+            d_before, _ = mutable.search(mut, qr[:16], k, params=full)
+        size_before = mut.size
+        comp = mutable.Compactor(mut, eng, delta_fraction=1e-4,
+                                 tomb_fraction=1e-4, seed=seed)
+        t0 = time.perf_counter()
+        promoted = comp.tick()
+        compact_s = time.perf_counter() - t0
+        stop.set()
+        rt.join()
+        check(not errors, f"{tag}: requests failed during compaction: "
+              f"{errors[:3]}")
+        check(promoted and comp.errors == 0
+              and mutable.mutable_counters["compaction_errors"] == errors0,
+              f"{tag}: the compaction failed or counted an error")
+        check(mut.delta_rows == 0 and mut.tombstone_count == 0
+              and mut.size == size_before,
+              f"{tag}: after compaction delta {mut.delta_rows}, "
+              f"tombstones {mut.tombstone_count}, size {mut.size}")
+        check(eng.stats["refreshes"] == 1 and eng.stats["dispatch_errors"]
+              == 0, f"{tag}: refreshes {eng.stats['refreshes']}, dispatch "
+              f"errors {eng.stats['dispatch_errors']}")
+        row = {"phase": "mutable_compact", "path": path, "card": smi,
+               "faulted_compact_s": faulted_s, "compact_s": compact_s,
+               "compaction_errors": comp.errors, "size": mut.size,
+               "reader_passes": served[0], "stats": dict(eng.stats)}
+        if flat:
+            d_after, _ = mutable.search(mut, qr[:16], k, params=full)
+            ident = torch.equal(d_before, d_after)
+            row["full_coverage_max_abs_diff"] = float(
+                (d_before - d_after).abs().max())
+            row["full_coverage_bitwise"] = ident
+        emit(row)
+        if flat:
+            check(ident, f"{tag}: at full probe coverage the merged "
+                  "distances differ from the compacted index's")
+        eng.close()
+        launches = dict(native.LAUNCHES)
+    finally:
+        shutil.rmtree(ARCHIVE_DIR, ignore_errors=True)
+    for name in PATH_KERNELS[tag]:
+        check(launches[name] > 0, f"{tag} never launched {name}")
+    return launches
+
+
 def lut_phase(device, index, queries, rep: int):
     """B4 against its plain version at the IVF-PQ main path's step shape
     for all four LUT types, and at ragged shapes; returns B4's row."""
@@ -1405,12 +1742,13 @@ def lut_phase(device, index, queries, rep: int):
 
 
 def lut_scan_phase(device, index, queries, n_probes: int, k: int,
-                   rep: int):
+                   rep: int, seed: int):
     """B4's scan mode at the IVF-PQ batch shape, with the index's own
     float32 LUT (the main path's) and fp8 per-probe LUTs: one launch per
     batch, bit for bit equal to the per-step path, also at 1 and 8
-    queries (where each step is split over several blocks); returns its
-    row."""
+    queries (where each step is split over several blocks); then its
+    tombstone variant the same way, with a seeded bitmap that kills 10%
+    of the ids.  Returns the scan's row and the variant's."""
     import torch
 
     from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
@@ -1448,7 +1786,14 @@ def lut_scan_phase(device, index, queries, n_probes: int, k: int,
 
         return inp, args, fused, per_step
 
-    out = {}
+    # a seeded bitmap over the index's ids that kills 10% of them
+    n_ids = int(index.list_indices.max()) + 1
+    n_words = -(-n_ids // 32)
+    dead_np = np.random.default_rng(seed).random(n_words * 32) < 0.1
+    dead_ids = torch.as_tensor(dead_np, device=device)
+    words = torch.as_tensor(np.packbits(dead_np, bitorder="little").view(
+        np.int32), device=device)
+    out, masked = {}, {}
     for lut_name in ("float32", "float8_e4m3"):
         nq = min(1024, queries.shape[0],
                  ivf_pq.hoisted_batch_cap(index, n_probes, lut_name)
@@ -1518,6 +1863,76 @@ def lut_scan_phase(device, index, queries, n_probes: int, k: int,
                 ms=timed(lambda: kl.lut_scan_topk(*sargs), device, rep),
                 fused_path_ms=timed(sfused, device, rep),
                 per_step_path_ms=timed(sper_step, device, rep))
+        # the tombstone variant: the same batch with a seeded bitmap that
+        # kills 10% of the ids, bit for bit against the per-step path
+        # with the same bitmap, at the batch, a solo query and 8 queries
+        # (the two split each step over several blocks)
+        targs = args + (index.list_indices, words)
+
+        def fused_t(a=targs, i=inp):
+            vals, slots = kl.lut_scan_topk(*a)
+            return ivf_pq._select_scanned(vals, slots, i.phys,
+                                          index.list_indices, k, select_min,
+                                          engines[0])
+
+        def per_step_t(i=inp):
+            return ivf_pq._scan_per_step(i, index, k, select_min, *engines,
+                                         words)
+
+        _reset(device)
+        got_t = fused_t()
+        check(native.LAUNCHES["lut_scan_tombstones"] == 1
+              and native.LAUNCHES["lut_scan"] == 0,
+              f"lut_scan tombstones {lut_name}: not one masked launch")
+        ref_t = per_step_t()
+        check(torch.equal(got_t[0], ref_t[0])
+              and torch.equal(got_t[1], ref_t[1]),
+              f"lut_scan tombstones {lut_name}: (distances, ids) differ "
+              "from the per-step path")
+        check(not bool(dead_ids[torch.clamp_min(got_t[1], 0).long()]
+                       [got_t[1] >= 0].any()),
+              f"lut_scan tombstones {lut_name}: a dead id came back")
+        for snq in (1, 8):
+            sinp, sargs, _, _ = batch(queries[:snq], lut_name)
+            sa = sargs + (index.list_indices, words)
+            sg = fused_t(sa, sinp)
+            sr = per_step_t(sinp)
+            check(torch.equal(sg[0], sr[0]) and torch.equal(sg[1], sr[1]),
+                  f"lut_scan tombstones {lut_name} at {snq} queries: "
+                  "(distances, ids) differ from the per-step path")
+        tv, ts = kl.lut_scan_topk(*targs)
+        pv_t, ps_t = kl.lut_scan_topk_plain(*targs)
+        fin_t = torch.isfinite(pv_t)
+        check(torch.equal(fin_t, torch.isfinite(tv))
+              and torch.equal(ps_t[~fin_t], ts[~fin_t]),
+              f"lut_scan tombstones {lut_name}: fill entries differ from "
+              "the plain twin")
+        diff_t = (tv - pv_t)[fin_t].abs()
+        check(bool((diff_t <= 1e-5 * (pv_t[fin_t].abs() + terms)).all()),
+              f"lut_scan tombstones {lut_name}: beyond 1e-5 of its plain "
+              "twin")
+        # the bound adds each live candidate's id (4 B) and the bitmap
+        bt, byt = bound_ms(live_codes * code_bytes + lut_bytes
+                           + (4.0 * live_codes if inp.csum is not None
+                              else 0) + 4.0 * live_codes
+                           + 4.0 * words.numel()
+                           + 4.0 * rows_u.numel()
+                           + per_step_in * nq * n_steps
+                           + 8.0 * nq * n_steps * kk,
+                           float(live.sum()) * pq_dim)
+        masked[lut_name] = dict(
+            dead_share=float(dead_ids.float().mean()),
+            max_abs_err=float(diff_t.max()) if diff_t.numel() else 0.0,
+            bound_ms=bt, bound_by=byt,
+            ms=timed(lambda: kl.lut_scan_topk(*targs), device, rep),
+            unmasked_ms=timed(lambda: kl.lut_scan_topk(*args), device, rep),
+            fused_path_ms=timed(fused_t, device, rep),
+            per_step_path_ms=timed(per_step_t, device, rep),
+            plain_ms=timed(lambda: kl.lut_scan_topk_plain(*targs), device,
+                           3))
+        emit({"phase": "kernel", "name": "lut_scan_tombstones",
+              "lut_dtype": lut_name, "equals_per_step_path_bitwise": True,
+              **masked[lut_name]})
         out[lut_name] = dict(
             shape=[nq, n_steps, cap, pq_dim, bits], kk=kk,
             live_share_of_scored_pairs=live_share, max_abs_err=err,
@@ -1536,7 +1951,12 @@ def lut_scan_phase(device, index, queries, n_probes: int, k: int,
                library_ms=None, by_lut_dtype=out)
     emit({"phase": "kernel", "name": "lut_scan",
           "equals_per_step_path_bitwise": True, **row})
-    return row
+    m32 = masked["float32"]
+    trow = dict(max_abs_err=max(o["max_abs_err"] for o in masked.values()),
+                ms=m32["ms"], plain_ms=m32["plain_ms"],
+                bound_ms=m32["bound_ms"], bound_by=m32["bound_by"],
+                library_ms=None, by_lut_dtype=masked)
+    return row, trow
 
 
 def check_knn(name, d, i, ref_d, ref_i, tie_d):
@@ -2144,15 +2564,32 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     del dist
     args = (device, x, reqs, calls, n_queries, truth, qr, n_lists, n_probes,
             k)
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    gen_m = torch.Generator(device=device).manual_seed(seed + 7)
+
+    def fresh(rows):
+        """Fresh vectors from the dataset's mixture (the upserts)."""
+        return mixture(gen_m, rows, dim, comps, 0.7, device)
+
     eng_flat, launches_flat, served = ivf_flat_path(*args)
     stream_flat = serve_stream("ivf_flat", device, served, q_host, n_queries,
                                smi, seed)
+    mut_flat = mutable_path(
+        "ivf_flat", device, eng_flat.index, x,
+        ivf_flat.IndexParams(n_lists=n_lists),
+        ivf_flat.SearchParams(n_probes=n_probes), calls, n_queries, qr,
+        truth, k, fresh, smi, seed)
     index_pq, eng_pq, launches_pq, served = ivf_pq_path(*args)
     stream_pq = serve_stream("ivf_pq", device, served, q_host, n_queries,
                              smi, seed, refresh_index=index_pq)
     rows["lut_score"] = lut_phase(device, index_pq, queries, rep)
-    rows["lut_scan"] = lut_scan_phase(device, index_pq, queries, n_probes, k,
-                                      rep)
+    rows["lut_scan"], rows["lut_scan_tombstones"] = lut_scan_phase(
+        device, index_pq, queries, n_probes, k, rep, seed)
+    mut_pq = mutable_path(
+        "ivf_pq", device, index_pq, x, ivf_pq.IndexParams(n_lists=n_lists),
+        ivf_pq.SearchParams(n_probes=n_probes), calls, n_queries, qr, truth,
+        k, fresh, smi, seed)
     eng_bf, launches_bf, served = brute_force_path(device, x, queries, reqs,
                                                    calls, n_queries, qr, k)
     stream_bf = serve_stream("brute_force", device, served, q_host,
@@ -2162,7 +2599,9 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
                                                         rep)
     by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
+               "ivf_flat_mutable": mut_flat,
                "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
+               "ivf_pq_mutable": mut_pq,
                "brute_force": launches_bf, "brute_force_stream": stream_bf,
                **launches_km}
     for name, fields in km_rows.items():

@@ -298,8 +298,10 @@ def init_plus_plus(rng, x: torch.Tensor, n_clusters: int,
     k-means++ over the candidates.  Every uniform comes from the CPU in one
     draw and moves to the device once.
 
-    Two departures from the JAX package's ``init_plus_plus``, so its
-    results match that function's by quality, not by distribution:
+    Two departures from the JAX package's ``init_plus_plus``, both part
+    of this function's contract (the greedy finish is a decision, not a
+    gap: ROADMAP §C), so its results match that function's by quality,
+    not by distribution:
 
     - the finish draws :func:`local_trials` candidates a step and keeps
       the one that lowers the weighted potential most (RAFT's and

@@ -26,6 +26,16 @@
 // (nq, cap) tile gives.  One B2 select over the (nq, S * kk) result then
 // gives the top-k in the running merge's tie order.
 //
+// Tombstones (the mutable index's deletes): given the (n_rows, cap) ids
+// and a bitmap of n_words 32-bit words, a live slot whose id has its bit
+// set (bit id % 32 of word id / 32, the id clamped into the bitmap) is
+// dead like a slot past the live size: it is never offered to the step's
+// select, so however many dead candidates a step holds among its best, no
+// live one is lost.  A step with fewer than kk candidates then fills the
+// rest with the sentinel and slot -1.  The test reads 4 bytes of id per
+// live candidate (the bitmap, 128 KB at a million ids, stays in L2);
+// without the two inputs nothing of it runs.
+//
 // Design.  A block owns one query and a group of its steps (all S when
 // the batch fills the card; a few queries spread their steps over up to S
 // blocks) and walks them in order.  A batch too small to give every SM
@@ -130,6 +140,9 @@ struct Params {
   const float* base;      // scan: (nq, S)
   const float* csum;      // scan: (n_rows, cap) or null
   const float* scale;     // scan: (nq,) or null
+  const int* ids;         // scan: (n_rows, cap) ids, or null (no mask)
+  const uint32_t* tomb;   // scan: (n_words,) tombstone bitmap, with ids
+  int n_words;
   int kk, select_min;
   float* out;             // raw: (nq, cap)
   float* out_v;           // scan: (nq, S, kk)
@@ -437,6 +450,17 @@ lut_kernel(const Params P) {
       const float* csum_row =
           P.csum != nullptr ? P.csum + static_cast<int64_t>(cur.row) * P.cap
                             : nullptr;
+      const int* ids_row =
+          P.ids != nullptr ? P.ids + static_cast<int64_t>(cur.row) * P.cap
+                           : nullptr;
+      // a candidate whose id is tombstoned is dead (ids_row given)
+      auto dead = [&](int c) {
+        int id = max(__ldg(ids_row + c), 0);
+        if (static_cast<int64_t>(id) >= static_cast<int64_t>(P.n_words) * 32) {
+          id = P.n_words * 32 - 1;
+        }
+        return ((__ldg(P.tomb + (id >> 5)) >> (id & 31)) & 1u) != 0u;
+      };
       auto finish = [&](int c, float acc) {
         float v = acc;
         if (P.scale != nullptr) v = __fdiv_rn(v, sc);
@@ -451,8 +475,9 @@ lut_kernel(const Params P) {
       run.thr = mn ? INFINITY : -INFINITY;   // every value passes
       run.thr_worst = true;
       score_rounds([&](int c, bool valid, float acc) {
-        float v[1] = {valid ? finish(c, acc) : 0.f};
-        bool ok[1] = {valid};
+        const bool live = valid && (ids_row == nullptr || !dead(c));
+        float v[1] = {live ? finish(c, acc) : 0.f};
+        bool ok[1] = {live};
         offer<E, 1>(run, cand, v, c, ok, lane, P.kk, mn);
       });
 
@@ -486,7 +511,9 @@ lut_kernel(const Params P) {
           const int i = j * 32 + lane;
           if (i < P.kk) {
             const uint64_t key = run.best[j];
-            int slot = i;   // past the live slots: a dead slot's sentinel
+            // past the candidates: a dead slot's sentinel (slot -1 under
+            // a tombstone mask, whose dead slots lie among the live ones)
+            int slot = ids_row != nullptr ? -1 : i;
             float v = mn ? INFINITY : -INFINITY;
             if (key != PAD_KEY) {
               slot = static_cast<int>(static_cast<uint32_t>(key));
@@ -710,7 +737,9 @@ extern "C" int raft_lut_scan_tiles(int nq, int S, int cap, int device) {
 // (nq, S); csum (n_rows, cap) and scale (nq,) nullable; out_v and out_s
 // (nq, S, kk) with 1 <= kk <= min(128, cap); tiles from
 // raft_lut_scan_tiles, and when it is above 1, scratch of
-// nq * S * tiles * 128 keys and counts of nq * S zeros (left zeroed)
+// nq * S * tiles * 128 keys and counts of nq * S zeros (left zeroed);
+// ids (n_rows, cap) and tomb (n_words,) both null, or both given (the
+// tombstone mask)
 extern "C" int raft_lut_scan(const uint8_t* codes, const int* phys,
                              const int* sizes, const void* lut,
                              const int* probe_ord, int n_luts,
@@ -720,7 +749,8 @@ extern "C" int raft_lut_scan(const uint8_t* codes, const int* phys,
                              int code_bytes, int pq_dim, int pq_bits,
                              int lut_dtype, int kk, int select_min,
                              int tiles, uint64_t* scratch, int* counts,
-                             int device, void* stream) {
+                             const int* ids, const uint32_t* tomb,
+                             int n_words, int device, void* stream) {
   if (nq == 0 || S == 0) return 0;
   Params P = {};
   P.codes = codes;
@@ -746,7 +776,12 @@ extern "C" int raft_lut_scan(const uint8_t* codes, const int* phys,
   P.tiles = tiles;
   P.scratch = scratch;
   P.counts = counts;
+  P.ids = ids;
+  P.tomb = tomb;
+  P.n_words = n_words;
   if (bad_shape(P) || kk < 1 || kk > 128 || kk > cap || n_luts < 1 ||
+      (ids == nullptr) != (tomb == nullptr) ||
+      (tomb != nullptr && n_words < 1) ||
       (n_luts > 1 && probe_ord == nullptr) || tiles < 1 || tiles > 8 ||
       (tiles > 1 && (scratch == nullptr || counts == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -18,12 +18,18 @@ One kernel, two modes, one launch counter each:
   is this with ``rows = arange(nq)``).  Its plain version is
   :func:`_lut_score_plain` (unpack, gather, sum in float32 — the JAX
   package's CPU lookup).
-* :func:`lut_scan_topk` (scan mode, counter ``lut_scan``): the whole
+* :func:`lut_scan_topk` (scan mode, counter ``lut_scan``, or
+  ``lut_scan_tombstones`` with a tombstone bitmap): the whole
   probe scan of a query batch in one launch — every (query, step)'s live
   slots scored, the search's epilogue applied, and each step's best
   ``kk`` (value, slot) kept.  Its plain twin :func:`lut_scan_topk_plain`
   runs the same steps in a loop: raw plain scores, the epilogue, the
-  live mask and a stable per-step select.
+  live mask and a stable per-step select.  Given a row's ids
+  (``list_indices``) and a tombstone bitmap (``tomb_words``), scan mode
+  also drops every slot whose id is set: a dead slot never enters the
+  step's best ``kk`` (inside the kernel, so a step with many dead
+  candidates among its best loses no live one), and a step's fill
+  entries get slot −1.
 
 A tensor on the CPU runs the plain versions; a CUDA tensor launches the
 kernel or raises.  The kernel takes a LUT row of any width: a row larger
@@ -137,7 +143,8 @@ def _lut_slice(lut: torch.Tensor, probe_ord: Optional[torch.Tensor],
 
 
 def _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
-                list_csum, scale, pq_dim, pq_bits, kcb, kk):
+                list_csum, scale, pq_dim, pq_bits, kcb, kk, list_indices,
+                tomb_words):
     nq, n_steps = phys.shape
     cap = list_codes.shape[1]
     expects(list_codes.ndim == 3 and list_codes.dtype == torch.uint8,
@@ -162,18 +169,35 @@ def _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
     expects(scale is None or scale.shape == (nq,),
             "lut_scan: scale must be (nq,)")
     expects(1 <= kk <= cap, f"lut_scan: kk={kk} outside [1, cap={cap}]")
+    expects((list_indices is None) == (tomb_words is None),
+            "lut_scan: list_indices and tomb_words go together")
+    expects(list_indices is None
+            or list_indices.shape == list_codes.shape[:2],
+            "lut_scan: list_indices must be (rows, cap)")
+    expects(tomb_words is None or (tomb_words.ndim == 1
+                                   and tomb_words.shape[0] >= 1
+                                   and tomb_words.dtype in (torch.int32,
+                                                            torch.uint32)),
+            "lut_scan: tomb_words must be (n_words,) int32 or uint32")
 
 
 def lut_scan_topk_plain(list_codes, phys, phys_sizes, lut, probe_ord, base,
                         list_csum, scale, pq_dim: int, pq_bits: int,
-                        kcb: int, kk: int, select_min: bool = True
+                        kcb: int, kk: int, select_min: bool = True,
+                        list_indices: Optional[torch.Tensor] = None,
+                        tomb_words: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin of scan mode, step by step: (values (nq, S, kk)
-    float32, slots (nq, S, kk) int32)."""
+    float32, slots (nq, S, kk) int32).  Under a tombstone mask a step's
+    candidates are its live slots whose id is not dead, in slot order,
+    ahead of the masked ones; fill entries take the sentinel and slot
+    −1."""
     from raft_tpu_torch.matrix.select_k import select_k_plain
+    from raft_tpu_torch.neighbors._common import tombstone_hit
 
     _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
-                list_csum, scale, pq_dim, pq_bits, kcb, kk)
+                list_csum, scale, pq_dim, pq_bits, kcb, kk, list_indices,
+                tomb_words)
     nq, n_steps = phys.shape
     cap = list_codes.shape[1]
     dev = list_codes.device
@@ -192,8 +216,20 @@ def lut_scan_topk_plain(list_codes, phys, phys_sizes, lut, probe_ord, base,
         if list_csum is not None:
             d = d + list_csum[row]
         live = slots[None, :] < phys_sizes[row][:, None]
+        if tomb_words is None:
+            d = torch.where(live, d, torch.full_like(d, sentinel))
+            vals[:, s], pos[:, s] = select_k_plain(d, kk, select_min)
+            continue
+        live = live & ~tombstone_hit(list_indices[row], tomb_words)
+        # the candidates first, in slot order: a masked slot follows
+        # every candidate, also one at the sentinel value
+        order = torch.argsort((~live).to(torch.int8), dim=1, stable=True)
         d = torch.where(live, d, torch.full_like(d, sentinel))
-        vals[:, s], pos[:, s] = select_k_plain(d, kk, select_min)
+        v, p = select_k_plain(torch.gather(d, 1, order), kk, select_min)
+        cand = p.long() < live.sum(1, keepdim=True)
+        vals[:, s] = v
+        pos[:, s] = torch.where(cand, torch.gather(order, 1, p.long()),
+                                -1).to(torch.int32)
     return vals, pos
 
 
@@ -202,7 +238,9 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
                   probe_ord: Optional[torch.Tensor], base: torch.Tensor,
                   list_csum: Optional[torch.Tensor],
                   scale: Optional[torch.Tensor], pq_dim: int, pq_bits: int,
-                  kcb: int, kk: int, select_min: bool = True
+                  kcb: int, kk: int, select_min: bool = True,
+                  list_indices: Optional[torch.Tensor] = None,
+                  tomb_words: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan mode: each query's S physical rows ``phys`` (nq, S) scored on
     their live slots (below ``phys_sizes[row]``) against the query's LUT
@@ -210,17 +248,23 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
     (nq, P, F) per-probe tables; each score finished as
     ``raw / scale[q] + base[q, step] + list_csum[row, slot]`` (the terms
     given); per step the best ``kk`` (value, slot), best-first, ties at
-    the lower slot, dead slots (the sentinel) filling a short step.
-    Returns (values (nq, S, kk) float32, slots (nq, S, kk) int32)."""
+    the lower slot, dead slots (the sentinel) filling a short step.  With
+    ``list_indices`` (rows, cap) int32 and ``tomb_words`` (n_words,) a
+    slot whose id has its bit set is dead too (the id clamped into the
+    bitmap, as ``_common.tombstone_hit`` does), and the fill's slots are
+    −1.  Returns (values (nq, S, kk) float32, slots (nq, S, kk) int32)."""
     if lut.device.type == "cpu":
         return lut_scan_topk_plain(list_codes, phys, phys_sizes, lut,
                                    probe_ord, base, list_csum, scale, pq_dim,
-                                   pq_bits, kcb, kk, select_min)
+                                   pq_bits, kcb, kk, select_min,
+                                   list_indices, tomb_words)
     _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
-                list_csum, scale, pq_dim, pq_bits, kcb, kk)
+                list_csum, scale, pq_dim, pq_bits, kcb, kk, list_indices,
+                tomb_words)
     expects(lut.device.type == "cuda", f"lut_scan: device {lut.device}")
     tensors = [list_codes, phys, phys_sizes, base] + [
-        t for t in (probe_ord, list_csum, scale) if t is not None]
+        t for t in (probe_ord, list_csum, scale, list_indices, tomb_words)
+        if t is not None]
     expects(all(t.device == lut.device for t in tensors),
             "lut_scan: every tensor on the LUT's device")
     nq, n_steps = phys.shape
@@ -235,6 +279,9 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
     csum = (list_csum.to(torch.float32).contiguous() if list_csum is not None
             else None)
     scale = scale.to(torch.float32).contiguous() if scale is not None else None
+    ids = (list_indices.to(torch.int32).contiguous()
+           if list_indices is not None else None)
+    words = tomb_words.contiguous() if tomb_words is not None else None
     out_v = torch.empty((nq, n_steps, kk), dtype=torch.float32,
                         device=lut.device)
     out_s = torch.empty((nq, n_steps, kk), dtype=torch.int32,
@@ -262,8 +309,12 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
             codes.shape[2], int(pq_dim), int(pq_bits), LUT_DTYPES[lut.dtype],
             int(kk), int(bool(select_min)), tiles,
             0 if scratch is None else scratch.data_ptr(),
-            0 if counts is None else counts.data_ptr(), lut.device.index,
+            0 if counts is None else counts.data_ptr(),
+            0 if ids is None else ids.data_ptr(),
+            0 if words is None else words.data_ptr(),
+            0 if words is None else words.shape[0], lut.device.index,
             native.stream_handle(lut.device))
         native.check(lib, err, "lut_scan_kernel")
-        native.LAUNCHES["lut_scan"] += 1
+        native.LAUNCHES["lut_scan" if words is None
+                        else "lut_scan_tombstones"] += 1
     return out_v, out_s

@@ -36,8 +36,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
+#: (B4's scan mode counts its launches with a tombstone bitmap apart)
 LAUNCHES: Dict[str, int] = {"fused_l2_nn": 0, "fused_l2_nn_partials": 0,
                             "select_k": 0, "lut_score": 0, "lut_scan": 0,
+                            "lut_scan_tombstones": 0,
                             "pairwise_accumulate": 0}
 
 _lock = threading.Lock()
@@ -148,10 +150,11 @@ _SIGNATURES = {
                            _P],
         # codes, phys, sizes, lut, probe_ord, n_luts, base, csum, scale,
         # out_v, out_s, nq, S, n_rows, cap, code_bytes, pq_dim, pq_bits,
-        # lut_dtype, kk, select_min, tiles, scratch, counts, device, stream
+        # lut_dtype, kk, select_min, tiles, scratch, counts, ids, tomb_words,
+        # n_words, device, stream
         "raft_lut_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                          _P],
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P, _I, _I, _P],
         # nq, S, cap, device -> blocks per step, or a negated error code
         "raft_lut_scan_tiles": [_I, _I, _I, _I],
     },

@@ -1,0 +1,157 @@
+"""Device-resident packing of the inverted lists (single-device port of
+``raft_tpu/neighbors/_build.py``: ``_list_slots_impl`` :117,
+``_scatter_new_impl`` :131, ``_scatter_append_impl`` :147, ``run_tiles``
+:207, ``pack_device`` :254, ``extend_device`` :281).
+
+Only the (n_lists,)-shaped chunk-table bookkeeping (``_common.chunk_layout``
+/ ``_common.extend_layout``) runs on the host; the list counts are the
+only per-list data that reach it, and the rows, ids and slots stay on the
+device.  A fresh pack scatters into new blocks; an extend appends into
+each list's free tail slots and grows only the lists that overflow.  With
+``in_place=True`` and no overflow, the append writes into the index's own
+tensors (O(n_new)); otherwise it writes into a copy, and the input index
+is left as it was.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.neighbors._common import (chunk_layout, extend_layout,
+                                              ranks_within)
+
+#: rows per tile of the populate loop (the JAX package's
+#: ``DEFAULT_TILE_ROWS``): bounds IVF-PQ's (tile, pq_dim, 2^bits) encode
+#: distances
+DEFAULT_TILE_ROWS = 8192
+
+
+def _counts(labels: torch.Tensor, n_lists: int) -> np.ndarray:
+    """(n_lists,) list sizes, counted on the device."""
+    if labels.shape[0] == 0:
+        return np.zeros(n_lists, np.int64)
+    return torch.bincount(labels.long(), minlength=n_lists).cpu().numpy()
+
+
+def list_slots(labels: torch.Tensor, fill0: torch.Tensor,
+               table: torch.Tensor, cap: int, n_lists: int) -> torch.Tensor:
+    """Flat slot of every row in the (n_rows, cap) physical block:
+    ``rank = fill0[label] + rank within the label``, its chunk ``rank //
+    cap`` resolved through the chunk table (``fill0`` is 0 for a fresh
+    pack, the old list sizes for an extend)."""
+    labels = labels.long()
+    rank = fill0.long()[labels] + ranks_within(labels, n_lists)
+    return table.long()[labels, rank // cap] * cap + rank % cap
+
+
+def scatter_new(payloads: Tuple[torch.Tensor, ...], ids: torch.Tensor,
+                flat: torch.Tensor, n_rows: int, cap: int):
+    """Fresh (n_rows, cap, …) blocks holding each payload row at its flat
+    slot, and the (n_rows, cap) ids, −1 at padding."""
+    datas = []
+    for p in payloads:
+        d = p.new_zeros((n_rows * cap,) + tuple(p.shape[1:]))
+        d[flat] = p
+        datas.append(d.reshape((n_rows, cap) + tuple(p.shape[1:])))
+    idx = torch.full((n_rows * cap,), -1, dtype=torch.int32,
+                     device=ids.device)
+    idx[flat] = ids.to(torch.int32)
+    return tuple(datas), idx.reshape(n_rows, cap)
+
+
+def scatter_append(datas: Tuple[torch.Tensor, ...], idx: torch.Tensor,
+                   payloads: Tuple[torch.Tensor, ...], ids: torch.Tensor,
+                   flat: torch.Tensor, in_place: bool):
+    """Payload rows and ids written at their flat slots of existing
+    blocks: into the blocks themselves with *in_place*, else into
+    copies."""
+    out = []
+    for d, p in zip(datas, payloads):
+        d2 = d if in_place else d.clone()
+        d2.view((-1,) + tuple(d.shape[2:]))[flat] = p.to(d.dtype)
+        out.append(d2)
+    idx2 = idx if in_place else idx.clone()
+    idx2.view(-1)[flat] = ids.to(torch.int32)
+    return tuple(out), idx2
+
+
+def run_tiles(tile_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
+              tile_rows: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """``tile_fn(x_t, labels_t)`` over the rows in tiles of *tile_rows*
+    (a tuple of per-row outputs each), concatenated back to (n, …): the
+    transients stay O(tile)."""
+    n = x.shape[0]
+    tile = max(8, min(int(tile_rows or DEFAULT_TILE_ROWS), max(n, 1)))
+    outs = []
+    for t0 in range(0, n, tile):
+        res = tile_fn(x[t0:t0 + tile], labels[t0:t0 + tile])
+        outs.append(res if isinstance(res, tuple) else (res,))
+    if not outs:
+        raise ValueError("run_tiles: empty dataset")
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def pack_device(payload, ids: torch.Tensor, labels: torch.Tensor,
+                n_lists: int):
+    """Scatter rows into fresh chunked padded blocks.  *payload* is one
+    (n, …) tensor or a tuple of them packed side by side.  Returns (data,
+    idx (n_phys+1, cap) int32 −1-padded, phys_sizes, list_sizes,
+    chunk_table, owner), data (n_phys+1, cap, …) per payload (a tuple
+    when a tuple came in)."""
+    multi = isinstance(payload, (tuple, list))
+    payloads = tuple(payload) if multi else (payload,)
+    dev = payloads[0].device
+    lay = chunk_layout(_counts(labels, n_lists))
+    table = torch.as_tensor(lay.chunk_table, device=dev)
+    flat = list_slots(labels, torch.zeros(n_lists, dtype=torch.int32,
+                                          device=dev),
+                      table, lay.cap, n_lists)
+    datas, idx = scatter_new(payloads, ids, flat, lay.n_phys + 1, lay.cap)
+    return (datas if multi else datas[0], idx,
+            torch.as_tensor(lay.phys_sizes, device=dev),
+            torch.as_tensor(lay.counts.astype(np.int32), device=dev), table,
+            torch.as_tensor(lay.owner, device=dev))
+
+
+def extend_device(data, idx: torch.Tensor, list_sizes: torch.Tensor,
+                  chunk_table: torch.Tensor, payload_new,
+                  ids_new: torch.Tensor, labels_new: torch.Tensor,
+                  in_place: bool = False):
+    """Append rows into existing chunked blocks (same return contract as
+    :func:`pack_device`): each new row goes to the next free slot of its
+    list, lists that overflow grow chunks appended before the dummy row.
+    When no list overflows the blocks keep their shape and, with
+    *in_place*, the append writes into them (the caller's index then
+    holds the new rows too); otherwise the old blocks are left as they
+    were."""
+    multi = isinstance(data, (tuple, list))
+    datas = tuple(data) if multi else (data,)
+    payloads = tuple(payload_new) if multi else (payload_new,)
+    dev = idx.device
+    n_lists = chunk_table.shape[0]
+    cap = datas[0].shape[1]
+    n_phys = datas[0].shape[0] - 1
+    counts_old = list_sizes.cpu().numpy().astype(np.int64)
+    lay = extend_layout(counts_old, _counts(labels_new, n_lists), cap,
+                        chunk_table.cpu().numpy(), n_phys)
+    table = torch.as_tensor(lay.chunk_table, device=dev)
+    if lay.m:
+        datas = tuple(torch.cat([d[:n_phys], d.new_zeros(
+            (lay.m + 1, cap) + tuple(d.shape[2:]))]) for d in datas)
+        idx = torch.cat([idx[:n_phys], idx.new_full((lay.m + 1, cap), -1)])
+        in_place = True           # the grown blocks are new tensors
+    if payloads[0].shape[0]:
+        flat = list_slots(labels_new,
+                          torch.as_tensor(counts_old, device=dev), table,
+                          cap, n_lists)
+        datas, idx = scatter_append(datas, idx, payloads, ids_new, flat,
+                                    in_place)
+    return (datas if multi else datas[0], idx,
+            torch.as_tensor(lay.phys_sizes, device=dev),
+            torch.as_tensor(lay.counts_total.astype(np.int32), device=dev),
+            table, torch.as_tensor(lay.owner, device=dev))

@@ -1,8 +1,12 @@
-"""Shared helpers of the inverted-list indexes (subset port of
-``raft_tpu/neighbors/_common.py``: ``chunk_layout`` :42, the device pack of
-``_build.py:254`` ``pack_device``, ``expand_probes`` :340,
-``scan_probe_lists`` :425 with its per-step ``xs``, ``empty_result``,
-``subsample_trainset``).
+"""Shared helpers of the inverted-list indexes (port of
+``raft_tpu/neighbors/_common.py``: ``chunk_layout`` :42,
+``remap_chunk_table`` :80, ``extend_layout`` :97, ``expand_probes`` :340,
+``tombstone_hit`` :408, ``scan_probe_lists`` :425 with its per-step
+``xs`` and tombstone mask, ``validate_new_ids`` :528, ``empty_result``,
+``subsample_trainset``).  The pack and the append are ``_build``'s
+``pack_device`` / ``extend_device``: the port has that one path, where
+the JAX package also keeps a host-bookkept twin of it
+(``pack_lists_chunked`` / ``extend_lists_chunked``, its ``tiled=False``).
 
 The chunk-table arithmetic is (n_lists,)-shaped numpy host work, the same
 code as the JAX package's, so equal labels give equal layouts; per-row
@@ -69,6 +73,27 @@ def chunk_layout(counts: np.ndarray) -> ChunkLayout:
                        owner=owner)
 
 
+def array_to_tensor(a, device) -> torch.Tensor:
+    """A numpy array (or a JAX one, through ``np.asarray``) as a tensor on
+    *device*.  Two-byte raw items — what ``np.savez`` keeps of a bfloat16
+    array, and the dtype ``ml_dtypes`` gives it — are read as bfloat16
+    bits."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        bits = np.array(a).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`array_to_tensor`: bfloat16 goes out as its bits
+    in two-byte raw items (``|V2``, the layout the JAX package's archives
+    hold)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view("V2")
+    return t.cpu().numpy()
+
+
 def ranks_within(labels: torch.Tensor, n_lists: int) -> torch.Tensor:
     """rank[i] = position of row i within its label's group (stable)."""
     n = labels.shape[0]
@@ -82,41 +107,74 @@ def ranks_within(labels: torch.Tensor, n_lists: int) -> torch.Tensor:
     return rank
 
 
-def pack_lists(payload, ids: torch.Tensor, labels: torch.Tensor,
-               n_lists: int):
-    """Scatter rows into chunked padded blocks (the device pack of a fresh
-    index, ``raft_tpu`` ``_build.pack_device``).  *payload* is one (n, …)
-    tensor or a tuple of them packed side by side.  Returns (data, idx
-    (n_phys+1, cap) int32 −1-padded, phys_sizes, list_sizes, chunk_table,
-    owner) where data is (n_phys+1, cap, …) per payload (a tuple when a
-    tuple came in); the (n_lists,) counts are the only per-list data that
-    reach the host."""
-    multi = isinstance(payload, (tuple, list))
-    payloads = tuple(payload) if multi else (payload,)
-    n = payloads[0].shape[0]
-    dev = payloads[0].device
-    labels = labels.long()
-    counts = (torch.bincount(labels, minlength=n_lists).cpu().numpy()
-              if n else np.zeros(n_lists, np.int64))
-    lay = chunk_layout(counts)
-    cap = lay.cap
-    table = torch.as_tensor(lay.chunk_table, device=dev)
-    rows = (lay.n_phys + 1) * cap
-    datas = [torch.zeros((rows,) + tuple(p.shape[1:]), dtype=p.dtype,
-                         device=dev) for p in payloads]
-    idx = torch.full((rows,), -1, dtype=torch.int32, device=dev)
-    if n:
-        rank = ranks_within(labels, n_lists)
-        flat = table[labels, rank // cap].long() * cap + rank % cap
-        for data, p in zip(datas, payloads):
-            data[flat] = p
-        idx[flat] = ids.to(torch.int32)
-    datas = tuple(d.reshape((lay.n_phys + 1, cap) + tuple(d.shape[1:]))
-                  for d in datas)
-    return (datas if multi else datas[0], idx.reshape(lay.n_phys + 1, cap),
-            torch.as_tensor(lay.phys_sizes, device=dev),
-            torch.as_tensor(lay.counts.astype(np.int32), device=dev), table,
-            torch.as_tensor(lay.owner, device=dev))
+def remap_chunk_table(chunk_table: np.ndarray, row_map: np.ndarray,
+                      dummy: int) -> np.ndarray:
+    """Map a logical→physical chunk table through a physical-row
+    renumbering (host numpy): entry ``r`` becomes ``row_map[r]``, and rows
+    the renumbering drops (``row_map[r] < 0``) fall to *dummy*, the target
+    block's empty row, so probing a dropped list scores only masked
+    slots."""
+    out = np.asarray(row_map).astype(np.int64)[np.asarray(chunk_table)]
+    return np.where(out < 0, np.int64(dummy), out).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtendLayout:
+    """Table update of an extend (:func:`extend_layout`): the grown chunk
+    table and the recomputed owner and size inverses.  ``m`` is the
+    number of NEW physical chunks; when it is 0 (and the table keeps its
+    width) the rows append into the existing blocks."""
+
+    m: int
+    max_chunks2: int
+    counts_total: np.ndarray     # (n_lists,) int64
+    chunk_table: np.ndarray      # (n_lists, max_chunks2) int32
+    owner: np.ndarray            # (n_phys + m + 1,) int32
+    phys_sizes: np.ndarray       # (n_phys + m + 1,) int32
+
+
+def extend_layout(counts_old: np.ndarray, added: np.ndarray, cap: int,
+                  chunk_table: np.ndarray, n_phys: int) -> ExtendLayout:
+    """Grow a chunked layout by per-list row additions — the one table
+    arithmetic of an extend, the JAX package's: new rows fill each list's
+    last chunk, overflow into new physical chunks appended before the
+    dummy row (which moves to the end), and the owner / size inverses are
+    recomputed from the table (a list's rows are no longer contiguous).
+    All (n_lists,)-shaped host bookkeeping; *n_phys* is the old block's
+    real row count."""
+    n_lists, max_chunks = chunk_table.shape
+    counts_old = np.asarray(counts_old).astype(np.int64)
+    counts_total = counts_old + np.asarray(added).astype(np.int64)
+    chunks_old = np.maximum(-(-counts_old // cap), 1)
+    chunks_total = np.maximum(-(-counts_total // cap), 1)
+    added_chunks = chunks_total - chunks_old
+    m = int(added_chunks.sum())
+    dummy_old = int(n_phys)
+    dummy_new = n_phys + m
+
+    width = max(max_chunks, int(chunks_total.max()) if n_lists else 1)
+    table2 = np.full((n_lists, width), dummy_new, np.int32)
+    table2[:, :max_chunks] = np.where(chunk_table == dummy_old, dummy_new,
+                                      chunk_table)
+    if m:
+        new_owner = np.repeat(np.arange(n_lists, dtype=np.int32),
+                              added_chunks)
+        starts_added = np.zeros(n_lists + 1, np.int64)
+        np.cumsum(added_chunks, out=starts_added[1:])
+        ord_within = np.arange(m) - starts_added[new_owner]
+        table2[new_owner, chunks_old[new_owner] + ord_within] = (
+            n_phys + np.arange(m, dtype=np.int32))
+
+    owner2 = np.zeros(dummy_new + 1, np.int32)
+    phys_sizes2 = np.zeros(dummy_new + 1, np.int32)
+    rows_l, ords = np.nonzero(table2 != dummy_new)
+    phys_ids = table2[rows_l, ords]
+    owner2[phys_ids] = rows_l.astype(np.int32)
+    phys_sizes2[phys_ids] = np.minimum(
+        cap, np.maximum(0, counts_total[rows_l] - ords * cap)).astype(np.int32)
+    return ExtendLayout(m=m, max_chunks2=width, counts_total=counts_total,
+                        chunk_table=table2, owner=owner2,
+                        phys_sizes=phys_sizes2)
 
 
 def expand_probes(probe_ids: torch.Tensor, chunk_table: torch.Tensor,
@@ -147,22 +205,39 @@ def expand_probes(probe_ids: torch.Tensor, chunk_table: torch.Tensor,
     return (flat, ord_flat) if return_ord else flat
 
 
+def tombstone_hit(ids: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Per-id membership in a packed tombstone bitmap: bit ``id % 32`` of
+    word ``id // 32`` set means the row id is dead.  *words* is (n_words,)
+    int32 or uint32 (the same bits).  The id is clamped into the bitmap:
+    the writer grows the bitmap before any id past it can be tombstoned,
+    so the clamp only rewrites the −1 ids of padding slots, which the
+    live-size mask drops whatever bit they read."""
+    safe = torch.clamp(ids.long(), 0, words.shape[0] * 32 - 1)
+    word = words[safe >> 5].to(torch.int64)
+    return ((word >> (safe & 31)) & 1).bool()
+
+
 def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
                      list_indices: torch.Tensor, list_sizes: torch.Tensor,
                      k: int, select_min: bool, dtype: torch.dtype,
                      engine: Optional[str] = None,
-                     xs: Sequence[torch.Tensor] = ()
+                     xs: Sequence[torch.Tensor] = (),
+                     tombstones: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Running top-k over each query's probed physical rows.
 
     ``score_tile(rows, *slices) -> (nq, cap)`` scores each query's
     gathered row; *xs* are per-step sequences with the scan axis leading
     (``probe_ids.shape[1]`` long), and step s passes each one's slice s.
-    Slots past the row's live size score the sentinel.  Each step selects
+    Slots past the row's live size score the sentinel, and so do slots
+    whose id is set in *tombstones* (a packed bitmap, :func:`tombstone_hit`
+    — the mutable index's deletes).  Each step selects
     the tile's best ``min(k, cap)`` (kernel B2 on the card) and merges them
     into the running run (run a wins ties, so earlier steps, then lower
     slots, win).  From ``k >= 24`` the masked tiles are stacked and one
-    wide select runs instead — the same result in the same tie order.
+    wide select runs instead — the same result in the same tie order; a
+    dead slot's id is −1 there, so a deleted id never comes back even at
+    the sentinel.
     Returns (best_d (nq, k), best_i (nq, k) int32, −1 for empty slots)."""
     nq = probe_ids.shape[0]
     cap = list_indices.shape[1]
@@ -175,9 +250,13 @@ def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
     def tile_scores(s):
         col = probe_ids[:, s]
         d = score_tile(col, *(x[s] for x in xs)).to(dtype)
+        ids = list_indices[col]
         live = slots[None, :] < list_sizes[col][:, None]
-        return (torch.where(live, d, torch.full_like(d, sentinel)),
-                list_indices[col])
+        if tombstones is not None:
+            dead = tombstone_hit(ids, tombstones)
+            live = live & ~dead
+            ids = torch.where(dead, torch.full_like(ids, -1), ids)
+        return torch.where(live, d, torch.full_like(d, sentinel)), ids
 
     if k >= _SCAN_STACK_MIN_K and n_steps * cap >= k:
         tiles = [tile_scores(s) for s in range(n_steps)]
@@ -194,6 +273,29 @@ def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
         best_d, best_i = merge_sorted_runs(best_d, best_i, tile_d, tile_i,
                                            k=k, select_min=select_min)
     return best_d, best_i
+
+
+def validate_new_ids(new_ids: torch.Tensor, list_indices: torch.Tensor,
+                     phys_sizes: torch.Tensor) -> None:
+    """Reject extend ids that collide — within the batch or with an id
+    already live in the index — with ``ValueError``: a duplicate id would
+    give two live rows for one key (and break the mutable index, whose id
+    ↔ row map is 1:1).  Reads the id column to the host: the write path
+    only, never the serve path."""
+    ids_h = new_ids.cpu().numpy()
+    uniq, counts = np.unique(ids_h, return_counts=True)
+    if uniq.size != ids_h.size:
+        raise ValueError(f"extend: duplicate ids within new_ids batch: "
+                         f"{uniq[counts > 1][:8].tolist()}")
+    idx_h = list_indices.cpu().numpy()
+    psz_h = phys_sizes.cpu().numpy()
+    live = idx_h[np.arange(idx_h.shape[1])[None, :] < psz_h[:, None]]
+    clash = np.intersect1d(ids_h, live)
+    if clash.size:
+        raise ValueError(
+            f"extend: ids already live in the index: {clash[:8].tolist()} "
+            "— a duplicate id would yield two live rows for one key; use "
+            "neighbors.mutable.MutableIndex.upsert for replace semantics")
 
 
 def empty_result(nq: int, k: int, dtype: torch.dtype, device):

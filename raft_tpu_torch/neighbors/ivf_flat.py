@@ -4,18 +4,25 @@
 Build: a balanced hierarchical k-means coarse quantizer (kernels B3 and B1
 on the card), list assignment (kernel B1) and a device pack into chunked
 padded lists — a list of size s spans ceil(s / cap) physical rows of one
-(n_phys + 1, cap, dim) block, the last row an empty dummy.
+(n_phys + 1, cap, dim) block, the last row an empty dummy.  ``extend``
+appends into a non-empty index (``_build.extend_device``: each list's
+free tail slots, new chunks only for lists that overflow; ``in_place``
+writes into the index's own tensors when none does).
 
 Search, per query batch: coarse GEMM against the centres → top-n_probes
 (kernel B2) → the probed physical rows, one scan step per (probe rank,
 chunk): gather each query's row, score it (plain PyTorch, as the JAX
 package leaves it to XLA), keep the best k of
 the tile (kernel B2) and merge them into the running top-k.  The tail
-batch is padded to the power-of-two bucket ladder.
+batch is padded to the power-of-two bucket ladder.  A tombstone bitmap
+(``tombstones=``, the mutable index's deletes) masks dead rows inside
+the scan.
 
-Stored vectors are float32.  The squared norms of the stored rows are
-computed once when an :class:`Index` is made (``list_norms``) instead of
-once per scan step.
+Stored vectors are float32, int8, uint8 or bfloat16 (the dataset's own
+type); training, list assignment and scoring widen them to float32 and
+accumulate in float32, as the JAX package's ``_probe_search_impl`` does.
+The squared norms of the stored rows are computed once when an
+:class:`Index` is made (``list_norms``) instead of once per scan step.
 """
 
 from __future__ import annotations
@@ -36,9 +43,13 @@ from raft_tpu_torch.distance.pairwise import _dot_fixed_rows, _row_norms
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.linalg.reduce import reduce_rows_by_key
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors._common import (empty_result, expand_probes,
-                                              pack_lists, scan_probe_lists,
-                                              subsample_trainset)
+from raft_tpu_torch.neighbors._build import extend_device, pack_device
+from raft_tpu_torch.neighbors._common import (array_to_tensor, empty_result,
+                                              expand_probes,
+                                              scan_probe_lists,
+                                              subsample_trainset,
+                                              tensor_to_array,
+                                              validate_new_ids)
 from raft_tpu_torch.random.rng import RngState
 
 _SUPPORTED = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
@@ -46,8 +57,12 @@ _SUPPORTED = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
 #: the JAX Index leaves, in order (``raft_tpu`` ivf_flat.py:106-111)
 ARRAY_FIELDS = ("centers", "list_data", "list_indices", "list_sizes",
                 "phys_sizes", "chunk_table")
-#: rows per block of the inner-product list assignment
+#: rows per block of the inner-product list assignment and of the
+#: stored rows' norms
 _ASSIGN_ROWS = 1 << 16
+#: the stored vectors' types (the reference's float, int8_t, uint8_t, and
+#: the JAX package's bfloat16)
+STORAGE_DTYPES = (torch.float32, torch.int8, torch.uint8, torch.bfloat16)
 
 
 @dataclasses.dataclass
@@ -74,7 +89,8 @@ class SearchParams:
 class Index:
     """IVF-Flat index: chunked padded inverted lists.
 
-    ``list_data``    (n_phys+1, cap, dim) f32 — stored vectors
+    ``list_data``    (n_phys+1, cap, dim) — stored vectors, f32, int8,
+                     uint8 or bf16
     ``list_indices`` (n_phys+1, cap) int32 — source ids, −1 at padding
     ``phys_sizes``   (n_phys+1,) int32 — live rows per physical chunk
     ``chunk_table``  (n_lists, max_chunks) int32 — logical → physical rows
@@ -94,7 +110,12 @@ class Index:
     list_norms: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        self.list_norms = torch.sum(self.list_data * self.list_data, dim=-1)
+        rows = self.list_data.shape[0]
+        step = max(1, _ASSIGN_ROWS // max(self.capacity, 1))
+        self.list_norms = torch.cat([
+            torch.sum(torch.square(self.list_data[r:r + step].float()), -1)
+            for r in range(0, rows, step)]) if rows else \
+            self.list_data.new_zeros((0, self.capacity), dtype=torch.float32)
 
     @property
     def device(self) -> torch.device:
@@ -128,17 +149,33 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], metric,
     their field names (:data:`ARRAY_FIELDS`) — e.g. an index the JAX
     package built."""
     dev = resolve_device(device)
-    vals = {}
-    for name in ARRAY_FIELDS:
-        dt = np.float32 if name in ("centers", "list_data") else np.int32
-        vals[name] = torch.as_tensor(np.array(arrays[name], dt), device=dev)
+    vals = {name: array_to_tensor(arrays[name], dev)
+            for name in ARRAY_FIELDS}
+    for name in ARRAY_FIELDS[2:]:
+        vals[name] = vals[name].to(torch.int32)
+    # the JAX package trains a bfloat16 dataset's centres in bfloat16;
+    # they widen exactly
+    vals["centers"] = vals["centers"].to(torch.float32)
+    expects(vals["list_data"].dtype in STORAGE_DTYPES,
+            f"ivf_flat: unsupported storage type {vals['list_data'].dtype}")
     return Index(**vals, metric=DistanceType(int(metric)),
                  adaptive_centers=bool(adaptive_centers))
 
 
 def index_to_arrays(index: Index) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`index_from_arrays`."""
-    return {name: getattr(index, name).cpu().numpy() for name in ARRAY_FIELDS}
+    """Inverse of :func:`index_from_arrays` (bfloat16 rows as their bits,
+    ``|V2``)."""
+    return {name: tensor_to_array(getattr(index, name))
+            for name in ARRAY_FIELDS}
+
+
+def _ingest(data, device) -> torch.Tensor:
+    """*data* as a tensor on *device* in one of :data:`STORAGE_DTYPES`."""
+    x = torch.as_tensor(data, device=device)
+    expects(x.dtype in STORAGE_DTYPES,
+            f"ivf_flat: unsupported dataset type {x.dtype}; the port stores "
+            "float32, int8, uint8 or bfloat16")
+    return x
 
 
 def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -178,16 +215,16 @@ def build(params: IndexParams, dataset, ids=None, *, device=None,
     on the card.  ``engine`` picks the kernels (``"cuda"``) or their plain
     versions (``"torch"``) for the E-steps."""
     dev = resolve_device(device)
-    x = torch.as_tensor(dataset, device=dev)
+    x = _ingest(dataset, dev)
     expects(x.ndim == 2, "dataset must be (n, dim)")
-    expects(x.dtype == torch.float32, "ivf_flat: the port stores float32")
     expects(params.metric in _SUPPORTED,
             f"ivf_flat: unsupported metric {params.metric}")
     n = x.shape[0]
     n_lists = min(params.n_lists, n)
-    centers = _train_centers(params, x, n_lists, engine)
+    centers = _train_centers(params, x.float(), n_lists, engine)
     index = Index(centers=centers,
-                  list_data=torch.zeros((1, 8, x.shape[1]), device=dev),
+                  list_data=torch.zeros((1, 8, x.shape[1]), dtype=x.dtype,
+                                        device=dev),
                   list_indices=torch.full((1, 8), -1, dtype=torch.int32,
                                           device=dev),
                   list_sizes=torch.zeros(n_lists, dtype=torch.int32,
@@ -206,32 +243,45 @@ def build(params: IndexParams, dataset, ids=None, *, device=None,
 
 
 def extend(index: Index, new_vectors, new_ids=None, *,
-           engine: Optional[str] = None) -> Index:
-    """Add vectors to an EMPTY index (reference ``ivf_flat::extend``):
-    assign each to its list and pack.  Appending into a non-empty index is
-    not ported yet and raises."""
-    x = torch.as_tensor(new_vectors, device=index.device)
+           engine: Optional[str] = None, in_place: bool = False) -> Index:
+    """Add vectors to the index (reference ``ivf_flat::extend``): assign
+    each to its list (kernel B1 on the card for the L2 family) and append
+    it into the list's free tail slots; only lists that overflow grow a
+    chunk.  Returns a new :class:`Index`; with ``in_place`` and no list
+    overflowing, its blocks are *index*'s own, written in place (O(n_new),
+    and *index* holds the new rows too).  *new_ids* default to
+    ``size, size + 1, …``; given ones must be new (``ValueError`` on a
+    duplicate in the batch or an id already live — replace semantics are
+    ``mutable.MutableIndex.upsert``'s).  With ``adaptive_centers`` each
+    centre moves to the mean of its old and new members."""
+    x = _ingest(new_vectors, index.device)
     expects(x.ndim == 2 and x.shape[1] == index.dim, "dim mismatch")
-    expects(x.dtype == torch.float32, "ivf_flat: the port stores float32")
-    expects(index.size == 0,
-            "ivf_flat.extend: appending into a non-empty index is not "
-            "ported yet")
+    base = index.size
+    expects(base == 0 or x.dtype == index.list_data.dtype,
+            f"extend type {x.dtype} != the index's storage type "
+            f"{index.list_data.dtype}")
     n = x.shape[0]
     if new_ids is None:
-        ids = torch.arange(n, dtype=torch.int32, device=index.device)
+        ids = torch.arange(base, base + n, dtype=torch.int32,
+                           device=index.device)
     else:
         ids = torch.as_tensor(new_ids, device=index.device).to(torch.int32)
         expects(ids.shape == (n,), "ids must be (n_new,)")
-        expects(torch.unique(ids).numel() == n,
-                "extend: duplicate ids within new_ids")
-    cosine = index.metric == DistanceType.CosineExpanded
-    q = _normalize_rows(x) if cosine else x
+        validate_new_ids(ids, index.list_indices, index.phys_sizes)
+    xf = x.float()
+    q = _normalize_rows(xf) if index.metric == DistanceType.CosineExpanded \
+        else xf
     labels = _assign_lists(q, index.centers, index.metric, engine)
-    data, idx, phys_sizes, sizes, chunk_table, _ = pack_lists(
-        x, ids, labels, index.n_lists)
+    if base:
+        data, idx, phys_sizes, sizes, chunk_table, _ = extend_device(
+            index.list_data, index.list_indices, index.list_sizes,
+            index.chunk_table, x, ids, labels, in_place=in_place)
+    else:
+        data, idx, phys_sizes, sizes, chunk_table, _ = pack_device(
+            x, ids, labels, index.n_lists)
     centers = index.centers
     if index.adaptive_centers:
-        sums = reduce_rows_by_key(x, labels, index.n_lists)
+        sums = reduce_rows_by_key(xf, labels, index.n_lists)
         n_old = index.list_sizes.to(centers.dtype)[:, None]
         n_tot = torch.clamp_min(sizes.to(centers.dtype), 1)[:, None]
         centers = torch.where(sizes[:, None] > 0,
@@ -254,16 +304,20 @@ def _coarse_distances(q: torch.Tensor, centers: torch.Tensor,
 
 
 def _search_batch_impl(queries: torch.Tensor, index: Index, k: int,
-                       n_probes: int, sqrt: bool, engine: str
+                       n_probes: int, sqrt: bool, engine: str,
+                       tombstones: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One query batch: coarse ranking → top-n_probes → probe scan."""
+    """One query batch: coarse ranking → top-n_probes → probe scan (rows
+    whose id is set in *tombstones* masked in the scan)."""
     cd = _coarse_distances(queries, index.centers, index.metric)
     _, probe_ids = select_k(cd, n_probes, select_min=True, engine=engine)
-    return _probe_search_impl(queries, probe_ids, index, k, sqrt, engine)
+    return _probe_search_impl(queries, probe_ids, index, k, sqrt, engine,
+                              tombstones)
 
 
 def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
-                       index: Index, k: int, sqrt: bool, engine: str
+                       index: Index, k: int, sqrt: bool, engine: str,
+                       tombstones: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score the probed lists of every query and keep the best k."""
     metric = index.metric
@@ -273,7 +327,7 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
     qrow = queries[:, None, :]
 
     def score_tile(rows):
-        data = index.list_data[rows]                        # (nq, cap, dim)
+        data = index.list_data[rows].float()                # (nq, cap, dim)
         # a product and a row sum rather than torch.bmm: the batched GEMM
         # picks its algorithm by batch count and would give a query other
         # bits in another batch (see pairwise._dot_fixed_rows); the
@@ -291,7 +345,8 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
     best_d, best_i = scan_probe_lists(phys, score_tile, index.list_indices,
                                       index.phys_sizes, k,
                                       select_min=not is_ip,
-                                      dtype=torch.float32, engine=engine)
+                                      dtype=torch.float32, engine=engine,
+                                      tombstones=tombstones)
     if sqrt:
         best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
@@ -302,11 +357,11 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search the index (reference ``ivf_flat::search``): returns
     (distances (nq, k) f32, indices (nq, k) int32) on the index's device.
+    Queries of any storage type are widened to float32.
     ``engine`` picks kernel B2 (``"cuda"``) or its plain version
     (``"torch"``) for the selections; the default follows the device."""
-    q = torch.as_tensor(queries, device=index.device)
+    q = _ingest(queries, index.device).float()
     expects(q.ndim == 2 and q.shape[1] == index.dim, "query dim mismatch")
-    expects(q.dtype == torch.float32, "ivf_flat: float32 queries")
     expects(k >= 1, "k must be >= 1")
     n_probes = min(params.n_probes, index.n_lists)
     if q.shape[0] == 0:

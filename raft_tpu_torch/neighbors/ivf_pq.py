@@ -4,13 +4,16 @@
 Two-level quantization ``y ≈ Q1(y) + Q2(y − Q1(y))``: coarse balanced
 k-means centres (kernels B3 and B1 on the card) plus product-quantized,
 rotated residuals, bit-packed LSB-first at pq_bits (4–8) bits a code in
-chunked padded lists (``_common.pack_lists``).
+chunked padded lists (``_build.pack_device``; ``extend`` appends into
+a non-empty index through ``_build.extend_device``, encoding only the new
+rows).
 
 Build: coarse quantizer → list assignment → rotation (the PCA-balanced
 one by default, a QR of a Gaussian otherwise) → one codebook per subspace,
 trained by Lloyd k-means whose every E-step is kernel B3 → encode in row
-tiles of 8,192 → pack, with the build-time list-side ADC tables
-``list_adc`` and its per-candidate contraction ``list_csum``.
+tiles of 8,192 (``_build.run_tiles``) → pack, with the build-time
+list-side ADC tables ``list_adc`` and its per-candidate contraction
+``list_csum``.
 
 Search, per query batch (the hoisted-ADC path): coarse GEMM → top-n_probes
 (kernel B2) → one per-batch LUT stage → the probe scan, whose every step
@@ -27,10 +30,14 @@ contract): the rotation and the coarse products run in the fixed
 query-cross LUT is a broadcast multiply and sum over the subspace width,
 not a batched GEMM.
 
+A tombstone bitmap (``tombstones=``, the mutable index's deletes) is
+read inside the scan: by kernel B4's scan mode, so a dead row never
+enters a step's best ``kk``, and by ``_common.scan_probe_lists`` on the
+per-step path.
+
 Not ported yet (each raises): PER_CLUSTER codebooks,
 ``internal_distance_dtype="float16"``, the non-hoisted search
-(``hoisted_lut=False``), extend into a non-empty index, ``build_sharded``
-and the tombstone mask.
+(``hoisted_lut=False``) and ``build_sharded``.
 """
 
 from __future__ import annotations
@@ -53,10 +60,13 @@ from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
 from raft_tpu_torch.kernels import ivf_pq_lut
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.neighbors._build import (extend_device, pack_device,
+                                             run_tiles)
 from raft_tpu_torch.neighbors._common import (_SCAN_STACK_MIN_K,
                                               empty_result, expand_probes,
-                                              pack_lists, scan_probe_lists,
-                                              subsample_trainset)
+                                              scan_probe_lists,
+                                              subsample_trainset,
+                                              validate_new_ids)
 from raft_tpu_torch.neighbors.ivf_flat import (_assign_lists,
                                                _coarse_distances)
 from raft_tpu_torch.random.rng import RngState
@@ -72,8 +82,6 @@ ARRAY_FIELDS = ("centers", "rotation", "codebooks", "list_codes",
                 "list_indices", "list_sizes", "phys_sizes", "chunk_table",
                 "owner", "list_adc", "list_csum")
 _FLOAT_FIELDS = ("centers", "rotation", "codebooks", "list_adc", "list_csum")
-#: rows per encode tile: bounds the (tile, pq_dim, 2^bits) distance
-_TILE_ROWS = 8192
 #: rows of the residual sample the PCA-balanced rotation is fitted on
 _PCA_SAMPLE = 50_000
 _NOT_PORTED = "is not ported yet"
@@ -435,22 +443,22 @@ def _train_model(params: IndexParams, x: torch.Tensor,
 
 def _encode_rows(index: Index, x: torch.Tensor, labels: torch.Tensor):
     """(packed codes, csum) of *x*'s rows under *index*'s model, in row
-    tiles: residual → rotate → encode → pack, and the per-candidate
-    list-side sum."""
-    packed, csum = [], []
-    for r0 in range(0, x.shape[0], _TILE_ROWS):
-        xt = x[r0:r0 + _TILE_ROWS]
-        lt = labels[r0:r0 + _TILE_ROWS].long()
-        codes = _encode((xt - index.centers[lt]) @ index.rotation,
-                        index.codebooks)
-        packed.append(_pack_codes(codes, index.pq_bits))
-        csum.append(_csum_for_codes(codes, lt, index.rot_centers,
-                                    index.codebooks))
-    if not packed:
+    tiles (``_build.run_tiles``): residual → rotate → encode → pack, and
+    the per-candidate list-side sum."""
+    if x.shape[0] == 0:
         return (torch.zeros((0, _code_bytes(index.pq_dim, index.pq_bits)),
                             dtype=torch.uint8, device=x.device),
                 torch.zeros(0, device=x.device))
-    return torch.cat(packed), torch.cat(csum)
+
+    def tile(xt, lt):
+        lt = lt.long()
+        codes = _encode((xt - index.centers[lt]) @ index.rotation,
+                        index.codebooks)
+        return (_pack_codes(codes, index.pq_bits),
+                _csum_for_codes(codes, lt, index.rot_centers,
+                                index.codebooks))
+
+    return run_tiles(tile, x, labels)
 
 
 def _empty_index(centers, rotation, codebooks, metric, pq_bits: int,
@@ -491,21 +499,32 @@ def build(params: IndexParams, dataset, ids=None, *, device=None,
     return index
 
 
-def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor
-              ) -> Index:
+def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
+              in_place: bool = False) -> Index:
+    """Encode *x*'s rows under *index*'s model and pack them into its lists:
+    a fresh pack when the index is empty, else an append."""
     n = x.shape[0]
     dev = index.device
+    base = index.size
     if ids is None:
-        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        ids = torch.arange(base, base + n, dtype=torch.int32, device=dev)
     else:
         ids = torch.as_tensor(ids, device=dev).to(torch.int32)
         expects(ids.shape == (n,), "ids must be (n_new,)")
-        expects(torch.unique(ids).numel() == n,
-                "extend: duplicate ids within new_ids")
+        validate_new_ids(ids, index.list_indices, index.phys_sizes)
     packed, csum = _encode_rows(index, x, labels)
-    ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
-     chunk_table, owner) = pack_lists((packed, csum), ids, labels,
-                                      index.n_lists)
+    if base:
+        ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
+         chunk_table, owner) = extend_device(
+            (index.list_codes, index.list_csum), index.list_indices,
+            index.list_sizes, index.chunk_table, (packed, csum), ids, labels,
+            in_place=in_place)
+    else:
+        ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
+         chunk_table, owner) = pack_device((packed, csum), ids, labels,
+                                           index.n_lists)
+    # the trained model is untouched, so the list-side ADC table carries
+    # over as it is
     return Index(centers=index.centers, rotation=index.rotation,
                  codebooks=index.codebooks, list_codes=list_codes,
                  list_indices=list_indices, list_sizes=list_sizes,
@@ -516,19 +535,22 @@ def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor
 
 
 def extend(index: Index, new_vectors, new_ids=None, *,
-           engine: Optional[str] = None) -> Index:
-    """Add vectors to an EMPTY index (reference ``ivf_pq::extend``):
-    assign, encode with the trained model and pack.  Appending into a
-    non-empty index is not ported yet and raises."""
+           engine: Optional[str] = None, in_place: bool = False) -> Index:
+    """Add vectors to the index (reference ``ivf_pq::extend``): assign
+    (kernel B1 on the card for L2), encode with the trained model — no
+    retraining — and append the codes and their ``list_csum`` into each
+    list's free tail slots; only lists that overflow grow a chunk.
+    Returns a new :class:`Index`; with ``in_place`` and no list
+    overflowing, its blocks are *index*'s own, written in place (O(n_new)).
+    *new_ids* default to ``size, size + 1, …``; given ones must be new
+    (``ValueError`` otherwise, as ``ivf_flat.extend``)."""
     x, new_dtype = _ingest_dataset(new_vectors, index.device)
     expects(new_dtype == index.dataset_dtype,
             f"extend dtype {new_dtype} != index dataset dtype "
             f"{index.dataset_dtype}")
     expects(x.ndim == 2 and x.shape[1] == index.dim, "dim mismatch")
-    expects(index.size == 0,
-            f"ivf_pq.extend: appending into a non-empty index {_NOT_PORTED}")
     labels = _assign_lists(x, index.centers, index.metric, engine)
-    return _populate(index, x, new_ids, labels)
+    return _populate(index, x, new_ids, labels, in_place=in_place)
 
 
 def build_sharded(params: IndexParams, dataset, comms, ids=None):
@@ -640,7 +662,8 @@ def scan_inputs(q: torch.Tensor, probe_ids: torch.Tensor,
 
 def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
                   rot_q: torch.Tensor, index: Index, k: int,
-                  lut_dtype_name: str, engine: str, lut_engine: str):
+                  lut_dtype_name: str, engine: str, lut_engine: str,
+                  tombstones: Optional[torch.Tensor] = None):
     """Hoisted-ADC probe scan: one LUT stage for the batch
     (:func:`scan_inputs`), then the scan of every query's physical rows.
 
@@ -648,26 +671,30 @@ def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
     mode — one launch for the batch, each step's best ``min(k, cap)`` — or
     its plain twin, then one select over the steps' winners.  Wider k
     takes the per-step path (:func:`_scan_per_step`); both give the same
-    result in the same tie order."""
+    result in the same tie order.  Rows whose id is set in *tombstones*
+    are dead inside the scan."""
     from raft_tpu_torch.kernels.select_k import MAX_K
 
     inp = scan_inputs(q, probe_ids, rot_q, index, lut_dtype_name)
     select_min = index.metric != DistanceType.InnerProduct
     if k > MAX_K:
-        return _scan_per_step(inp, index, k, select_min, engine, lut_engine)
+        return _scan_per_step(inp, index, k, select_min, engine, lut_engine,
+                              tombstones)
     pq_dim, kcb, _ = index.codebooks.shape
     scan = (ivf_pq_lut.lut_scan_topk if lut_engine == "cuda"
             else ivf_pq_lut.lut_scan_topk_plain)
+    mask = () if tombstones is None else (index.list_indices, tombstones)
     vals, slots = scan(index.list_codes, inp.phys, index.phys_sizes,
                        inp.tables, inp.ords, inp.base, inp.csum, inp.scale,
                        pq_dim, index.pq_bits, kcb, min(k, index.capacity),
-                       select_min)
+                       select_min, *mask)
     return _select_scanned(vals, slots, inp.phys, index.list_indices, k,
                            select_min, engine)
 
 
 def _scan_per_step(inp: ScanInputs, index: Index, k: int, select_min: bool,
-                   engine: str, lut_engine: str):
+                   engine: str, lut_engine: str,
+                   tombstones: Optional[torch.Tensor] = None):
     """The probe scan step by step: raw B4 scores of every query's row
     (or their plain version), the epilogue, the live mask, a select per
     step and the running merge."""
@@ -689,7 +716,8 @@ def _scan_per_step(inp: ScanInputs, index: Index, k: int, select_min: bool,
     return scan_probe_lists(inp.phys, score_tile, index.list_indices,
                             index.phys_sizes, k, select_min=select_min,
                             dtype=torch.float32, engine=engine,
-                            xs=(range(inp.phys.shape[1]),))
+                            xs=(range(inp.phys.shape[1]),),
+                            tombstones=tombstones)
 
 
 def _select_scanned(vals: torch.Tensor, slots: torch.Tensor,
@@ -706,7 +734,9 @@ def _select_scanned(vals: torch.Tensor, slots: torch.Tensor,
     whose seed wins ties: there a winner no better than the sentinel (a
     live candidate scoring ±inf, or NaN) becomes (sentinel, −1) too.  At
     or above it the per-step path selects over the stacked masked tiles,
-    as this select does, and such a winner keeps its id."""
+    as this select does, and such a winner keeps its id.  A slot of −1
+    (the fill of a step with fewer than ``kk`` candidates under a
+    tombstone mask) gives id −1."""
     nq, n_steps, kk = vals.shape
     sentinel = float("inf") if select_min else float("-inf")
     flat = vals.reshape(nq, n_steps * kk)
@@ -715,7 +745,9 @@ def _select_scanned(vals: torch.Tensor, slots: torch.Tensor,
     pos = pos.long()
     slot = torch.gather(slots.reshape(nq, -1), 1, pos).long()
     row = torch.gather(phys, 1, torch.div(pos, kk, rounding_mode="floor"))
-    best_i = list_indices[row.long(), slot]
+    best_i = torch.where(slot >= 0,
+                         list_indices[row.long(), torch.clamp_min(slot, 0)],
+                         -1)
     if not (k >= _SCAN_STACK_MIN_K and n_steps * list_indices.shape[1] >= k):
         beats = best_d < sentinel if select_min else best_d > sentinel
         best_d = torch.where(beats, best_d, torch.full_like(best_d,
@@ -742,26 +774,32 @@ def _resolve_engines(index: Index,
 
 def _search_batch_impl(q: torch.Tensor, probe_ids: torch.Tensor,
                        index: Index, k: int, lut_dtype_name: str,
-                       engines: Tuple[str, str]):
-    """Score the probed lists of one query batch and keep the best k."""
+                       engines: Tuple[str, str],
+                       tombstones: Optional[torch.Tensor] = None,
+                       sqrt: bool = True):
+    """Score the probed lists of one query batch and keep the best k (the
+    L2Sqrt root taken only with *sqrt*: a caller that merges squared
+    distances takes it after the merge)."""
     rot_q = _dot_fixed_rows(q, index.rotation.T)          # (nq, rot_dim)
     best_d, best_i = _scan_hoisted(q, probe_ids, rot_q, index, k,
-                                   lut_dtype_name, *engines)
-    if index.metric == DistanceType.L2SqrtExpanded:
+                                   lut_dtype_name, *engines, tombstones)
+    if sqrt and index.metric == DistanceType.L2SqrtExpanded:
         best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
 
 
 def _full_search_impl(queries: torch.Tensor, index: Index, k: int,
                       n_probes: int, lut_dtype_name: str,
-                      engines: Tuple[str, str]):
+                      engines: Tuple[str, str],
+                      tombstones: Optional[torch.Tensor] = None,
+                      sqrt: bool = True):
     """Coarse ranking + top-n_probes + probe scoring of one batch — the
     serving entry point."""
     coarse = _coarse_distances(queries, index.centers, index.metric)
     _, probes = select_k(coarse, n_probes, select_min=True,
                          engine=engines[0])
     return _search_batch_impl(queries, probes, index, k, lut_dtype_name,
-                              engines)
+                              engines, tombstones, sqrt)
 
 
 def hoisted_batch_cap(index: Index, n_probes: int, lut_dtype: str

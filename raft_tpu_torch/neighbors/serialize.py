@@ -1,19 +1,30 @@
-"""Reading the JAX package's IVF-PQ index archives (port of
-``raft_tpu/neighbors/serialize.py``: ``_unpack`` :108, ``load_ivf_pq``
-:471), with numpy only.
+"""Index archives, in the JAX package's format both ways (single-device
+port of ``raft_tpu/neighbors/serialize.py``: ``_finish`` :67,
+``_atomic_savez`` :89, ``_unpack`` :108, ``save_ivf_flat`` :144,
+``load_ivf_flat`` :152, ``save_ivf_pq`` :160, ``save_mutable`` :265,
+``load_mutable`` :337, ``load_ivf_pq`` :471), with numpy only.
 
 An archive is one ``.npz``: every array leaf plus ``__header__``, a JSON
 header (magic, per-kind version, kind, aux, per-array CRC32 manifest).
-Damage (zip errors, a mangled header, a checksum mismatch) raises
-:class:`~raft_tpu_torch.core.error.CorruptionError`.  Version 2 archives
-carry the list-side ADC tables and are read as stored; version 1 archives
-predate them, and ``list_adc`` / ``list_csum`` are recomputed from the
-trained model and the stored codes.
+A save writes a temporary file beside the destination, fsyncs it and
+renames it into place, so a reader sees the old archive or the new one,
+never a part.  Damage (zip errors, a mangled header, a checksum mismatch)
+raises :class:`~raft_tpu_torch.core.error.CorruptionError`.  IVF-PQ
+version 2 archives carry the list-side ADC tables and are read as
+stored; version 1 archives predate them, and ``list_adc`` / ``list_csum``
+are recomputed from the trained model and the stored codes.  A bfloat16
+array is stored as its bits in two-byte raw items (``|V2``, what the JAX
+package's ``np.savez`` writes), and its checksum is taken over those
+bytes.  The JAX package cannot read its own bfloat16 archives back
+(``jnp.asarray`` refuses ``|V2``); the port reads both.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 import json
+import os
 import zipfile
 import zlib
 
@@ -22,10 +33,14 @@ import torch
 
 from raft_tpu_torch.core.error import CorruptionError, LogicError, expects
 from raft_tpu_torch.core.handle import resolve_device
-from raft_tpu_torch.neighbors import ivf_pq
+from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors._common import tensor_to_array
 
 _MAGIC = "raft-tpu-index"
-_READABLE_VERSIONS = {"ivf_pq": (1, 2)}
+#: the version each kind is written at (the JAX package's)
+_VERSIONS = {"ivf_flat": 1, "ivf_pq": 2, "mutable": 1}
+_READABLE_VERSIONS = {"ivf_flat": (1,), "ivf_pq": (1, 2), "mutable": (1,)}
 
 
 def _normalize(path) -> str:
@@ -37,6 +52,49 @@ def _checksums(arrays: dict) -> dict:
     return {name: int(zlib.crc32(np.ascontiguousarray(a).tobytes())
                       & 0xFFFFFFFF)
             for name, a in arrays.items()}
+
+
+def _finish(kind: str, arrays: dict, aux: dict) -> dict:
+    """Attach the JSON header (version, aux, checksum manifest)."""
+    header = {"magic": _MAGIC, "version": _VERSIONS[kind], "kind": kind,
+              "aux": aux, "checksums": _checksums(arrays)}
+    arrays["__header__"] = np.frombuffer(json.dumps(header).encode(),
+                                         dtype=np.uint8)
+    return arrays
+
+
+def _atomic_savez(path, arrays: dict) -> None:
+    """Temporary file beside the destination, fsync, atomic rename; a
+    failed save leaves nothing behind."""
+    path = _normalize(path)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _flat_aux(index: ivf_flat.Index) -> dict:
+    return {"metric": int(index.metric),
+            "adaptive_centers": bool(index.adaptive_centers)}
+
+
+def _pq_aux(index: ivf_pq.Index) -> dict:
+    return {"metric": int(index.metric),
+            "codebook_kind": int(index.codebook_kind),
+            "pq_bits": int(index.pq_bits),
+            "dataset_dtype": index.dataset_dtype}
+
+
+def _leaves(index) -> dict:
+    fields = (ivf_flat.ARRAY_FIELDS if isinstance(index, ivf_flat.Index)
+              else ivf_pq.ARRAY_FIELDS)
+    return {name: tensor_to_array(getattr(index, name)) for name in fields}
 
 
 def _unpack(path, kind: str):
@@ -75,9 +133,31 @@ def _unpack(path, kind: str):
     return header["aux"], arrays
 
 
+def save_ivf_flat(path, index: ivf_flat.Index) -> None:
+    """Write an IVF-Flat index to *path* (``.npz``; atomic and
+    checksummed) — the JAX package's ``load_ivf_flat`` reads it."""
+    _atomic_savez(path, _finish("ivf_flat", _leaves(index),
+                                _flat_aux(index)))
+
+
+def load_ivf_flat(path, device=None) -> ivf_flat.Index:
+    """An :class:`ivf_flat.Index` on *device* (``None``: the card) from an
+    archive either package's ``save_ivf_flat`` wrote."""
+    dev = resolve_device(device)
+    aux, a = _unpack(path, "ivf_flat")
+    return ivf_flat.index_from_arrays(a, aux["metric"],
+                                      aux["adaptive_centers"], device=dev)
+
+
+def save_ivf_pq(path, index: ivf_pq.Index) -> None:
+    """Write an IVF-PQ index to *path* (``.npz``, version 2; atomic and
+    checksummed) — the JAX package's ``load_ivf_pq`` reads it."""
+    _atomic_savez(path, _finish("ivf_pq", _leaves(index), _pq_aux(index)))
+
+
 def load_ivf_pq(path, device=None) -> ivf_pq.Index:
     """An :class:`ivf_pq.Index` on *device* (``None``: the card) from an
-    archive the JAX package's ``save_ivf_pq`` wrote."""
+    archive either package's ``save_ivf_pq`` wrote."""
     dev = resolve_device(device)
     aux, a = _unpack(path, "ivf_pq")
     if "list_adc" not in a or "list_csum" not in a:
@@ -98,3 +178,104 @@ def load_ivf_pq(path, device=None) -> ivf_pq.Index:
     return ivf_pq.index_from_arrays(
         a, aux["metric"], aux["codebook_kind"], aux["pq_bits"],
         aux.get("dataset_dtype", "float32"), device=dev)
+
+
+def _params_to_aux(params):
+    """Family IndexParams → a JSON-safe dict (enums → ints)."""
+    if params is None:
+        return None
+    return {k: (int(v) if isinstance(v, enum.IntEnum) else v)
+            for k, v in dataclasses.asdict(params).items()}
+
+
+def _params_from_aux(kind: str, d):
+    if d is None:
+        return None
+    d = dict(d)
+    d["metric"] = DistanceType(d["metric"])
+    if kind == "ivf_pq":
+        d["codebook_kind"] = ivf_pq.CodebookKind(d["codebook_kind"])
+        return ivf_pq.IndexParams(**d)
+    return ivf_flat.IndexParams(**d)
+
+
+def save_mutable(path, mut) -> None:
+    """Write a :class:`~raft_tpu_torch.neighbors.mutable.MutableIndex` to
+    *path* (``.npz``; atomic and checksummed): one snapshot of the (main,
+    delta, tombstones) triple taken under the write lock.  The main is
+    stored as it is; the delta and the tombstones as their host books
+    (live delta rows with their ids in insertion order, the dead main
+    ids, the live main rows), which :func:`load_mutable` replays through
+    ``upsert`` / ``delete`` — the JAX package's layout, so either package
+    reads the other's.  Single device only."""
+    from raft_tpu_torch.neighbors import mutable as _mutable
+
+    expects(isinstance(mut, _mutable.MutableIndex),
+            "save_mutable needs a MutableIndex")
+    with mut._lock:
+        core = mut._mut_core
+        index = core.main
+        fam = _flat_aux(index) if core.kind == "ivf_flat" else _pq_aux(index)
+        arrays = {f"main_{name}": a for name, a in _leaves(index).items()}
+        arrays["mut_main_ids"] = core.main_ids.astype(np.int64)
+        arrays["mut_main_dead"] = np.asarray(sorted(core.main_dead),
+                                             np.int64)
+        live = core.main_live_mask()
+        arrays["mut_main_live_ids"] = core.main_ids[live].astype(np.int64)
+        if live.any():
+            arrays["mut_main_live_rows"] = tensor_to_array(
+                core.main_x[torch.as_tensor(live, device=core.main_x.device)])
+        delta_ids = np.asarray(list(core.delta_live), np.int64)
+        arrays["mut_delta_ids"] = delta_ids
+        if delta_ids.size:
+            arrays["mut_delta_rows"] = tensor_to_array(torch.stack(
+                [core.delta_x[int(j)] for j in delta_ids]))
+        aux = {"kind": core.kind, "sharded": False, "family": fam,
+               "build_params": _params_to_aux(mut.build_params)}
+    _atomic_savez(path, _finish("mutable", arrays, aux))
+
+
+def load_mutable(path, device=None, comms=None):
+    """A :class:`~raft_tpu_torch.neighbors.mutable.MutableIndex` on
+    *device* (``None``: the card) from an archive either package's
+    ``save_mutable`` wrote: the main restored as stored, then the archived
+    delta rows upserted and the dead main ids deleted — the same live rows
+    through the same programs.  A sharded archive (or *comms*) is not
+    ported yet and raises."""
+    from raft_tpu_torch.neighbors import mutable as _mutable
+    from raft_tpu_torch.neighbors._common import array_to_tensor
+
+    expects(comms is None, "load_mutable: a sharded main is not ported yet")
+    dev = resolve_device(device)
+    aux, a = _unpack(path, "mutable")
+    expects(not aux["sharded"],
+            "load_mutable: the archive holds a sharded main, which is not "
+            "ported yet")
+    fam_kind, fam = aux["kind"], aux["family"]
+    arrays = {k[len("main_"):]: v for k, v in a.items()
+              if k.startswith("main_")}
+    if fam_kind == "ivf_flat":
+        main = ivf_flat.index_from_arrays(arrays, fam["metric"],
+                                          fam["adaptive_centers"],
+                                          device=dev)
+    else:
+        main = ivf_pq.index_from_arrays(
+            arrays, fam["metric"], fam["codebook_kind"], fam["pq_bits"],
+            fam.get("dataset_dtype", "float32"), device=dev)
+    main_ids = a["mut_main_ids"].astype(np.int64)
+    delta_ids = a["mut_delta_ids"].astype(np.int64)
+    live_main = a["mut_main_live_ids"].astype(np.int64)
+    rows = a.get("mut_main_live_rows")
+    live_rows = (array_to_tensor(rows, dev) if rows is not None
+                 else torch.zeros((0, main.dim), device=dev))
+    mut = _mutable.MutableIndex(
+        main, live_rows, live_main,
+        build_params=_params_from_aux(fam_kind, aux["build_params"]))
+    mut._restore_roster(main_ids, int(delta_ids.max()) if delta_ids.size
+                        else 0)
+    if delta_ids.size:
+        mut.upsert(array_to_tensor(a["mut_delta_rows"], dev), delta_ids)
+    dead = np.setdiff1d(a["mut_main_dead"].astype(np.int64), delta_ids)
+    if dead.size:
+        mut.delete(dead)
+    return mut

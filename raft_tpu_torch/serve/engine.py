@@ -1,6 +1,7 @@
-"""Batched query serving over brute force, IVF-Flat and IVF-PQ (port of
-``raft_tpu/serve/engine.py``: the backends :110-291, ``_make_backend``
-:527, ``ServeEngine`` :544-1633).
+"""Batched query serving over brute force, IVF-Flat, IVF-PQ and the
+mutable index (port of ``raft_tpu/serve/engine.py``: the backends
+:110-291 and ``_MutableBackend`` :474, ``_make_backend`` :527,
+``ServeEngine`` :544-1633).
 
 * **Request coalescing** — concurrent ragged requests are packed in
   arrival order into super-batches of at most ``max_batch`` rows, each
@@ -45,10 +46,14 @@
   read.  :meth:`ServeEngine.serve_http` serves ``/metrics``, ``/healthz``,
   ``/varz`` and ``/debug/slow``.
 
+A ``mutable.MutableIndex`` is served by the mutable backend (main ∪
+delta, tombstones masked in the scan) while ``upsert`` / ``delete`` run
+on it; its compaction promotes the new core through :meth:`refresh`.
+
 Requests are ingested as float32 (``warmed_signatures()`` reports
 ``{"float32": [...]}``).  Not ported yet: serving other query types as
-themselves, the sharded, replica, tiered and mutable backends (with
-replica routing), autotuning (``attach_tuner``, ``apply_tuning``,
+themselves, the sharded, replica and tiered backends (with replica
+routing), autotuning (``attach_tuner``, ``apply_tuning``,
 ``shadow_samples``) and the executable store's persisted cost rows.
 """
 
@@ -69,7 +74,7 @@ from raft_tpu_torch.core.handle import Handle, resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import as_float_tensor
 from raft_tpu_torch.kernels.engine import resolve_engine
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, mutable
 from raft_tpu_torch.serve.admission import (AdmissionController,
                                             RejectedError, ServeRequest)
 from raft_tpu_torch.serve.schedule import (CostModel, SchedulerConfig,
@@ -141,6 +146,39 @@ class _BruteForceBackend:
                                device=self.device, engine=self.engine)
 
 
+def _flat_ingest(q, dim: int, metric, device) -> np.ndarray:
+    """Host-side compute-form conversion of an IVF-Flat request, matching
+    what the solo path does before batching: int8/uint8 widen exactly to
+    float32; cosine queries are normalized on the device as the solo path
+    does."""
+    q = np.asarray(q)
+    expects(q.ndim == 2 and q.shape[1] == dim, "query dim mismatch")
+    if q.dtype in (np.int8, np.uint8):
+        q = q.astype(np.float32)
+    expects(q.dtype == np.float32, f"query dtype {q.dtype}: the port "
+            "serves float32")
+    if metric == DistanceType.CosineExpanded and q.shape[0]:
+        qt = torch.as_tensor(q, device=device)
+        return ivf_flat._normalize_rows(qt).cpu().numpy()
+    return q
+
+
+def _pq_ingest(q, dim: int, dataset_dtype: str) -> np.ndarray:
+    """Host-side float32 ingest of an IVF-PQ request, the same conversion
+    as the solo path's cast (int8/uint8 and half types widen exactly)."""
+    q = np.asarray(q)
+    if q.dtype in (np.int8, np.uint8):
+        q_dtype = str(q.dtype)
+    else:
+        expects(np.issubdtype(q.dtype, np.floating),
+                f"ivf_pq: unsupported query dtype {q.dtype}")
+        q_dtype = "float32"
+    expects(q_dtype in (dataset_dtype, "float32"),
+            f"query dtype {q_dtype} != index dataset dtype {dataset_dtype}")
+    expects(q.ndim == 2 and q.shape[1] == dim, "query dim mismatch")
+    return q.astype(np.float32)
+
+
 class _IvfFlatBackend:
     """Adapter: ``ivf_flat.Index`` → ``ivf_flat._search_batch_impl``."""
 
@@ -163,19 +201,7 @@ class _IvfFlatBackend:
         self.device = index.device
 
     def ingest(self, q) -> np.ndarray:
-        """Host-side compute-form conversion, matching what the solo path
-        does before batching: int8/uint8 widen exactly to float32; cosine
-        queries are normalized on the device as the solo path does."""
-        q = np.asarray(q)
-        expects(q.ndim == 2 and q.shape[1] == self.dim, "query dim mismatch")
-        if q.dtype in (np.int8, np.uint8):
-            q = q.astype(np.float32)
-        expects(q.dtype == np.float32, f"query dtype {q.dtype}: the port "
-                "serves float32")
-        if self.index.metric == DistanceType.CosineExpanded and q.shape[0]:
-            qt = torch.as_tensor(q, device=self.index.device)
-            return ivf_flat._normalize_rows(qt).cpu().numpy()
-        return q
+        return _flat_ingest(q, self.dim, self.index.metric, self.device)
 
     def dispatch(self, qb: torch.Tensor):
         return self.fn(qb, self.index, self.k, self.n_probes, self.sqrt,
@@ -209,20 +235,7 @@ class _IvfPqBackend:
         self.device = index.device
 
     def ingest(self, q) -> np.ndarray:
-        """Host-side float32 ingest, the same conversion as the solo
-        path's cast (int8/uint8 and half types widen exactly)."""
-        q = np.asarray(q)
-        if q.dtype in (np.int8, np.uint8):
-            q_dtype = str(q.dtype)
-        else:
-            expects(np.issubdtype(q.dtype, np.floating),
-                    f"ivf_pq: unsupported query dtype {q.dtype}")
-            q_dtype = "float32"
-        expects(q_dtype in (self.index.dataset_dtype, "float32"),
-                f"query dtype {q_dtype} != index dataset dtype "
-                f"{self.index.dataset_dtype}")
-        expects(q.ndim == 2 and q.shape[1] == self.dim, "query dim mismatch")
-        return q.astype(np.float32)
+        return _pq_ingest(q, self.dim, self.index.dataset_dtype)
 
     def batch_cap(self) -> Optional[int]:
         return ivf_pq.hoisted_batch_cap(self.index, self.n_probes,
@@ -237,14 +250,36 @@ class _IvfPqBackend:
                              engine=self.engine)
 
 
-def _make_backend(index, k, params, engine, metric, metric_arg,
-                  batch_size_index, device):
-    if isinstance(index, ivf_flat.Index):
-        return _IvfFlatBackend(index, k, params, engine)
-    if isinstance(index, ivf_pq.Index):
-        return _IvfPqBackend(index, k, params, engine)
-    return _BruteForceBackend(index, k, metric, metric_arg,
-                              batch_size_index, device, engine)
+class _MutableBackend:
+    """Adapter: ``mutable.MutableIndex`` → its searcher (main ∪ delta,
+    tombstones masked in the scan).  Writes land on the same MutableIndex
+    while it serves; each dispatch searches a snapshot of it, and
+    compaction promotes its new core through ``engine.refresh(mutable)``."""
+
+    fn = staticmethod(mutable._merged_search_impl)
+
+    def __init__(self, mut, k: int, params, engine: Optional[str]):
+        self.mutable = mut
+        self.searcher = mut.searcher(int(k), params, engine)
+        self.name = self.searcher.name
+        self.k = int(k)
+        self.dim = mut.dim
+        self.device = mut.device
+
+    def ingest(self, q) -> np.ndarray:
+        core = self.mutable._mut_core
+        if self.mutable.kind == "ivf_pq":
+            return _pq_ingest(q, self.dim, core.main.dataset_dtype)
+        return _flat_ingest(q, self.dim, core.main.metric, self.device)
+
+    def batch_cap(self) -> Optional[int]:
+        return self.searcher.batch_cap()
+
+    def dispatch(self, qb: torch.Tensor):
+        return self.searcher.dispatch(qb)
+
+    def solo(self, q):
+        return self.searcher.solo(q)
 
 
 def _make_backend(index, k, params, engine, metric, metric_arg,
@@ -253,6 +288,8 @@ def _make_backend(index, k, params, engine, metric, metric_arg,
         return _IvfFlatBackend(index, k, params, engine)
     if isinstance(index, ivf_pq.Index):
         return _IvfPqBackend(index, k, params, engine)
+    if isinstance(index, mutable.MutableIndex):
+        return _MutableBackend(index, k, params, engine)
     return _BruteForceBackend(index, k, metric, metric_arg,
                               batch_size_index, device, engine)
 
@@ -284,8 +321,9 @@ KEEP_PARAMS = _KeepParams()
 class ServeEngine:
     """Coalescing query server for one (index, k, params) serving key.
 
-    ``index`` picks the backend by type: an ``ivf_flat.Index`` or an
-    ``ivf_pq.Index`` (*params* its ``SearchParams``), else a dense
+    ``index`` picks the backend by type: an ``ivf_flat.Index``, an
+    ``ivf_pq.Index`` or a ``mutable.MutableIndex`` of either (*params*
+    its family's ``SearchParams``), else a dense
     (n, dim) array or tensor served by exact brute force under ``metric``
     / ``metric_arg`` in index tiles of ``batch_size_index`` rows, placed
     on ``device`` (default: the card).  ``max_batch`` bounds one

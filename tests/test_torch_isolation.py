@@ -129,3 +129,29 @@ def test_kernel_sources_ship_with_the_package():
 
     for name in native.SOURCES:
         assert (native.CSRC / f"{name}.cu").is_file()
+
+
+def test_mutable_build_and_serialize_modules_stand_alone(monkeypatch,
+                                                        tmp_path):
+    """The mutable index, the device pack and the archive writers are part
+    of the walk above, import neither jax nor raft_tpu, and their entry
+    points asked for no device raise when CUDA is absent."""
+    from raft_tpu_torch.neighbors import (_build, ivf_flat, mutable,
+                                          serialize)
+
+    for mod in (_build, mutable, serialize):
+        path = pathlib.Path(mod.__file__)
+        assert path.parent == PORT / "neighbors"
+        for name in _imports(path):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "raft_tpu")
+    idx = ivf_flat.build(ivf_flat.IndexParams(n_lists=4),
+                         np.random.default_rng(0).random((64, 4)).astype(
+                             np.float32), device="cpu")
+    serialize.save_ivf_flat(tmp_path / "f", idx)
+    serialize.save_mutable(tmp_path / "m", mutable.MutableIndex(
+        idx, np.zeros((64, 4), np.float32)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serialize.load_ivf_flat(tmp_path / "f")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serialize.load_mutable(tmp_path / "m")

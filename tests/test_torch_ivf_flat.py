@@ -106,10 +106,14 @@ def test_wide_k_stacked_scan_and_empty_batch():
 
 
 def test_extend_into_non_empty_index_is_refused():
+    # a non-empty index takes new rows (tests/test_torch_extend.py); it
+    # refuses ids already live and rows of another storage type
     x, _ = _data(n=600, seed=3)
     tidx = tivf.build(tivf.IndexParams(n_lists=8), x, device="cpu")
-    with pytest.raises(Exception, match="not ported"):
-        tivf.extend(tidx, x[:10])
+    with pytest.raises(ValueError, match="already live"):
+        tivf.extend(tidx, x[:10], np.arange(10, dtype=np.int32))
+    with pytest.raises(Exception, match="storage type"):
+        tivf.extend(tidx, x[:10].astype(np.int8))
 
 
 def test_extend_empty_index_with_ids_and_adaptive_centers():

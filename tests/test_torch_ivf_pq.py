@@ -282,8 +282,9 @@ def test_empty_batch_and_not_ported_errors(jax_index):
     tidx = _carry(get())
     d, i = tpq.search(tpq.SearchParams(4), tidx, q[:0], K)
     assert d.shape == (0, K) and i.shape == (0, K)
-    with pytest.raises(Exception, match="not ported"):
-        tpq.extend(tidx, x[:10])
+    # extend into a non-empty index is ported: it refuses live ids
+    with pytest.raises(ValueError, match="already live"):
+        tpq.extend(tidx, x[:10], np.arange(10, dtype=np.int32))
     with pytest.raises(Exception, match="not ported"):
         tpq.build_sharded(tpq.IndexParams(n_lists=4), x[:200], None)
     with pytest.raises(Exception, match="not ported"):

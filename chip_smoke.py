@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ and brute-force
-serving paths on one NVIDIA card.
+"""Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ (with its
+PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
+paths on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -138,7 +139,34 @@ Phases, one JSON line each:
    0; Canberra has none) and the bound, counted from at least
    ``B5_OPS_PER_ELEMENT`` float32 instructions per element at the card's
    instruction rate against the bytes moved.
-10. the ``{"kernels": [...]}`` line, then the last line
+10. the rest of the IVF family, after the IVF-PQ phases:
+   ``ivf_pq_per_cluster`` — the IVF-PQ configuration with PER_CLUSTER
+   codebooks (1,024 lists' codebooks trained together, kernel B3 once a
+   Lloyd iteration): launch counts reset, build, engine (its super-batch
+   clamped to the batch cap), every query; B1, B2, B3 and B4's scan mode
+   must launch; coalesced equals solo, recall within 0.002 of the plain
+   path and ``BUILD_RECALL_TOL`` of a plain build.  ``ivf_pq_variants``
+   on the IVF-PQ index (1,000 queries): the float16 sum through the
+   kernels and the plain versions, the legacy search
+   (``hoisted_lut=False``) at the float32 and fp8 LUTs with launch
+   counts reset around it (B4's raw mode must launch), recall against
+   the hoisted path's; then B4's raw mode at the legacy step with both
+   float16 sums against its plain twin.  ``lut_scan@*``: B4's scan mode
+   on PER_CLUSTER's 64 KB float32 tables, with the float16 sum, on the
+   main index with the float16 sum and on PER_CLUSTER's fp8 tables, bit
+   for bit against the per-step path at the engine's batch, 1 and 8
+   queries.  ``tiered`` for each IVF index (hot_fraction 0.25,
+   tile_phys 512; IVF-PQ with the dataset as refine store): launch
+   counts reset, a tiered engine over every query, each request bit for
+   bit the resident engine's; device bytes against the resident
+   index's, cold tiles and prefetch bytes a dispatch, one tile's staging
+   rate, IVF-PQ's ``refine_ratio=4`` recall lift (at least 0.05),
+   ``refresh(retier(...))`` from the served counts under ``submit()``
+   traffic (every request bit for bit), ``save_tiered`` /
+   ``load_tiered`` (the same bits), and the busy share of one
+   super-batch (``torch.profiler``).  ``approx_knn``:
+   ``approx_knn_search`` over both built indexes equals their search.
+11. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -220,6 +248,13 @@ PATH_KERNELS = {
     "ivf_flat_mutable": ("fused_l2_nn", "fused_l2_nn_partials", "select_k"),
     "ivf_pq_mutable": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
                        "lut_scan_tombstones"),
+    # PER_CLUSTER: the codebooks' batched Lloyd is B3 for all 1,024 lists
+    "ivf_pq_per_cluster": ("fused_l2_nn", "fused_l2_nn_partials",
+                           "select_k", "lut_scan"),
+    # hoisted_lut=False: B4's raw mode at every scan step
+    "ivf_pq_legacy": ("select_k", "lut_score"),
+    "tiered_ivf_flat": ("select_k",),
+    "tiered_ivf_pq": ("select_k", "lut_scan"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -592,6 +627,10 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
                          "codebook_max_abs_err")}})
     rows["fused_l2_nn_partials"].update(
         b3_batched_phase(device, gen, rep, min(262144, m)))
+    # PER_CLUSTER's codebook step: every list's 1,024-row sample at once
+    rows["fused_l2_nn_partials"].update(
+        b3_batched_phase(device, gen, rep, 1024, s=1024,
+                         prefix="per_cluster"))
 
     # B2 at the coarse top-n_probes shape, a probe-tile shape, a
     # brute-force scan step, and a matrix of ties, NaN and ±inf; float32,
@@ -658,17 +697,20 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     return rows
 
 
-def b3_batched_phase(device, gen, rep: int, n: int):
-    """B3 at the IVF-PQ codebook step: all 64 subspaces of n (the build's
-    pq_trainset_cap, 262,144) × 2 against 256 codewords in one launch,
-    against its plain twin and against 64 launches of one subspace each
-    (bit for bit); returns the fields for B3's row."""
+def b3_batched_phase(device, gen, rep: int, n: int, s: int = 64,
+                     prefix: str = "batched"):
+    """B3 at an IVF-PQ codebook step: s codebooks of n × 2 against 256
+    codewords in one launch — the 64 subspaces of PER_SUBSPACE at the
+    build's pq_trainset_cap (262,144), or PER_CLUSTER's 1,024 lists of
+    1,024 samples — against its plain twin and against launches of one
+    codebook each (bit for bit; every codebook of 64, 16 spread over
+    more); returns the fields for B3's row, under *prefix*."""
     import torch
 
     from raft_tpu_torch.distance import fused_l2_nn as plain_nn
     from raft_tpu_torch.kernels import fused_l2nn
 
-    s, k, ds = 64, 256, 2
+    k, ds = 256, 2
     xs = torch.randn(s, n, ds, generator=gen, device=device)
     ys = torch.stack([xs[i, torch.randperm(n, generator=gen,
                                            device=device)[:k]]
@@ -676,7 +718,7 @@ def b3_batched_phase(device, gen, rep: int, n: int):
     out = fused_l2nn.fused_l2_nn_partials_batched(xs, ys)
     ref = plain_nn.fused_l2_nn_partials_batched_plain(xs, ys)
     n_diff, err = 0, 0.0
-    for i in range(s):
+    for i in (range(s) if s <= 64 else range(0, s, s // 16)):
         n_diff += check_labels("fused_l2_nn_partials batched", out[1][i],
                                ref[1][i], xs[i], ys[i], of_norms=True)
         sums, wsum = plain_nn.cluster_partials_plain(xs[i], out[1][i], k)
@@ -698,19 +740,20 @@ def b3_batched_phase(device, gen, rep: int, n: int):
     # fused multiply-adds, the expanded form, the clamp and the compare)
     b, by = bound_ms(4.0 * (s * n * ds + 2 * s * k * ds + 2 * s * n + s * k),
                      float(s) * n * k * (ds + 4), F32_INSTR_PER_S)
-    row = dict(
-        batched_shape=[s, n, k, ds], batched_max_abs_err=err,
-        batched_label_diffs_near_ties=n_diff, batched_bound_ms=b,
-        batched_bound_by=by,
-        batched_ms=timed(lambda: fused_l2nn.fused_l2_nn_partials_batched(
+    row = {
+        f"{prefix}_shape": [s, n, k, ds], f"{prefix}_max_abs_err": err,
+        f"{prefix}_label_diffs_near_ties": n_diff, f"{prefix}_bound_ms": b,
+        f"{prefix}_bound_by": by,
+        f"{prefix}_ms": timed(lambda: fused_l2nn.fused_l2_nn_partials_batched(
             xs, ys), device, rep),
-        batched_plain_ms=timed(
+        f"{prefix}_plain_ms": timed(
             lambda: plain_nn.fused_l2_nn_partials_batched_plain(xs, ys),
-            device, 3),
-        per_subspace_x64_ms=timed(lambda: [
+            device, 3)}
+    if s <= 64:
+        row["per_subspace_x64_ms"] = timed(lambda: [
             fused_l2nn.fused_l2_nn_partials(xs[i], ys[i]) for i in range(s)],
-            device, 3))
-    emit({"phase": "kernel", "name": "fused_l2_nn_partials@batched",
+            device, 3)
+    emit({"phase": "kernel", "name": f"fused_l2_nn_partials@{prefix}",
           "equals_per_subspace_launches": True, "sums_bitwise_repeat": True,
           **row})
     return row
@@ -719,6 +762,18 @@ def b3_batched_phase(device, gen, rep: int, n: int):
 def recall(ids, truth):
     hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum()
     return float(hits) / truth.numel()
+
+
+def _kernel_events(prof):
+    """The device rows of a profile: kernels and copies, without the CPU-op
+    rows (which repeat their kernels' time) and without the telemetry
+    spans' ``record_function`` ranges (``serve.*``, which span them)."""
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0
+              and not e.key.startswith("serve.")]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return events
 
 
 def profile_serve(path, eng, q_host, device, top: int = 12):
@@ -737,15 +792,15 @@ def profile_serve(path, eng, q_host, device, top: int = 12):
                              ProfilerActivity.CUDA]) as prof:
         eng.search([batch])
         torch.cuda.synchronize()
-    # kernel rows only (the CPU-op rows repeat their kernels' time)
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events = _kernel_events(prof)
+    # host-to-device copies run on the copy engines beside the kernels
+    copies = [e for e in events if e.key.startswith("Memcpy")]
+    kernels = [e for e in events if not e.key.startswith("Memcpy")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     emit({"phase": "profile", "path": path, "queries": len(batch),
           "wall_ms": wall_ms, "device_ms": device_ms,
-          "kernel_launches": sum(e.count for e in events),
+          "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3,
+          "kernel_launches": sum(e.count for e in kernels),
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
           "top": [{"name": e.key[:80], "calls": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
@@ -802,10 +857,7 @@ def profile_build(path, device, x, n_lists: int, top: int = 12):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             synced(fn)
-        events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and e.self_device_time_total > 0]
-        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        events = _kernel_events(prof)
 
         def ms(keys, own=True):
             return sum(e.self_device_time_total for e in events
@@ -867,10 +919,7 @@ def profile_kmeans(device, x, params, top: int = 12):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and e.self_device_time_total > 0]
-        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        events = _kernel_events(prof)
         wall_ms = statistics.median(walls) * 1e3
         device_ms = sum(e.self_device_time_total for e in events) / 1e3
         launches = sum(e.count for e in events)
@@ -1959,6 +2008,480 @@ def lut_scan_phase(device, index, queries, n_probes: int, k: int,
     return row, trow
 
 
+def ivf_pq_per_cluster_path(device, x, reqs, calls, n_queries, truth, qr,
+                            n_lists, n_probes, k):
+    """The IVF-PQ main configuration with PER_CLUSTER codebooks: launch
+    counts reset, build, engine, every query served; B1, B2, B3 and B4's
+    scan mode must launch.  Checks: coalesced equals solo, kernel-path
+    recall within 0.002 of the plain path's on the same index and within
+    ``BUILD_RECALL_TOL`` of a plain-built PER_CLUSTER index's.  Returns
+    (index, launches)."""
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.serve import ServeEngine
+
+    path = "ivf_pq_per_cluster"
+    bp = ivf_pq.IndexParams(n_lists=n_lists,
+                            codebook_kind=ivf_pq.CodebookKind.PER_CLUSTER)
+    _reset(device)
+    t0 = time.perf_counter()
+    index = ivf_pq.build(bp, x, device=device)
+    build_s = _synced_seconds(device, t0)
+    check(index.size == x.shape[0] and index.per_cluster,
+          f"{path} build: wrong index")
+    b3_build = native.LAUNCHES["fused_l2_nn_partials"]
+    check(0 < b3_build <= MAX_PQ_BUILD_B3,
+          f"{path} build launched B3 {b3_build} times (at most "
+          f"{MAX_PQ_BUILD_B3})")
+    params = ivf_pq.SearchParams(n_probes=n_probes)
+    cap = ivf_pq.hoisted_batch_cap(index, n_probes, "float32")
+    emit_build(path, index, build_s,
+               {"b3_launches": b3_build,
+                "codebooks_shape": list(index.codebooks.shape),
+                "pq_dim": index.pq_dim, "batch_cap": cap,
+                "physical_rows": int(index.list_codes.shape[0])})
+    eng = ServeEngine(index, k, params, max_batch=1024)
+    check(eng.max_batch == cap, f"{path}: max_batch {eng.max_batch} is not "
+          f"the batch cap {cap}")
+    results, launches, row = serve_path(path, device, eng, k, reqs, calls,
+                                        n_queries)
+    check(launches["lut_score"] == 0, f"{path}: the scan launched B4's "
+          "per-step raw mode")
+    check_coalesced(path, lambda q: ivf_pq.search(params, index, q, k),
+                    reqs, results)
+    nr = qr.shape[0]
+    r_kernel = recall(_first_ids(results, nr, device), truth)
+    _, ids_plain = ivf_pq.search(params, index, qr, k, engine="torch")
+    r_plain = recall(ids_plain.long(), truth)
+    r_pb, pb_s = plain_build_recall(ivf_pq, bp, params, x, qr, k, truth,
+                                    device)
+    emit({"phase": "checks", "path": path, "coalesced_equals_solo": True,
+          "recall_at_10": r_kernel, "recall_at_10_plain_path": r_plain,
+          "recall_at_10_plain_build": r_pb, "plain_build_s": pb_s,
+          "batch_cap": cap, "qps": row["qps"], "build_s": build_s,
+          "recall_queries": nr})
+    check(abs(r_kernel - r_plain) <= 0.002,
+          f"{path}: kernel-path recall is not within 0.002 of the plain "
+          "path's")
+    check(abs(r_kernel - r_pb) <= BUILD_RECALL_TOL["ivf_pq"],
+          f"{path}: the kernel-built index's recall is not within "
+          f"{BUILD_RECALL_TOL['ivf_pq']} of the plain-built index's")
+    eng.close()
+    return index, launches
+
+
+def _recall_of(search_fn, qr, truth, **kw):
+    _, ids = search_fn(qr, **kw)
+    return recall(ids.long(), truth), ids
+
+
+def ivf_pq_variants_phase(device, index, qr, truth, n_probes, k, rep):
+    """On the main PER_SUBSPACE IVF-PQ index: the float16 sum
+    (``internal_distance_dtype="float16"``) and the legacy search
+    (``hoisted_lut=False``, float32 and fp8 LUTs), each through the
+    kernels and through their plain versions.  The legacy searches run
+    with launch counts reset just before and read just after: B4's raw
+    mode must launch there, its scan mode never.  Then B4's raw mode at
+    the legacy step shape with each float16 sum, against its plain twin.
+    Returns (the legacy path's launches, the raw rows)."""
+    import torch
+
+    from raft_tpu_torch.kernels import ivf_pq_lut as kl
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    out = {"phase": "ivf_pq_variants", "queries": qr.shape[0]}
+    f32 = ivf_pq.SearchParams(n_probes=n_probes)
+    p16 = ivf_pq.SearchParams(n_probes=n_probes,
+                              internal_distance_dtype="float16")
+    r32, _ = _recall_of(lambda q: ivf_pq.search(f32, index, q, k), qr, truth)
+    d16, i16 = ivf_pq.search(p16, index, qr, k)
+    d16p, i16p = ivf_pq.search(p16, index, qr, k, engine="torch")
+    r16, r16p = recall(i16.long(), truth), recall(i16p.long(), truth)
+    gap16 = float((d16 - d16p).abs().max())
+    out.update(recall_at_10_float32=r32, recall_at_10_float16=r16,
+               recall_at_10_float16_plain_path=r16p,
+               float16_max_abs_diff_plain=gap16)
+    check(abs(r16 - r16p) <= 0.002, "ivf_pq float16: kernel-path recall is "
+          "not within 0.002 of the plain path's")
+    # the kernel rounds one float32 sum of the same terms in another order
+    check(gap16 <= 2.0 ** -9 * float(d16p.abs().max()),
+          "ivf_pq float16: distances beyond a float16 step of the plain "
+          "path's")
+    _reset(device)
+    legacy = {}
+    for lut in ("float32", "float8_e4m3"):
+        sp = ivf_pq.SearchParams(n_probes=n_probes, lut_dtype=lut,
+                                 hoisted_lut=False)
+        t0 = time.perf_counter()
+        _, ids = ivf_pq.search(sp, index, qr, k)
+        legacy[lut] = (recall(ids.long(), truth),
+                       _synced_seconds(device, t0))
+    launches = dict(native.LAUNCHES)
+    check(launches["lut_score"] > 0 and launches["lut_scan"] == 0,
+          "ivf_pq legacy: B4's raw mode did not carry the scan")
+    for name in PATH_KERNELS["ivf_pq_legacy"]:
+        check(launches[name] > 0, f"ivf_pq_legacy never launched {name}")
+    p8 = ivf_pq.SearchParams(n_probes=n_probes, lut_dtype="float8_e4m3")
+    r8, _ = _recall_of(lambda q: ivf_pq.search(p8, index, q, k), qr, truth)
+    for lut, (r_leg, secs) in legacy.items():
+        sp = ivf_pq.SearchParams(n_probes=n_probes, lut_dtype=lut,
+                                 hoisted_lut=False)
+        r_plain, _ = _recall_of(lambda q: ivf_pq.search(
+            sp, index, q, k, engine="torch"), qr, truth)
+        out[f"legacy_{lut}"] = dict(recall_at_10=r_leg, seconds=secs,
+                                    qps=qr.shape[0] / secs,
+                                    recall_at_10_plain_path=r_plain)
+        check(abs(r_leg - r_plain) <= 0.002, f"ivf_pq legacy {lut}: "
+              "kernel-path recall is not within 0.002 of the plain path's")
+    out["legacy_launches"] = launches
+    out["recall_at_10_fp8_hoisted"] = r8
+    # the legacy float16 sum reaches the result: on the main (L2Expanded)
+    # index a distance is the float16 sum itself
+    check(index.metric == ivf_pq.DistanceType.L2Expanded,
+          "ivf_pq_variants: the main index is not L2Expanded")
+    dl16, _ = ivf_pq.search(ivf_pq.SearchParams(
+        n_probes=n_probes, hoisted_lut=False,
+        internal_distance_dtype="float16"), index, qr, k)
+    check(torch.equal(dl16, dl16.half().float()), "ivf_pq legacy float16: "
+          "a distance is not a float16 value")
+    out["legacy_float16_distances_are_float16"] = True
+    # the same distance in float32: the two searches rank alike
+    check(abs(legacy["float32"][0] - r32) <= 0.002,
+          "ivf_pq legacy float32: recall not within 0.002 of the hoisted "
+          "search's")
+    emit(out)
+
+    # B4's raw mode at the legacy step: each query's nearest list's first
+    # chunk, a float32 LUT, the two float16 sums
+    from raft_tpu_torch.neighbors.ivf_flat import _coarse_distances
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    nq = qr.shape[0]
+    pq_dim, bits = index.pq_dim, index.pq_bits
+    kcb, cap = 1 << bits, index.capacity
+    code_bytes = index.list_codes.shape[2]
+    probe = torch.argmin(_coarse_distances(qr, index.centers, index.metric),
+                         dim=1)
+    rows = index.chunk_table[probe, 0].contiguous()
+    lut = (torch.rand(nq, pq_dim * kcb, generator=gen, device=device) - 0.3
+           ) * 100.0
+    gathered = index.list_codes[rows.long()]
+    distinct = int(rows.unique().numel())
+    raw = {}
+    for acc, name in ((kl.SUM_HALF_SEQUENTIAL, "half_sequential"),
+                      (kl.SUM_HALF_ONCE, "half_once")):
+        got = kl.lut_score_rows(index.list_codes, rows, lut, pq_dim, bits,
+                                kcb, acc)
+        ref = kl._lut_score_plain(gathered, lut, pq_dim, bits, kcb, acc)
+        mag = kl._lut_score_plain(gathered, lut.abs(), pq_dim, bits, kcb)
+        check(torch.equal(got, got.half().float()),
+              f"lut_score {name}: a sum is not a float16 value")
+        if acc == kl.SUM_HALF_SEQUENTIAL:
+            check(torch.equal(got, ref), "lut_score half_sequential: not "
+                  "bit for bit its plain twin")
+        else:
+            check(bool(((got - ref).abs() <= 2.0 ** -10 * mag).all()),
+                  "lut_score half_once: beyond a float16 step of its plain "
+                  "twin")
+        b, by = bound_ms(distinct * cap * code_bytes + 4.0 * nq * pq_dim * kcb
+                         + 4.0 * nq * cap + 4.0 * nq,
+                         float(nq * cap * pq_dim))
+        raw[name] = dict(
+            shape=[nq, cap, code_bytes, pq_dim, bits],
+            max_abs_err=float((got - ref).abs().max()), bound_ms=b,
+            bound_by=by,
+            ms=timed(lambda: kl.lut_score_rows(index.list_codes, rows, lut,
+                                               pq_dim, bits, kcb, acc),
+                     device, rep),
+            plain_ms=timed(lambda: kl._lut_score_plain(
+                index.list_codes[rows.long()], lut, pq_dim, bits, kcb, acc),
+                device, 3))
+    emit({"phase": "kernel", "name": "lut_score@float16_sums", **raw})
+    return launches, raw
+
+
+def _scan_bound(index, inp, nq, kk):
+    """B4 scan mode's least time for one batch: each distinct row's live
+    codes (and list-side sums) once, the LUTs once, the per-(query, step)
+    rows, bases and LUT slices, the (nq, S, kk) values and slots; one
+    add per live (query, slot) and subspace."""
+    n_steps = inp.phys.shape[1]
+    code_bytes = index.list_codes.shape[2]
+    rows_u = inp.phys.unique().long()
+    live_codes = float(index.phys_sizes[rows_u].long().sum())
+    live = float(index.phys_sizes[inp.phys.long()].long().sum())
+    lut_bytes = inp.tables.numel() * inp.tables.element_size()
+    per_step_in = 4.0 * (2 + (inp.ords is not None))
+    return bound_ms(live_codes * code_bytes + lut_bytes
+                    + (4.0 * live_codes if inp.csum is not None else 0)
+                    + 4.0 * rows_u.numel() + per_step_in * nq * n_steps
+                    + 8.0 * nq * n_steps * kk, live * index.pq_dim)
+
+
+def lut_scan_variants_phase(device, index_pc, index_pq, queries,
+                            n_probes: int, k: int, rep: int):
+    """B4's scan mode on the slice's new inputs: PER_CLUSTER's float32
+    per-probe tables (64 KB each at pq_dim 64 × 256, two in a block's
+    shared memory), the same with the float16 sum, the main index's
+    float32 LUT with the float16 sum, and PER_CLUSTER's fp8 combined
+    tables — each bit for bit against the per-step path (raw mode with
+    the same sum) at the engine's batch, a solo query and 8 queries, and
+    within its tolerance of the plain twin.  Returns the rows."""
+    import torch
+
+    from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
+    from raft_tpu_torch.kernels import ivf_pq_lut as kl
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    out = {}
+    for name, index, lut_name, acc in (
+            ("per_cluster_float32", index_pc, "float32", kl.SUM_FLOAT32),
+            ("per_cluster_float16_sum", index_pc, "float32",
+             kl.SUM_HALF_ONCE),
+            ("per_subspace_float16_sum", index_pq, "float32",
+             kl.SUM_HALF_ONCE),
+            ("per_cluster_fp8", index_pc, "float8_e4m3", kl.SUM_FLOAT32)):
+        kcb = 1 << index.pq_bits
+        kk = min(k, index.capacity)
+        engines = ivf_pq._resolve_engines(index, None)
+        batch = min(1024, ivf_pq.hoisted_batch_cap(index, n_probes, lut_name)
+                    or 1024)
+
+        def setup(nq):
+            q = queries[:nq]
+            probes = ivf_pq.coarse_probes(q, index, n_probes, engines[0])
+            rot_q = _dot_fixed_rows(q, index.rotation.T)
+            inp = ivf_pq.scan_inputs(q, probes, rot_q, index, lut_name)
+            args = (index.list_codes, inp.phys, index.phys_sizes,
+                    inp.tables, inp.ords, inp.base, inp.csum, inp.scale,
+                    index.pq_dim, index.pq_bits, kcb, kk, True)
+
+            def fused():
+                vals, slots = kl.lut_scan_topk(*args, acc=acc)
+                return ivf_pq._select_scanned(vals, slots, inp.phys,
+                                              index.list_indices, k, True,
+                                              engines[0])
+
+            def per_step():
+                return ivf_pq._scan_per_step(inp, index, k, True, *engines,
+                                             acc=acc)
+
+            return inp, args, fused, per_step
+
+        by_q = {}
+        for nq in (batch, 1, 8):
+            inp, args, fused, per_step = setup(nq)
+            native.reset_launches()
+            got = fused()
+            check(native.LAUNCHES["lut_scan"] == 1,
+                  f"lut_scan {name}: not one launch per batch")
+            ref = per_step()
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"lut_scan {name} at {nq} queries: (distances, ids) "
+                  "differ from the per-step path")
+            by_q[nq] = (inp, args, fused, per_step)
+        inp, args, fused, per_step = by_q[batch]
+        vals, _ = kl.lut_scan_topk(*args, acc=acc)
+        pv, _ = kl.lut_scan_topk_plain(*args, acc=acc)
+        fin = torch.isfinite(pv)
+        check(torch.equal(fin, torch.isfinite(vals)),
+              f"lut_scan {name}: finite entries differ from the plain twin")
+        terms = (index.pq_dim * float(inp.tables.float().abs().max())
+                 / (float(inp.scale.min()) if inp.scale is not None
+                    else 1.0))
+        tol = ((2.0 ** -10 if acc else 1e-5) * terms
+               + 1e-5 * (pv.abs() + float(inp.base.abs().max())
+                         + (float(inp.csum.abs().max())
+                            if inp.csum is not None else 0.0)))
+        diff = (vals - pv).abs()
+        check(bool((diff <= tol)[fin].all()),
+              f"lut_scan {name}: beyond its tolerance of the plain twin")
+        b, by = _scan_bound(index, inp, batch, kk)
+        out[name] = dict(
+            shape=[batch, inp.phys.shape[1], index.capacity, index.pq_dim,
+                   index.pq_bits],
+            lut_bytes_per_table=index.pq_dim * kcb
+            * inp.tables.element_size(),
+            max_abs_err=float(diff[fin].max()) if fin.any() else 0.0,
+            bound_ms=b, bound_by=by,
+            ms=timed(lambda: kl.lut_scan_topk(*args, acc=acc), device, rep),
+            plain_ms=timed(lambda: kl.lut_scan_topk_plain(*args, acc=acc),
+                           device, 3),
+            fused_path_ms=timed(fused, device, rep),
+            per_step_path_ms=timed(per_step, device, rep),
+            solo_ms=timed(lambda: kl.lut_scan_topk(*by_q[1][1], acc=acc),
+                          device, rep))
+        emit({"phase": "kernel", "name": f"lut_scan@{name}",
+              "equals_per_step_path_bitwise": True, **out[name]})
+    return out
+
+
+def _index_bytes(index) -> int:
+    import torch
+
+    return int(sum(v.numel() * v.element_size() for v in vars(index).values()
+                   if isinstance(v, torch.Tensor)))
+
+
+def tiered_path(kind, device, index, x, resident, q_host, reqs, calls,
+                n_queries, qr, truth, n_probes, k, smi, seed):
+    """A built index tiered (hot_fraction 0.25, the default tile_phys;
+    IVF-PQ with ``dataset=x`` for the refine store) and served by a
+    tiered ``ServeEngine`` over every query: launch counts reset just
+    before the tier and read right after serving.  Checks: every
+    request's (distances, ids) equal the resident engine's bit for bit
+    (*resident*: the serve phase's results); IVF-PQ with
+    ``refine_ratio=4`` lifts recall@10 by at least 0.05;
+    ``refresh(retier(...))`` from the searcher's hotness under
+    ``submit()`` traffic resolves every request bit for bit;
+    ``save_tiered`` / ``load_tiered`` give the same bits, the load
+    putting less than the resident index on the card.  Returns the
+    launches."""
+    import shutil
+
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, serialize, tiering
+    from raft_tpu_torch.serve import ServeEngine
+
+    path = f"tiered_{kind}"
+    mod = ivf_flat if kind == "ivf_flat" else ivf_pq
+    params = mod.SearchParams(n_probes=n_probes)
+    _reset(device)
+    t0 = time.perf_counter()
+    t = tiering.tier(index, hot_fraction=0.25,
+                     dataset=x if kind == "ivf_pq" else None)
+    tier_s = _synced_seconds(device, t0)
+    eng = ServeEngine(t, k, params, max_batch=1024)
+    c0 = dict(tiering.tier_counters)
+    results, launches, row = serve_path(path, device, eng, k, reqs, calls,
+                                        n_queries)
+    c1 = dict(tiering.tier_counters)
+    for (d, i), (rd, ri) in zip(results, resident):
+        check(np.array_equal(i, ri) and np.array_equal(d, rd),
+              f"{path}: a request's results differ from the resident "
+              "engine's")
+    stats = eng._health()["tiering"]
+    # every dispatch, the warm ones too, runs the hot phase once
+    batches = c1.get("hot_dispatches", 0) - c0.get("hot_dispatches", 0)
+    searcher = eng._backend.searcher
+    # the staging rate: one tile, pinned, copied on a lane and waited on
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tensors, ev = searcher._stage(t.cold_tiles[0], 0, "prefetch_bytes")
+    if ev is not None:
+        ev.synchronize()
+    stage_s = time.perf_counter() - t0
+    del tensors
+    out = {"phase": "tiered", "path": path, "card": smi, "tier_s": tier_s,
+           "tier_stats": stats, "resident_device_bytes": _index_bytes(index),
+           "device_share": stats["device_bytes"] / _index_bytes(index),
+           "qps": row["qps"], "serve_s": row["serve_s"],
+           "dispatches": batches,
+           "cold_tiles_per_batch": (c1.get("cold_tiles", 0)
+                                    - c0.get("cold_tiles", 0)) / batches,
+           "prefetch_bytes_per_batch": (c1.get("prefetch_bytes", 0)
+                                        - c0.get("prefetch_bytes", 0))
+           / batches,
+           "tile_copy_s": stage_s,
+           "staging_gb_per_s": t.tile_bytes() / stage_s / 1e9,
+           "equals_resident_bitwise": True}
+    nr = qr.shape[0]
+    r_tiered = recall(_first_ids(results, nr, device), truth)
+    out["recall_at_10"] = r_tiered
+    if kind == "ivf_pq":
+        rp = ivf_pq.SearchParams(n_probes=n_probes, refine_ratio=4)
+        t0 = time.perf_counter()
+        _, ids = tiering.search(t, qr, k, params=rp)
+        refine_s = _synced_seconds(device, t0)
+        r_ref = recall(ids.long(), truth)
+        out.update(recall_at_10_refined=r_ref, refine_ratio=4,
+                   refined_qps=nr / refine_s)
+        check(r_ref >= r_tiered + 0.05, f"{path}: refine_ratio=4 recall "
+              f"{r_ref} is not at least the unrefined {r_tiered} + 0.05")
+    # re-tiering from the served counts, swapped in under traffic
+    hot = searcher.hotness()
+    check(int(hot.sum()) > 0, f"{path}: no probe was counted")
+    t2 = tiering.retier(t, hot)
+    eng2 = ServeEngine(t, k, params, max_batch=1024)
+    eng2.warmup()
+    ref_d = np.concatenate([r[0] for r in resident])
+    ref_i = np.concatenate([r[1] for r in resident])
+    offsets = np.cumsum([0] + [q.shape[0] for q in reqs[:-1]])
+    t0 = time.perf_counter()
+    outs = _stream_pass(eng2, reqs, 0.5 * row["qps"], None, seed,
+                        during=lambda: eng2.refresh(t2))[0]
+    out["retier_under_traffic_s"] = time.perf_counter() - t0
+    _check_stream(path, outs, reqs, offsets, ref_d, ref_i,
+                  rejections_ok=False)
+    check(eng2.stats["refreshes"] == 1,
+          f"{path}: refreshes {eng2.stats['refreshes']} != 1")
+    out["retier_hot_lists_changed"] = int((t2.hot_lists != t.hot_lists).sum())
+    eng2.close()
+    eng.close()
+    # the archive: saved, loaded, the same bits
+    ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        serialize.save_tiered(ARCHIVE_DIR / path, t)
+        out["save_s"] = time.perf_counter() - t0
+        out["archive_bytes"] = (ARCHIVE_DIR / f"{path}.npz").stat().st_size
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        back = serialize.load_tiered(ARCHIVE_DIR / path, device=device)
+        out["load_s"] = _synced_seconds(device, t0)
+        check(all(v.device.type == "cpu" for v in back.host.values()
+                  if isinstance(v, torch.Tensor)),
+              f"{path}: the loaded archive's family leaves left the host")
+        if device.type == "cuda":
+            # only the model tables and the hot block go to the card
+            out["load_peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                             - base)
+            check(out["load_peak_device_bytes"] < _index_bytes(index),
+                  f"{path}: loading the archive took "
+                  f"{out['load_peak_device_bytes']} device bytes, not less "
+                  f"than the resident index's {_index_bytes(index)}")
+        a = tiering.search(t, qr, k, params=params)
+        b = tiering.search(back, qr, k, params=params)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"{path}: the loaded archive searches differently")
+        out["archive_bitwise"] = True
+    finally:
+        shutil.rmtree(ARCHIVE_DIR, ignore_errors=True)
+    emit(out)
+    if device.type == "cuda":   # the busy share of one super-batch
+        profile_serve(path, ServeEngine(t, k, params, max_batch=1024),
+                      q_host, device)
+    return launches
+
+
+def approx_knn_phase(device, index_flat, index_pq, queries, n_probes, k):
+    """``approx_knn_search`` over the built IVF-Flat and IVF-PQ indexes
+    equals each family's ``search`` bit for bit."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ann, ivf_flat, ivf_pq
+
+    q = queries[:1024]
+    out = {"phase": "approx_knn", "queries": q.shape[0]}
+    for name, idx, mod in (("ivf_flat", index_flat, ivf_flat),
+                           ("ivf_pq", index_pq, ivf_pq)):
+        kw = {f"{name}_index": idx}
+        knn_index = ann.KnnIndex(idx.metric, 2.0, n_probes, **kw)
+        got = ann.approx_knn_search(knn_index, q, k)
+        ref = mod.search(mod.SearchParams(n_probes=n_probes), idx, q, k)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"approx_knn_search over {name} differs from its search")
+        out[f"{name}_equals_family_search"] = True
+    emit(out)
+
+
 def check_knn(name, d, i, ref_d, ref_i, tie_d):
     """(nq, k) distances and ids against a reference: distances to rtol
     1e-5; ids equal except at near ties, where a position's distance in
@@ -2573,6 +3096,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         return mixture(gen_m, rows, dim, comps, 0.7, device)
 
     eng_flat, launches_flat, served = ivf_flat_path(*args)
+    resident_flat = served.results
     stream_flat = serve_stream("ivf_flat", device, served, q_host, n_queries,
                                smi, seed)
     mut_flat = mutable_path(
@@ -2581,11 +3105,25 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         ivf_flat.SearchParams(n_probes=n_probes), calls, n_queries, qr,
         truth, k, fresh, smi, seed)
     index_pq, eng_pq, launches_pq, served = ivf_pq_path(*args)
+    resident_pq = served.results
     stream_pq = serve_stream("ivf_pq", device, served, q_host, n_queries,
                              smi, seed, refresh_index=index_pq)
     rows["lut_score"] = lut_phase(device, index_pq, queries, rep)
     rows["lut_scan"], rows["lut_scan_tombstones"] = lut_scan_phase(
         device, index_pq, queries, n_probes, k, rep, seed)
+    index_pc, launches_pc = ivf_pq_per_cluster_path(*args)
+    launches_legacy, rows["lut_score"]["by_sum"] = ivf_pq_variants_phase(
+        device, index_pq, qr, truth, n_probes, k, rep)
+    rows["lut_scan"]["by_variant"] = lut_scan_variants_phase(
+        device, index_pc, index_pq, queries, n_probes, k, rep)
+    del index_pc
+    tiered_args = (q_host, reqs, calls, n_queries, qr, truth, n_probes, k,
+                   smi, seed)
+    launches_tf = tiered_path("ivf_flat", device, eng_flat.index, x,
+                              resident_flat, *tiered_args)
+    launches_tp = tiered_path("ivf_pq", device, index_pq, x, resident_pq,
+                              *tiered_args)
+    approx_knn_phase(device, eng_flat.index, index_pq, queries, n_probes, k)
     mut_pq = mutable_path(
         "ivf_pq", device, index_pq, x, ivf_pq.IndexParams(n_lists=n_lists),
         ivf_pq.SearchParams(n_probes=n_probes), calls, n_queries, qr, truth,
@@ -2601,7 +3139,9 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
                "ivf_flat_mutable": mut_flat,
                "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
-               "ivf_pq_mutable": mut_pq,
+               "ivf_pq_mutable": mut_pq, "ivf_pq_per_cluster": launches_pc,
+               "ivf_pq_legacy": launches_legacy,
+               "tiered_ivf_flat": launches_tf, "tiered_ivf_pq": launches_tp,
                "brute_force": launches_bf, "brute_force_stream": stream_bf,
                **launches_km}
     for name, fields in km_rows.items():

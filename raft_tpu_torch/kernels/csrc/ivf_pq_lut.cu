@@ -5,7 +5,8 @@
 //
 // A candidate's score is sum over m of lut[m * 2^bits + code[m]], the codes
 // bit-packed LSB-first, pq_bits (4..8) bits each (at 5-7 bits a code
-// straddles two bytes), summed in float32 in m order by one thread.
+// straddles two bytes), summed in m order by one thread (in float32, or
+// under ACC in float16, below).
 //
 // Raw mode (raft_lut_score) is the TPU kernel's function: out[q, c] for
 // every slot c of the row rows[q] of the index's (n_rows, cap, code_bytes)
@@ -64,6 +65,15 @@
 // the next step; a step with none costs none.  A winner at the worst
 // value is scored again from the packed codes, so a NaN score comes back
 // NaN, as the plain select's read-back gives it.
+//
+// Accumulation (acc_mode, the IVF-PQ search's internal_distance_dtype; the
+// kernel's ACC template parameter, chosen at launch): 0 sums the float32
+// terms in float32; 1 rounds each term to float16, sums in float32 and
+// rounds the sum once to float16 (what XLA's float16 reduction on the CPU
+// gives, the hoisted search's float16 sum); 2, raw mode only, rounds each
+// term to float16 and adds them in float16 with __hadd in m order (the
+// legacy search's running float16 sum).  The score leaves as a float32,
+// the epilogue following in float32.
 //
 // Bound: memory.  Scan mode reads each live candidate's code bytes once,
 // each query's LUT once, and writes (nq, S, kk) values and slots; raw
@@ -144,6 +154,7 @@ struct Params {
   const uint32_t* tomb;   // scan: (n_words,) tombstone bitmap, with ids
   int n_words;
   int kk, select_min;
+  int acc_mode;           // ACC (header): picks the instantiation
   float* out;             // raw: (nq, cap)
   float* out_v;           // scan: (nq, S, kk)
   int* out_s;             // scan: (nq, S, kk) slots
@@ -152,13 +163,38 @@ struct Params {
   int lut_bufs;           // LUT buffers in shared memory (0: global)
 };
 
+// the running sum of one candidate under ACC (header)
+template <int ACC>
+struct Acc {
+  float s = 0.f;
+  __device__ __forceinline__ void add(float v) {
+    if constexpr (ACC == 1) {
+      s += __half2float(__float2half_rn(v));
+    } else {
+      s += v;
+    }
+  }
+  __device__ __forceinline__ float get() const {
+    if constexpr (ACC == 1) return __half2float(__float2half_rn(s));
+    return s;
+  }
+};
+template <>
+struct Acc<2> {
+  __half s = __float2half_rn(0.f);
+  __device__ __forceinline__ void add(float v) {
+    s = __hadd(s, __float2half_rn(v));
+  }
+  __device__ __forceinline__ float get() const { return __half2float(s); }
+};
+
 // one candidate's sum over its codes at `row` (16-byte aligned, padded),
 // in m order
-template <bool BYTE, typename T>
+template <int ACC, bool BYTE, typename T>
 __device__ __forceinline__ float score_row(const uint8_t* row, const T* lut,
                                            int pq_dim, int bits) {
   const uint4* rp = reinterpret_cast<const uint4*>(row);
-  float acc = 0.f;
+  Acc<ACC> acc;
   if constexpr (BYTE) {
     for (int j = 0; j * 16 < pq_dim; ++j) {
       const uint4 v = rp[j];
@@ -168,7 +204,7 @@ __device__ __forceinline__ float score_row(const uint8_t* row, const T* lut,
         const int m = j * 16 + t;
         if (m < pq_dim) {
           const uint32_t code = (w[t >> 2] >> (8 * (t & 3))) & 0xffu;
-          acc += to_float(lut[(m << 8) + code]);
+          acc.add(to_float(lut[(m << 8) + code]));
         }
       }
     }
@@ -186,7 +222,7 @@ __device__ __forceinline__ float score_row(const uint8_t* row, const T* lut,
         buf |= static_cast<uint64_t>(w[t]) << nb;
         nb += 32;
         while (nb >= bits && m < pq_dim) {
-          acc += to_float(lut[(m << bits) + static_cast<int>(buf & mask)]);
+          acc.add(to_float(lut[(m << bits) + static_cast<int>(buf & mask)]));
           buf >>= bits;
           nb -= bits;
           ++m;
@@ -194,23 +230,23 @@ __device__ __forceinline__ float score_row(const uint8_t* row, const T* lut,
       }
     }
   }
-  return acc;
+  return acc.get();
 }
 
 // the same sum read byte by byte from the packed codes in global memory
-template <typename T>
+template <int ACC, typename T>
 __device__ float score_packed(const uint8_t* p, const T* lut, int pq_dim,
                               int bits, int code_bytes) {
   const uint32_t mask = (1u << bits) - 1u;
-  float acc = 0.f;
+  Acc<ACC> acc;
   for (int m = 0; m < pq_dim; ++m) {
     const int off = m * bits;
     const int lo = off >> 3;
     uint32_t two = p[lo];
     if (lo + 1 < code_bytes) two |= static_cast<uint32_t>(p[lo + 1]) << 8;
-    acc += to_float(lut[(m << bits) + ((two >> (off & 7)) & mask)]);
+    acc.add(to_float(lut[(m << bits) + ((two >> (off & 7)) & mask)]));
   }
-  return acc;
+  return acc.get();
 }
 
 // copy the codes of candidates [c, c + nc) of a row into `buf` (rows of
@@ -283,7 +319,7 @@ struct Slab {
   int row, a, b;
 };
 
-template <bool BYTE, typename T, int MODE, bool SMEM_LUT>
+template <int ACC, bool BYTE, typename T, int MODE, bool SMEM_LUT>
 __global__ void __launch_bounds__(32 * MAX_WARPS, 2)
 lut_kernel(const Params P) {
   constexpr bool SCAN = MODE != RAW;
@@ -427,8 +463,9 @@ lut_kernel(const Params P) {
         const bool valid = c < cur.b;
         float acc = 0.f;
         if (valid) {
-          acc = score_row<BYTE, T>(cbuf + rbuf * stride + lane * P.code_stride,
-                                   lut, P.pq_dim, P.bits);
+          acc = score_row<ACC, BYTE, T>(
+              cbuf + rbuf * stride + lane * P.code_stride, lut, P.pq_dim,
+              P.bits);
         }
         rbuf ^= 1;
         use(c, valid, acc);
@@ -520,7 +557,7 @@ lut_kernel(const Params P) {
               const uint32_t ord = static_cast<uint32_t>(key >> 32);
               v = value_of(ord, mn);
               if (ord == worst) {   // inf or NaN: the exact value
-                v = finish(slot, score_packed<T>(
+                v = finish(slot, score_packed<ACC, T>(
                                      cur.rowp + static_cast<int64_t>(slot) *
                                                     P.code_bytes,
                                      lut, P.pq_dim, P.bits, P.code_bytes));
@@ -569,10 +606,10 @@ cudaError_t device_info(int dev, int* sms, int* optin) {
   return cudaSuccess;
 }
 
-template <bool BYTE, typename T, int MODE, bool SMEM_LUT>
+template <int ACC, bool BYTE, typename T, int MODE, bool SMEM_LUT>
 int launch_kernel(const Params& P, dim3 grid, int warps, int smem, int dev,
                   cudaStream_t s) {
-  auto kernel = lut_kernel<BYTE, T, MODE, SMEM_LUT>;
+  auto kernel = lut_kernel<ACC, BYTE, T, MODE, SMEM_LUT>;
   // above 48 KB (static and dynamic together) a block gets shared memory
   // only after opting in; this instantiation's opted-in size on each
   // device (set at its first launch, whatever the size)
@@ -587,13 +624,40 @@ int launch_kernel(const Params& P, dim3 grid, int warps, int smem, int dev,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BYTE, typename T, int MODE>
+template <int ACC, bool BYTE, typename T, int MODE>
+int launch_smem(const Params& P, dim3 grid, int warps, int smem, int dev,
+                cudaStream_t s) {
+  if (P.lut_bufs > 0) {
+    return launch_kernel<ACC, BYTE, T, MODE, true>(P, grid, warps, smem, dev,
+                                                   s);
+  }
+  return launch_kernel<ACC, BYTE, T, MODE, false>(P, grid, warps, smem, dev,
+                                                  s);
+}
+
+template <int ACC, typename T, int MODE>
+int launch_bits(const Params& P, dim3 grid, int warps, int smem, int dev,
+                cudaStream_t s) {
+  if (P.bits == 8) {
+    return launch_smem<ACC, true, T, MODE>(P, grid, warps, smem, dev, s);
+  }
+  return launch_smem<ACC, false, T, MODE>(P, grid, warps, smem, dev, s);
+}
+
+// the instantiation of P.acc_mode, P.bits and P.lut_bufs; scan mode has
+// ACC 0 and 1 only
+template <typename T, int MODE>
 int launch_lut(const Params& P, dim3 grid, int warps, int smem, int dev,
                cudaStream_t s) {
-  if (P.lut_bufs > 0) {
-    return launch_kernel<BYTE, T, MODE, true>(P, grid, warps, smem, dev, s);
+  if (P.acc_mode == 1) {
+    return launch_bits<1, T, MODE>(P, grid, warps, smem, dev, s);
   }
-  return launch_kernel<BYTE, T, MODE, false>(P, grid, warps, smem, dev, s);
+  if constexpr (MODE == RAW) {
+    if (P.acc_mode == 2) {
+      return launch_bits<2, T, MODE>(P, grid, warps, smem, dev, s);
+    }
+  }
+  return launch_bits<0, T, MODE>(P, grid, warps, smem, dev, s);
 }
 
 // Fill the layout fields of P (code rows, copy width, warps, LUT buffers)
@@ -636,8 +700,7 @@ int raw(Params P, int nq, int dev, cudaStream_t s) {
   P.slots_per_block = (P.cap + tiles - 1) / tiles;
   tiles = (P.cap + P.slots_per_block - 1) / P.slots_per_block;
   const dim3 grid(nq, tiles);
-  if (P.bits == 8) return launch_lut<true, T, RAW>(P, grid, warps, smem, dev, s);
-  return launch_lut<false, T, RAW>(P, grid, warps, smem, dev, s);
+  return launch_lut<T, RAW>(P, grid, warps, smem, dev, s);
 }
 
 // Blocks per step: one, unless the batch is too small to give every SM two
@@ -669,8 +732,7 @@ int scan_e(Params P, int nq, int dev, cudaStream_t s) {
   P.steps_per_block = (P.S + groups - 1) / groups;
   groups = (P.S + P.steps_per_block - 1) / P.steps_per_block;
   const dim3 grid(nq, groups * P.tiles);
-  if (P.bits == 8) return launch_lut<true, T, E>(P, grid, warps, smem, dev, s);
-  return launch_lut<false, T, E>(P, grid, warps, smem, dev, s);
+  return launch_lut<T, E>(P, grid, warps, smem, dev, s);
 }
 
 template <typename T>
@@ -682,7 +744,8 @@ int scan(const Params& P, int nq, int dev, cudaStream_t s) {
 
 // the LUT's bulk copies need 16-byte aligned rows
 bool bad_shape(const Params& P) {
-  return P.n_rows < 1 || P.bits < 4 || P.bits > 8 ||
+  return P.n_rows < 1 || P.bits < 4 || P.bits > 8 || P.acc_mode < 0 ||
+         P.acc_mode > 2 ||
          P.code_bytes * 8 < P.pq_dim * P.bits ||
          (reinterpret_cast<uintptr_t>(P.lut) & 15) != 0;
 }
@@ -690,13 +753,13 @@ bool bad_shape(const Params& P) {
 }  // namespace
 
 // Raw mode.  lut (nq, pq_dim << pq_bits) of lut_dtype (0 float32,
-// 1 bfloat16, 2 float16, 3 float8 e4m3); out (nq, cap) float32; device is
-// the CUDA device the stream belongs to
+// 1 bfloat16, 2 float16, 3 float8 e4m3); out (nq, cap) float32; acc_mode
+// 0, 1 or 2 (header); device is the CUDA device the stream belongs to
 extern "C" int raft_lut_score(const uint8_t* codes, const int* rows,
                               const void* lut, float* out, int nq,
                               int n_rows, int cap, int code_bytes,
                               int pq_dim, int pq_bits, int lut_dtype,
-                              int device, void* stream) {
+                              int acc_mode, int device, void* stream) {
   if (nq == 0 || cap == 0) return 0;
   Params P = {};
   P.codes = codes;
@@ -711,6 +774,7 @@ extern "C" int raft_lut_score(const uint8_t* codes, const int* rows,
   P.F = pq_dim << pq_bits;
   P.lut_stride = P.F;
   P.out = out;
+  P.acc_mode = acc_mode;
   if (bad_shape(P)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lut_dtype) {
@@ -739,7 +803,7 @@ extern "C" int raft_lut_scan_tiles(int nq, int S, int cap, int device) {
 // raft_lut_scan_tiles, and when it is above 1, scratch of
 // nq * S * tiles * 128 keys and counts of nq * S zeros (left zeroed);
 // ids (n_rows, cap) and tomb (n_words,) both null, or both given (the
-// tombstone mask)
+// tombstone mask); acc_mode 0 or 1 (header)
 extern "C" int raft_lut_scan(const uint8_t* codes, const int* phys,
                              const int* sizes, const void* lut,
                              const int* probe_ord, int n_luts,
@@ -750,7 +814,8 @@ extern "C" int raft_lut_scan(const uint8_t* codes, const int* phys,
                              int lut_dtype, int kk, int select_min,
                              int tiles, uint64_t* scratch, int* counts,
                              const int* ids, const uint32_t* tomb,
-                             int n_words, int device, void* stream) {
+                             int n_words, int acc_mode, int device,
+                             void* stream) {
   if (nq == 0 || S == 0) return 0;
   Params P = {};
   P.codes = codes;
@@ -779,7 +844,9 @@ extern "C" int raft_lut_scan(const uint8_t* codes, const int* phys,
   P.ids = ids;
   P.tomb = tomb;
   P.n_words = n_words;
-  if (bad_shape(P) || kk < 1 || kk > 128 || kk > cap || n_luts < 1 ||
+  P.acc_mode = acc_mode;
+  if (bad_shape(P) || acc_mode > 1 || kk < 1 || kk > 128 || kk > cap ||
+      n_luts < 1 ||
       (ids == nullptr) != (tomb == nullptr) ||
       (tomb != nullptr && n_words < 1) ||
       (n_luts > 1 && probe_ord == nullptr) || tiles < 1 || tiles > 8 ||

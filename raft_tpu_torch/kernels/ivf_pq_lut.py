@@ -31,6 +31,16 @@ One kernel, two modes, one launch counter each:
   candidates among its best loses no live one), and a step's fill
   entries get slot −1.
 
+Both modes take ``acc``, the sum's type (the IVF-PQ search's
+``internal_distance_dtype``): :data:`SUM_FLOAT32` sums the float32 terms in
+float32; :data:`SUM_HALF_ONCE` rounds each term to float16, sums in
+float32 and rounds the sum once to float16 (XLA's float16 reduction on
+the CPU, the JAX package's hoisted search); :data:`SUM_HALF_SEQUENTIAL`,
+raw mode only, rounds each term to float16 and adds them in float16 in
+subspace order (the JAX package's legacy search, which scores step by
+step).  The plain versions take it too.  Each sum type is an
+instantiation of the kernel of its own.
+
 A tensor on the CPU runs the plain versions; a CUDA tensor launches the
 kernel or raises.  The kernel takes a LUT row of any width: a row larger
 than what a block's shared memory has left is read from global memory.
@@ -48,6 +58,8 @@ from raft_tpu_torch.kernels import native
 #: the LUT types the kernel is instantiated for, by their C code
 LUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.float8_e4m3fn: 3}
+#: the sum's type (module docstring), by its C code
+SUM_FLOAT32, SUM_HALF_ONCE, SUM_HALF_SEQUENTIAL = 0, 1, 2
 
 
 def _aligned(lut: torch.Tensor) -> torch.Tensor:
@@ -74,19 +86,28 @@ def unpack_codes(packed: torch.Tensor, pq_dim: int, pq_bits: int
 
 
 def _lut_score_plain(codes_packed: torch.Tensor, lut: torch.Tensor,
-                     pq_dim: int, pq_bits: int, kcb: int) -> torch.Tensor:
+                     pq_dim: int, pq_bits: int, kcb: int,
+                     acc: int = SUM_FLOAT32) -> torch.Tensor:
     """The plain version: (nq, cap, code_bytes) uint8 codes, (nq, pq_dim·kcb)
     LUT → (nq, cap) float32, each LUT entry widened to float32 (exact)
-    before the sum."""
+    before the sum, which *acc* types (module docstring)."""
     nq, cap = codes_packed.shape[0], codes_packed.shape[1]
     codes = unpack_codes(codes_packed, pq_dim, pq_bits).long()
     offsets = torch.arange(pq_dim, device=codes.device) * kcb
     flat = (codes + offsets).reshape(nq, cap * pq_dim)
-    got = torch.gather(lut.float(), 1, flat)
-    return torch.sum(got.reshape(nq, cap, pq_dim), dim=-1)
+    got = torch.gather(lut.float(), 1, flat).reshape(nq, cap, pq_dim)
+    if acc == SUM_HALF_SEQUENTIAL:
+        terms = got.half()
+        out = torch.zeros((nq, cap), dtype=torch.float16, device=got.device)
+        for m in range(pq_dim):
+            out = out + terms[..., m]
+        return out.float()
+    if acc == SUM_HALF_ONCE:
+        return torch.sum(got.half().float(), dim=-1).half().float()
+    return torch.sum(got, dim=-1)
 
 
-def _check(list_codes, rows, lut, pq_dim, pq_bits, kcb):
+def _check(list_codes, rows, lut, pq_dim, pq_bits, kcb, acc):
     expects(list_codes.ndim == 3 and list_codes.dtype == torch.uint8,
             "lut_score: codes must be (rows, cap, code_bytes) uint8")
     expects(4 <= pq_bits <= 8 and kcb == 1 << pq_bits,
@@ -100,18 +121,21 @@ def _check(list_codes, rows, lut, pq_dim, pq_bits, kcb):
     expects(list_codes.device == rows.device == lut.device,
             "lut_score: codes, rows and lut on one device")
     expects(lut.dtype in LUT_DTYPES, f"lut_score: LUT type {lut.dtype}")
+    expects(acc in (SUM_FLOAT32, SUM_HALF_ONCE, SUM_HALF_SEQUENTIAL),
+            f"lut_score: acc={acc}")
 
 
 def lut_score_rows(list_codes: torch.Tensor, rows: torch.Tensor,
-                   lut: torch.Tensor, pq_dim: int, pq_bits: int, kcb: int
-                   ) -> torch.Tensor:
-    """Scores (nq, cap) f32 of ``list_codes[rows[q]]`` against ``lut[q]``;
-    the kernel reads each query's row of the code block in place (a row
-    outside the block is clamped into it)."""
-    _check(list_codes, rows, lut, pq_dim, pq_bits, kcb)
+                   lut: torch.Tensor, pq_dim: int, pq_bits: int, kcb: int,
+                   acc: int = SUM_FLOAT32) -> torch.Tensor:
+    """Scores (nq, cap) f32 of ``list_codes[rows[q]]`` against ``lut[q]``,
+    summed as *acc* says; the kernel reads each query's row of the code
+    block in place (a row outside the block is clamped into it)."""
+    _check(list_codes, rows, lut, pq_dim, pq_bits, kcb, acc)
     if lut.device.type == "cpu":
         rows = torch.clamp(rows.long(), 0, list_codes.shape[0] - 1)
-        return _lut_score_plain(list_codes[rows], lut, pq_dim, pq_bits, kcb)
+        return _lut_score_plain(list_codes[rows], lut, pq_dim, pq_bits, kcb,
+                                acc)
     expects(lut.device.type == "cuda", f"lut_score: device {lut.device}")
     nq, cap = rows.shape[0], list_codes.shape[1]
     codes = list_codes.contiguous()
@@ -123,7 +147,7 @@ def lut_score_rows(list_codes: torch.Tensor, rows: torch.Tensor,
                              lut.data_ptr(), out.data_ptr(), nq,
                              codes.shape[0], cap, codes.shape[2],
                              int(pq_dim), int(pq_bits), LUT_DTYPES[lut.dtype],
-                             lut.device.index,
+                             int(acc), lut.device.index,
                              native.stream_handle(lut.device))
     native.check(lib, err, "lut_score_kernel")
     native.LAUNCHES["lut_score"] += 1
@@ -144,7 +168,7 @@ def _lut_slice(lut: torch.Tensor, probe_ord: Optional[torch.Tensor],
 
 def _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
                 list_csum, scale, pq_dim, pq_bits, kcb, kk, list_indices,
-                tomb_words):
+                tomb_words, acc):
     nq, n_steps = phys.shape
     cap = list_codes.shape[1]
     expects(list_codes.ndim == 3 and list_codes.dtype == torch.uint8,
@@ -179,13 +203,17 @@ def _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
                                    and tomb_words.dtype in (torch.int32,
                                                             torch.uint32)),
             "lut_scan: tomb_words must be (n_words,) int32 or uint32")
+    expects(acc in (SUM_FLOAT32, SUM_HALF_ONCE),
+            f"lut_scan: acc={acc} (the sequential float16 sum is raw "
+            "mode's)")
 
 
 def lut_scan_topk_plain(list_codes, phys, phys_sizes, lut, probe_ord, base,
                         list_csum, scale, pq_dim: int, pq_bits: int,
                         kcb: int, kk: int, select_min: bool = True,
                         list_indices: Optional[torch.Tensor] = None,
-                        tomb_words: Optional[torch.Tensor] = None
+                        tomb_words: Optional[torch.Tensor] = None, *,
+                        acc: int = SUM_FLOAT32
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin of scan mode, step by step: (values (nq, S, kk)
     float32, slots (nq, S, kk) int32).  Under a tombstone mask a step's
@@ -197,7 +225,7 @@ def lut_scan_topk_plain(list_codes, phys, phys_sizes, lut, probe_ord, base,
 
     _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
                 list_csum, scale, pq_dim, pq_bits, kcb, kk, list_indices,
-                tomb_words)
+                tomb_words, acc)
     nq, n_steps = phys.shape
     cap = list_codes.shape[1]
     dev = list_codes.device
@@ -209,7 +237,7 @@ def lut_scan_topk_plain(list_codes, phys, phys_sizes, lut, probe_ord, base,
     for s in range(n_steps):
         row = phys[:, s].long()
         d = _lut_score_plain(list_codes[row], _lut_slice(lut2, probe_ord, s),
-                             pq_dim, pq_bits, kcb)
+                             pq_dim, pq_bits, kcb, acc)
         if scale is not None:
             d = d / scale[:, None]
         d = d + base[:, s, None]
@@ -240,7 +268,8 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
                   scale: Optional[torch.Tensor], pq_dim: int, pq_bits: int,
                   kcb: int, kk: int, select_min: bool = True,
                   list_indices: Optional[torch.Tensor] = None,
-                  tomb_words: Optional[torch.Tensor] = None
+                  tomb_words: Optional[torch.Tensor] = None, *,
+                  acc: int = SUM_FLOAT32
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan mode: each query's S physical rows ``phys`` (nq, S) scored on
     their live slots (below ``phys_sizes[row]``) against the query's LUT
@@ -252,15 +281,16 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
     ``list_indices`` (rows, cap) int32 and ``tomb_words`` (n_words,) a
     slot whose id has its bit set is dead too (the id clamped into the
     bitmap, as ``_common.tombstone_hit`` does), and the fill's slots are
-    −1.  Returns (values (nq, S, kk) float32, slots (nq, S, kk) int32)."""
+    −1.  The raw sum is typed by *acc* (module docstring).  Returns
+    (values (nq, S, kk) float32, slots (nq, S, kk) int32)."""
     if lut.device.type == "cpu":
         return lut_scan_topk_plain(list_codes, phys, phys_sizes, lut,
                                    probe_ord, base, list_csum, scale, pq_dim,
                                    pq_bits, kcb, kk, select_min,
-                                   list_indices, tomb_words)
+                                   list_indices, tomb_words, acc=acc)
     _check_scan(list_codes, phys, phys_sizes, lut, probe_ord, base,
                 list_csum, scale, pq_dim, pq_bits, kcb, kk, list_indices,
-                tomb_words)
+                tomb_words, acc)
     expects(lut.device.type == "cuda", f"lut_scan: device {lut.device}")
     tensors = [list_codes, phys, phys_sizes, base] + [
         t for t in (probe_ord, list_csum, scale, list_indices, tomb_words)
@@ -312,7 +342,8 @@ def lut_scan_topk(list_codes: torch.Tensor, phys: torch.Tensor,
             0 if counts is None else counts.data_ptr(),
             0 if ids is None else ids.data_ptr(),
             0 if words is None else words.data_ptr(),
-            0 if words is None else words.shape[0], lut.device.index,
+            0 if words is None else words.shape[0], int(acc),
+            lut.device.index,
             native.stream_handle(lut.device))
         native.check(lib, err, "lut_scan_kernel")
         native.LAUNCHES["lut_scan" if words is None

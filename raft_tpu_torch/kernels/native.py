@@ -145,16 +145,16 @@ _SIGNATURES = {
     },
     "ivf_pq_lut": {
         # codes, rows, lut, out, nq, n_rows, cap, code_bytes, pq_dim,
-        # pq_bits, lut_dtype, device, stream
+        # pq_bits, lut_dtype, acc_mode, device, stream
         "raft_lut_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+                           _I, _P],
         # codes, phys, sizes, lut, probe_ord, n_luts, base, csum, scale,
         # out_v, out_s, nq, S, n_rows, cap, code_bytes, pq_dim, pq_bits,
         # lut_dtype, kk, select_min, tiles, scratch, counts, ids, tomb_words,
-        # n_words, device, stream
+        # n_words, acc_mode, device, stream
         "raft_lut_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                          _P, _I, _I, _P],
+                          _P, _I, _I, _I, _P],
         # nq, S, cap, device -> blocks per step, or a negated error code
         "raft_lut_scan_tiles": [_I, _I, _I, _I],
     },

@@ -83,6 +83,8 @@ class SearchParams:
     """Reference ``ivf_flat::search_params`` (ivf_flat_types.hpp:118)."""
 
     n_probes: int = 20
+    # exact re-rank ratio of the tiered searcher (neighbors.tiering)
+    refine_ratio: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -110,12 +112,7 @@ class Index:
     list_norms: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        rows = self.list_data.shape[0]
-        step = max(1, _ASSIGN_ROWS // max(self.capacity, 1))
-        self.list_norms = torch.cat([
-            torch.sum(torch.square(self.list_data[r:r + step].float()), -1)
-            for r in range(0, rows, step)]) if rows else \
-            self.list_data.new_zeros((0, self.capacity), dtype=torch.float32)
+        self.list_norms = row_norms(self.list_data)
 
     @property
     def device(self) -> torch.device:
@@ -167,6 +164,23 @@ def index_to_arrays(index: Index) -> Dict[str, np.ndarray]:
     ``|V2``)."""
     return {name: tensor_to_array(getattr(index, name))
             for name in ARRAY_FIELDS}
+
+
+def row_norms(list_data: torch.Tensor, device=None) -> torch.Tensor:
+    """(n_phys+1, cap) f32 squared norms of the stored rows, summed block
+    by block on *device* (default: the rows').  The blocks are the same
+    wherever the rows lie, so rows kept on the host get the bits of the
+    index resident on *device*."""
+    dev = list_data.device if device is None else torch.device(device)
+    rows, cap = list_data.shape[:2]
+    if not rows:
+        return torch.zeros((0, cap), dtype=torch.float32,
+                           device=list_data.device)
+    step = max(1, _ASSIGN_ROWS // max(cap, 1))
+    return torch.cat([
+        torch.sum(torch.square(list_data[r:r + step].to(dev).float()),
+                  -1).to(list_data.device)
+        for r in range(0, rows, step)])
 
 
 def _ingest(data, device) -> torch.Tensor:
@@ -317,9 +331,12 @@ def _search_batch_impl(queries: torch.Tensor, index: Index, k: int,
 
 def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
                        index: Index, k: int, sqrt: bool, engine: str,
-                       tombstones: Optional[torch.Tensor] = None
+                       tombstones: Optional[torch.Tensor] = None,
+                       extra: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Score the probed lists of every query and keep the best k."""
+    """Score the probed lists of every query and keep the best k; *extra*
+    bounds the scan's steps as ``expand_probes`` does (None: the index's
+    continuation chunks)."""
     metric = index.metric
     is_ip = metric == DistanceType.InnerProduct
     is_cos = metric == DistanceType.CosineExpanded
@@ -341,7 +358,7 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
         return q_sq + xn - 2.0 * dots
 
     phys = expand_probes(probe_ids, index.chunk_table,
-                         index.list_data.shape[0])
+                         index.list_data.shape[0], extra=extra)
     best_d, best_i = scan_probe_lists(phys, score_tile, index.list_indices,
                                       index.phys_sizes, k,
                                       select_min=not is_ip,

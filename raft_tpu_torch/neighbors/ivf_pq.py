@@ -9,9 +9,12 @@ a non-empty index through ``_build.extend_device``, encoding only the new
 rows).
 
 Build: coarse quantizer → list assignment → rotation (the PCA-balanced
-one by default, a QR of a Gaussian otherwise) → one codebook per subspace,
-trained by Lloyd k-means whose every E-step is kernel B3 → encode in row
-tiles of 8,192 (``_build.run_tiles``) → pack, with the build-time
+one by default, a QR of a Gaussian otherwise) → the codebooks, trained by
+Lloyd k-means whose every E-step is kernel B3: one per subspace
+(PER_SUBSPACE, (pq_dim, 2^bits, ds)) or one per list (PER_CLUSTER,
+(n_lists, 2^bits, ds), each on a fixed-size sample of its list's
+subvectors; all lists in one batched launch per iteration) → encode in
+row tiles of 8,192 (``_build.run_tiles``) → pack, with the build-time
 list-side ADC tables ``list_adc`` and its per-candidate contraction
 ``list_csum``.
 
@@ -19,10 +22,18 @@ Search, per query batch (the hoisted-ADC path): coarse GEMM → top-n_probes
 (kernel B2) → one per-batch LUT stage → the probe scan, whose every step
 scores each query's probed row with kernel B4 (``kernels.ivf_pq_lut``,
 codes read in place) and keeps the best k (kernel B2).  With the float32
-LUT the LUT is probe-invariant (the list-side term enters per candidate
-through ``list_csum``); a compressed LUT (bfloat16, float16, float8 e4m3)
-is the per-probe combined table, quantized with one affine per query and
-threaded through the scan as per-step ``xs``.
+LUT and PER_SUBSPACE codebooks the LUT is probe-invariant (the list-side
+term enters per candidate through ``list_csum``); PER_CLUSTER codebooks
+give a table per (query, probe), and a compressed LUT (bfloat16, float16,
+float8 e4m3) is the per-probe combined table, quantized with one affine
+per query; per-probe tables are threaded through the scan by each step's
+probe ordinal.  ``hoisted_lut=False`` runs the legacy search instead: the
+LUT is rebuilt at every scan step from the query's residual against the
+probed list's centre and scored by kernel B4's raw mode.
+``internal_distance_dtype="float16"`` sums the looked-up terms in float16
+as the JAX package's XLA route does (rounded once after a float32 sum on
+the hoisted path, sequentially on the legacy path; fp8 LUTs always sum
+in float32).
 
 A query's result bits do not depend on the batch it rides in (the serving
 contract): the rotation and the coarse products run in the fixed
@@ -35,9 +46,7 @@ read inside the scan: by kernel B4's scan mode, so a dead row never
 enters a step's best ``kk``, and by ``_common.scan_probe_lists`` on the
 per-step path.
 
-Not ported yet (each raises): PER_CLUSTER codebooks,
-``internal_distance_dtype="float16"``, the non-hoisted search
-(``hoisted_lut=False``) and ``build_sharded``.
+Not ported yet (raises): ``build_sharded``.
 """
 
 from __future__ import annotations
@@ -85,6 +94,11 @@ _FLOAT_FIELDS = ("centers", "rotation", "codebooks", "list_adc", "list_csum")
 #: rows of the residual sample the PCA-balanced rotation is fitted on
 _PCA_SAMPLE = 50_000
 _NOT_PORTED = "is not ported yet"
+#: the sum's type of each ``internal_distance_dtype`` on the hoisted and
+#: on the legacy path (kernel B4's ``acc``)
+_INTERNAL_DTYPES = {
+    "float32": (ivf_pq_lut.SUM_FLOAT32, ivf_pq_lut.SUM_FLOAT32),
+    "float16": (ivf_pq_lut.SUM_HALF_ONCE, ivf_pq_lut.SUM_HALF_SEQUENTIAL)}
 
 
 class CodebookKind(enum.IntEnum):
@@ -119,8 +133,12 @@ class SearchParams:
 
     n_probes: int = 20
     lut_dtype: str = "float32"   # float32 | bfloat16 | float16 | float8_e4m3
-    internal_distance_dtype: str = "float32"
-    hoisted_lut: Optional[bool] = None    # False (legacy path): not ported
+    internal_distance_dtype: str = "float32"   # float32 | float16
+    # None or True: the hoisted search; False: the legacy search
+    hoisted_lut: Optional[bool] = None
+    # exact re-rank ratio of the tiered searcher (neighbors.tiering): the
+    # scan keeps k·ratio candidates, re-scored from the original vectors
+    refine_ratio: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -129,7 +147,8 @@ class Index:
 
     ``centers``      (n_lists, dim) f32 coarse centroids
     ``rotation``     (dim, rot_dim) f32 orthonormal transform
-    ``codebooks``    (pq_dim, 2^bits, ds) f32, ds = rot_dim // pq_dim
+    ``codebooks``    (pq_dim, 2^bits, ds) f32 (PER_SUBSPACE) or
+                     (n_lists, 2^bits, ds) (PER_CLUSTER), ds = rot_dim // pq_dim
     ``list_codes``   (n_phys+1, cap, ⌈pq_dim·bits/8⌉) uint8, bit-packed
     ``list_indices`` (n_phys+1, cap) int32, −1 at padding
     ``list_sizes``   (n_lists,) int32 logical sizes
@@ -175,7 +194,17 @@ class Index:
         return self.centers.shape[1]
 
     @property
+    def rot_dim(self) -> int:
+        return self.rotation.shape[1]
+
+    @property
+    def per_cluster(self) -> bool:
+        return self.codebook_kind == CodebookKind.PER_CLUSTER
+
+    @property
     def pq_dim(self) -> int:
+        if self.per_cluster:
+            return self.rot_dim // self.codebooks.shape[2]
         return self.codebooks.shape[0]
 
     @property
@@ -316,59 +345,129 @@ def _train_codebooks_subspace(gen: torch.Generator, residuals: torch.Tensor,
     return _lloyd_kmeans(gen, sub, k, iters, engine)
 
 
-def _encode(residuals: torch.Tensor, codebooks: torch.Tensor
-            ) -> torch.Tensor:
+def _cluster_sample_take(counts: np.ndarray, cap: int,
+                         rng_fill: np.random.Generator) -> np.ndarray:
+    """Per-(list, slot) position in the list's permuted pool, before the
+    wrap modulo the pool size (the JAX package's numpy code): slot j below
+    the pool's size keeps j, so a pool at or above the cap enters whole
+    and without repeats; the slots past a smaller pool's size are drawn
+    from the independent *rng_fill* stream, one draw per slot."""
+    n_lists = counts.shape[0]
+    j = np.arange(cap)
+    take = np.broadcast_to(j[None, :], (n_lists, cap)).copy()
+    excess = j[None, :] >= counts[:, None]
+    if excess.any():
+        take[excess] = rng_fill.integers(0, 1 << 62,
+                                         size=int(excess.sum()))
+    return take
+
+
+def _train_codebooks_cluster(gen: torch.Generator, residuals: torch.Tensor,
+                             labels: torch.Tensor, n_lists: int, pq_dim: int,
+                             k: int, iters: int, engine: Optional[str]
+                             ) -> torch.Tensor:
+    """PER_CLUSTER: one codebook per list, (n_lists, k, ds).  Every row
+    gives its pq_dim subvectors to its list's pool; each pool is shuffled
+    on the device (a random key, then a stable sort by list) and a list
+    trains on the first ``cap`` = max(4k, 256) of its pool, a smaller pool
+    filling the rest from an independent host stream
+    (:func:`_cluster_sample_take`); an empty list's sample is zero.  Then
+    all n_lists codebooks train together (:func:`_lloyd_kmeans`: kernel
+    B3's batched mode on the card, one launch per iteration).  The JAX
+    package seeds its draws from its key; the port from *gen*."""
+    n, rot_dim = residuals.shape
+    dev = residuals.device
+    ds = rot_dim // pq_dim
+    cap = max(k * 4, 256)
+    seed0 = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+    rng_fill = np.random.default_rng(seed0 + 0x9E3779B9)
+    sub = residuals.reshape(n * pq_dim, ds)
+    lab = labels.long().repeat_interleave(pq_dim)
+    keys = torch.rand(lab.shape[0], generator=torch.Generator().manual_seed(
+        seed0)).to(dev)
+    perm = torch.argsort(keys, stable=True)
+    shuf = perm[torch.argsort(lab[perm], stable=True)]
+    counts = torch.bincount(lab, minlength=n_lists).cpu().numpy()
+    starts = np.zeros(n_lists + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    take = _cluster_sample_take(counts, cap, rng_fill)
+    gather = starts[:n_lists, None] + take % np.maximum(counts, 1)[:, None]
+    gather = torch.as_tensor(np.minimum(gather, max(lab.shape[0] - 1, 0)),
+                             device=dev)
+    batches = sub[shuf[gather]]
+    batches[torch.as_tensor(counts == 0, device=dev)] = 0.0
+    return _lloyd_kmeans(gen, batches, k, iters, engine)
+
+
+def _encode(residuals: torch.Tensor, codebooks: torch.Tensor,
+            labels: Optional[torch.Tensor] = None,
+            per_cluster: bool = False) -> torch.Tensor:
     """PQ-encode rotated residuals → (n, pq_dim) uint8: per subspace the
-    nearest codeword by ‖sub‖² + ‖cb‖² − 2·sub·cb, the earlier codeword
+    nearest codeword by ‖sub‖² + ‖cb‖² − 2·sub·cb (PER_CLUSTER: of the
+    row's list's codebook, ``codebooks[labels]``), the earlier codeword
     winning ties (``torch.argmin`` returns the first minimum)."""
     n, rot_dim = residuals.shape
-    pq_dim, _, ds = codebooks.shape
+    ds = codebooks.shape[2]
+    pq_dim = rot_dim // ds
     sub = residuals.reshape(n, pq_dim, ds)
-    d = (torch.sum(sub * sub, -1)[:, :, None]
-         + torch.sum(codebooks * codebooks, -1)[None, :, :]
-         - 2.0 * _sub_dot(sub[:, :, None, :], codebooks[None]))
+    if per_cluster:
+        cb = codebooks[labels.long()]                       # (n, kcb, ds)
+        cb_sq = torch.sum(cb * cb, -1)[:, None, :]
+        cross = _sub_dot(sub[:, :, None, :], cb[:, None, :, :])
+    else:
+        cb_sq = torch.sum(codebooks * codebooks, -1)[None, :, :]
+        cross = _sub_dot(sub[:, :, None, :], codebooks[None])
+    d = torch.sum(sub * sub, -1)[:, :, None] + cb_sq - 2.0 * cross
     return torch.argmin(d, dim=-1).to(torch.uint8)
 
 
-def _build_list_adc(rot_centers: torch.Tensor, codebooks: torch.Tensor
-                    ) -> torch.Tensor:
+def _build_list_adc(rot_centers: torch.Tensor, codebooks: torch.Tensor,
+                    per_cluster: bool = False) -> torch.Tensor:
     """Build-time list-side ADC table (n_lists, pq_dim, 2^bits) f32:
-    ``list_adc[l, m, k] = ‖cb[m, k]‖² + 2·ctr_rot[l, m]·cb[m, k]``."""
-    pq_dim, _, ds = codebooks.shape
-    ctr = rot_centers.reshape(-1, pq_dim, ds)
-    cb_sq = torch.sum(codebooks * codebooks, -1)           # (pq_dim, kcb)
+    ``list_adc[l, m, k] = ‖cb[m, k]‖² + 2·ctr_rot[l, m]·cb[m, k]``, the
+    codebook list l's own under PER_CLUSTER."""
+    ds = codebooks.shape[2]
+    ctr = rot_centers.reshape(rot_centers.shape[0], -1, ds)
+    cb_sq = torch.sum(codebooks * codebooks, -1)
+    if per_cluster:                                       # cb_sq (L, kcb)
+        return cb_sq[:, None, :] + 2.0 * _sub_dot(ctr[:, :, None, :],
+                                                  codebooks[:, None])
     return cb_sq[None] + 2.0 * _sub_dot(ctr[:, :, None, :], codebooks[None])
 
 
 def _csum_for_codes(codes: torch.Tensor, labels: torch.Tensor,
-                    rot_centers: torch.Tensor, codebooks: torch.Tensor
-                    ) -> torch.Tensor:
+                    rot_centers: torch.Tensor, codebooks: torch.Tensor,
+                    per_cluster: bool = False) -> torch.Tensor:
     """Per candidate Σ_m list_adc[label, m, code_m] = ‖decoded‖² +
     2·ctr_rot[label]·decoded, through the decoded rotated residual."""
-    n = codes.shape[0]
-    pq_dim = codebooks.shape[0]
-    m = torch.arange(pq_dim, device=codes.device)
-    dec = codebooks[m[None, :], codes.long()].reshape(n, -1)  # (n, rot_dim)
+    n, pq_dim = codes.shape
+    if per_cluster:
+        dec = codebooks[labels.long()[:, None], codes.long()]
+    else:
+        m = torch.arange(pq_dim, device=codes.device)
+        dec = codebooks[m[None, :], codes.long()]
+    dec = dec.reshape(n, -1)                                # (n, rot_dim)
     ctr = rot_centers[labels.long()]
     return torch.sum(dec * dec, -1) + 2.0 * torch.sum(ctr * dec, -1)
 
 
 def _csum_for_packed(list_codes: torch.Tensor, owner: torch.Tensor,
                      rot_centers: torch.Tensor, codebooks: torch.Tensor,
-                     pq_bits: int, tile_phys: int = 1024) -> torch.Tensor:
+                     pq_bits: int, tile_phys: int = 1024,
+                     per_cluster: bool = False) -> torch.Tensor:
     """``list_csum`` of an already packed code block (a v1 archive),
     unpacked ``tile_phys`` physical rows at a time; padding slots get
     values that the live-slot mask discards."""
     rows, cap = list_codes.shape[0], list_codes.shape[1]
-    pq_dim = codebooks.shape[0]
+    pq_dim = rot_centers.shape[1] // codebooks.shape[2]
     out = []
     for r0 in range(0, rows, tile_phys):
         r1 = min(r0 + tile_phys, rows)
         codes = _unpack_codes(list_codes[r0:r1].reshape((r1 - r0) * cap, -1),
                               pq_dim, pq_bits)
         labels = torch.repeat_interleave(owner[r0:r1], cap)
-        out.append(_csum_for_codes(codes, labels, rot_centers, codebooks
-                                   ).reshape(r1 - r0, cap))
+        out.append(_csum_for_codes(codes, labels, rot_centers, codebooks,
+                                   per_cluster).reshape(r1 - r0, cap))
     return torch.cat(out) if out else rot_centers.new_zeros((0, cap))
 
 
@@ -380,8 +479,8 @@ def _validate_build(params: IndexParams, x: torch.Tensor) -> None:
             "pq_bits must be in [4, 8] (ivf_pq_types.hpp:52)")
     expects(params.rotation_kind in ("auto", "default", "pca_balanced"),
             f"unknown rotation_kind {params.rotation_kind!r}")
-    expects(params.codebook_kind == CodebookKind.PER_SUBSPACE,
-            f"ivf_pq: codebook_kind=PER_CLUSTER {_NOT_PORTED}")
+    expects(int(params.codebook_kind) in set(CodebookKind),
+            f"unknown codebook_kind {params.codebook_kind!r}")
 
 
 def _sample_rows(n: int, size: int, seed: int) -> np.ndarray:
@@ -435,9 +534,14 @@ def _train_model(params: IndexParams, x: torch.Tensor,
     else:
         x_t, lab_t = x, labels
     resid_t = (x_t - centers[lab_t.long()]) @ rotation
-    codebooks = _train_codebooks_subspace(rng.next_generator(), resid_t,
-                                          pq_dim, k, params.kmeans_n_iters,
-                                          engine)
+    if CodebookKind(int(params.codebook_kind)) == CodebookKind.PER_CLUSTER:
+        codebooks = _train_codebooks_cluster(
+            rng.next_generator(), resid_t, lab_t, n_lists, pq_dim, k,
+            params.kmeans_n_iters, engine)
+    else:
+        codebooks = _train_codebooks_subspace(
+            rng.next_generator(), resid_t, pq_dim, k, params.kmeans_n_iters,
+            engine)
     return centers, labels, rotation, codebooks
 
 
@@ -453,19 +557,21 @@ def _encode_rows(index: Index, x: torch.Tensor, labels: torch.Tensor):
     def tile(xt, lt):
         lt = lt.long()
         codes = _encode((xt - index.centers[lt]) @ index.rotation,
-                        index.codebooks)
+                        index.codebooks, lt, index.per_cluster)
         return (_pack_codes(codes, index.pq_bits),
                 _csum_for_codes(codes, lt, index.rot_centers,
-                                index.codebooks))
+                                index.codebooks, index.per_cluster))
 
     return run_tiles(tile, x, labels)
 
 
 def _empty_index(centers, rotation, codebooks, metric, pq_bits: int,
-                 dataset_dtype: str) -> Index:
+                 dataset_dtype: str,
+                 codebook_kind=CodebookKind.PER_SUBSPACE) -> Index:
     dev = centers.device
     n_lists = centers.shape[0]
-    nbytes = _code_bytes(codebooks.shape[0], pq_bits)
+    per_cluster = CodebookKind(int(codebook_kind)) == CodebookKind.PER_CLUSTER
+    nbytes = _code_bytes(rotation.shape[1] // codebooks.shape[2], pq_bits)
     return Index(
         centers=centers, rotation=rotation, codebooks=codebooks,
         list_codes=torch.zeros((1, 8, nbytes), dtype=torch.uint8, device=dev),
@@ -474,9 +580,9 @@ def _empty_index(centers, rotation, codebooks, metric, pq_bits: int,
         phys_sizes=torch.zeros(1, dtype=torch.int32, device=dev),
         chunk_table=torch.zeros((n_lists, 1), dtype=torch.int32, device=dev),
         owner=torch.zeros(1, dtype=torch.int32, device=dev),
-        list_adc=_build_list_adc(centers @ rotation, codebooks),
+        list_adc=_build_list_adc(centers @ rotation, codebooks, per_cluster),
         list_csum=torch.zeros((1, 8), device=dev), metric=metric,
-        codebook_kind=CodebookKind.PER_SUBSPACE, pq_bits=pq_bits,
+        codebook_kind=CodebookKind(int(codebook_kind)), pq_bits=pq_bits,
         dataset_dtype=dataset_dtype)
 
 
@@ -491,7 +597,7 @@ def build(params: IndexParams, dataset, ids=None, *, device=None,
     _validate_build(params, x)
     centers, labels, rotation, codebooks = _train_model(params, x, engine)
     index = _empty_index(centers, rotation, codebooks, params.metric,
-                         params.pq_bits, dataset_dtype)
+                         params.pq_bits, dataset_dtype, params.codebook_kind)
     if params.add_data_on_build:
         return _populate(index, x, ids, labels)
     expects(ids is None, "ids were passed but add_data_on_build=False "
@@ -568,15 +674,13 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], metric,
     their field names (:data:`ARRAY_FIELDS`) — e.g. an index the JAX
     package built."""
     dev = resolve_device(device)
-    expects(CodebookKind(int(codebook_kind)) == CodebookKind.PER_SUBSPACE,
-            f"ivf_pq: codebook_kind=PER_CLUSTER {_NOT_PORTED}")
     vals = {}
     for name in ARRAY_FIELDS:
         dt = (np.float32 if name in _FLOAT_FIELDS
               else np.uint8 if name == "list_codes" else np.int32)
         vals[name] = torch.as_tensor(np.array(arrays[name], dt), device=dev)
     return Index(**vals, metric=DistanceType(int(metric)),
-                 codebook_kind=CodebookKind.PER_SUBSPACE,
+                 codebook_kind=CodebookKind(int(codebook_kind)),
                  pq_bits=int(pq_bits), dataset_dtype=str(dataset_dtype))
 
 
@@ -619,22 +723,31 @@ class ScanInputs(NamedTuple):
 
 
 def scan_inputs(q: torch.Tensor, probe_ids: torch.Tensor,
-                rot_q: torch.Tensor, index: Index,
-                lut_dtype_name: str) -> ScanInputs:
+                rot_q: torch.Tensor, index: Index, lut_dtype_name: str,
+                extra: Optional[int] = None) -> ScanInputs:
     """The hoisted-ADC LUT stage of one batch.
 
-    float32 LUT (or IP): the query-cross LUT is probe-invariant,
-    (nq, pq_dim·kcb); the list-side term enters per candidate through
-    ``list_csum``.  Compressed LUT (L2): the per-probe combined table
+    PER_SUBSPACE, float32 LUT (or IP): the query-cross LUT is
+    probe-invariant, (nq, pq_dim·kcb); the list-side term enters per
+    candidate through ``list_csum``.  PER_CLUSTER: the query-cross table
+    of each (query, probe) against the probed list's codebook
+    (``qmd,qpkd->qpmk``), ``list_csum`` still added at the float32 LUT.
+    Compressed LUT (L2): the per-probe combined table
     ``list_adc[probe] − 2·rot_q·cb``, quantized with one affine per query,
     one slice per probe.  ‖r‖² (L2) or q·c (IP) rides the exact f32
-    per-(query, probe) base."""
+    per-(query, probe) base.  *extra* bounds the scan's steps as
+    ``expand_probes`` does (None: the block's continuation chunks)."""
     nq = q.shape[0]
-    pq_dim, kcb, ds = index.codebooks.shape
+    kcb, ds = index.codebooks.shape[1], index.codebooks.shape[2]
+    pq_dim = index.pq_dim
     is_ip = index.metric == DistanceType.InnerProduct
     q_sub = rot_q.reshape(nq, pq_dim, ds)
     combine = (not is_ip) and lut_dtype_name != "float32"
-    qlut = _sub_dot(q_sub[:, :, None, :], index.codebooks[None])[:, None]
+    if index.per_cluster:
+        cbp = index.codebooks[probe_ids.long()]           # (nq, P, kcb, ds)
+        qlut = _sub_dot(q_sub[:, None, :, None, :], cbp[:, :, None, :, :])
+    else:
+        qlut = _sub_dot(q_sub[:, :, None, :], index.codebooks[None])[:, None]
     if is_ip:
         lut = qlut
         base = torch.sum(q[:, None, :] * index.centers[probe_ids.long()], -1)
@@ -649,9 +762,9 @@ def scan_inputs(q: torch.Tensor, probe_ids: torch.Tensor,
     lut_q = lut_q.reshape(nq, lut_q.shape[1], pq_dim * kcb)
 
     phys, probe_ord = expand_probes(probe_ids, index.chunk_table,
-                                    index.list_codes.shape[0],
+                                    index.list_codes.shape[0], extra=extra,
                                     return_ord=True)
-    per_probe = lut_q.shape[1] > 1     # the compressed LUT's tables
+    per_probe = lut_q.shape[1] > 1     # PER_CLUSTER's or the combined tables
     return ScanInputs(
         phys=phys, tables=lut_q if per_probe else lut_q[:, 0],
         ords=probe_ord if per_probe else None,
@@ -663,7 +776,9 @@ def scan_inputs(q: torch.Tensor, probe_ids: torch.Tensor,
 def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
                   rot_q: torch.Tensor, index: Index, k: int,
                   lut_dtype_name: str, engine: str, lut_engine: str,
-                  tombstones: Optional[torch.Tensor] = None):
+                  tombstones: Optional[torch.Tensor] = None, *,
+                  acc: int = ivf_pq_lut.SUM_FLOAT32,
+                  extra: Optional[int] = None):
     """Hoisted-ADC probe scan: one LUT stage for the batch
     (:func:`scan_inputs`), then the scan of every query's physical rows.
 
@@ -672,44 +787,52 @@ def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
     its plain twin, then one select over the steps' winners.  Wider k
     takes the per-step path (:func:`_scan_per_step`); both give the same
     result in the same tie order.  Rows whose id is set in *tombstones*
-    are dead inside the scan."""
+    are dead inside the scan; *acc* types the lookup's sum
+    (``ivf_pq_lut``)."""
     from raft_tpu_torch.kernels.select_k import MAX_K
 
-    inp = scan_inputs(q, probe_ids, rot_q, index, lut_dtype_name)
+    inp = scan_inputs(q, probe_ids, rot_q, index, lut_dtype_name, extra)
     select_min = index.metric != DistanceType.InnerProduct
     if k > MAX_K:
         return _scan_per_step(inp, index, k, select_min, engine, lut_engine,
-                              tombstones)
-    pq_dim, kcb, _ = index.codebooks.shape
+                              tombstones, acc=acc)
+    kcb = index.codebooks.shape[1]
     scan = (ivf_pq_lut.lut_scan_topk if lut_engine == "cuda"
             else ivf_pq_lut.lut_scan_topk_plain)
     mask = () if tombstones is None else (index.list_indices, tombstones)
     vals, slots = scan(index.list_codes, inp.phys, index.phys_sizes,
                        inp.tables, inp.ords, inp.base, inp.csum, inp.scale,
-                       pq_dim, index.pq_bits, kcb, min(k, index.capacity),
-                       select_min, *mask)
+                       index.pq_dim, index.pq_bits, kcb,
+                       min(k, index.capacity), select_min, *mask, acc=acc)
     return _select_scanned(vals, slots, inp.phys, index.list_indices, k,
                            select_min, engine)
 
 
+def _lookup(index: Index, rows: torch.Tensor, lut: torch.Tensor,
+            lut_engine: str, acc: int) -> torch.Tensor:
+    """Raw B4 scores (nq, cap) of each query's row against its LUT (the
+    kernel's raw mode, or its plain version)."""
+    kcb = index.codebooks.shape[1]
+    if lut_engine == "cuda":
+        return ivf_pq_lut.lut_score_rows(index.list_codes, rows, lut,
+                                         index.pq_dim, index.pq_bits, kcb,
+                                         acc)
+    return ivf_pq_lut._lut_score_plain(index.list_codes[rows.long()], lut,
+                                       index.pq_dim, index.pq_bits, kcb, acc)
+
+
 def _scan_per_step(inp: ScanInputs, index: Index, k: int, select_min: bool,
                    engine: str, lut_engine: str,
-                   tombstones: Optional[torch.Tensor] = None):
+                   tombstones: Optional[torch.Tensor] = None, *,
+                   acc: int = ivf_pq_lut.SUM_FLOAT32):
     """The probe scan step by step: raw B4 scores of every query's row
     (or their plain version), the epilogue, the live mask, a select per
     step and the running merge."""
-    pq_dim, kcb, _ = index.codebooks.shape
 
     def score_tile(rows, s):
         lut_t = ivf_pq_lut._lut_slice(inp.tables, inp.ords, s)
-        if lut_engine == "cuda":
-            acc = ivf_pq_lut.lut_score_rows(index.list_codes, rows, lut_t,
-                                            pq_dim, index.pq_bits, kcb)
-        else:
-            acc = ivf_pq_lut._lut_score_plain(index.list_codes[rows.long()],
-                                              lut_t, pq_dim, index.pq_bits,
-                                              kcb)
-        d = acc if inp.scale is None else acc / inp.scale[:, None]
+        raw = _lookup(index, rows, lut_t, lut_engine, acc)
+        d = raw if inp.scale is None else raw / inp.scale[:, None]
         d = d + inp.base[:, s, None]
         return d + inp.csum[rows.long()] if inp.csum is not None else d
 
@@ -717,6 +840,64 @@ def _scan_per_step(inp: ScanInputs, index: Index, k: int, select_min: bool,
                             index.phys_sizes, k, select_min=select_min,
                             dtype=torch.float32, engine=engine,
                             xs=(range(inp.phys.shape[1]),),
+                            tombstones=tombstones)
+
+
+def _scan_legacy(q: torch.Tensor, probe_ids: torch.Tensor,
+                 rot_q: torch.Tensor, index: Index, k: int,
+                 lut_dtype_name: str, engine: str, lut_engine: str,
+                 tombstones: Optional[torch.Tensor] = None, *,
+                 acc: int = ivf_pq_lut.SUM_FLOAT32,
+                 extra: Optional[int] = None):
+    """The legacy search (``hoisted_lut=False``, the JAX package's
+    ``score_tile``): at every scan step the LUT of each query is rebuilt
+    against the probed row's list — L2: ‖r‖² + ‖cb‖² − 2·r·cb of the
+    query's residual r against the list's centre; IP: rot_q·cb, with q·c
+    as the step's base — an fp8 LUT quantized with an affine per (query,
+    step); then kernel B4's raw mode (or its plain version), summed as
+    *acc* says, and the per-step select and running merge."""
+    nq = q.shape[0]
+    kcb, ds = index.codebooks.shape[1], index.codebooks.shape[2]
+    pq_dim = index.pq_dim
+    is_ip = index.metric == DistanceType.InnerProduct
+    is_fp8 = lut_dtype_name == "float8_e4m3"
+    lut_type = _LUT_DTYPES[lut_dtype_name]
+    phys = expand_probes(probe_ids, index.chunk_table,
+                         index.list_codes.shape[0], extra=extra)
+    if not index.per_cluster:
+        cb_sq_all = torch.sum(index.codebooks * index.codebooks, -1)[None]
+
+    def score_tile(rows):
+        lists = index.owner[rows.long()].long()
+        cb = (index.codebooks[lists] if index.per_cluster
+              else index.codebooks[None])           # (nq or 1, …, kcb, ds)
+        cb = cb[:, None] if index.per_cluster else cb
+        if is_ip:
+            lut = _sub_dot(rot_q.reshape(nq, pq_dim, 1, ds), cb)
+            base = torch.sum(q * index.centers[lists], -1)
+        else:
+            r = (rot_q - index.rot_centers[lists]).reshape(nq, pq_dim, ds)
+            cb_sq = (torch.sum(cb * cb, -1) if index.per_cluster
+                     else cb_sq_all)
+            lut = (torch.sum(r * r, -1)[:, :, None] + cb_sq
+                   - 2.0 * _sub_dot(r[:, :, None, :], cb))
+            base = torch.zeros(nq, dtype=torch.float32, device=q.device)
+        if is_fp8:
+            lo = torch.amin(lut, dim=2, keepdim=True)
+            lut0 = lut - lo
+            scale = _FP8_PEAK / torch.clamp_min(torch.amax(lut0, dim=(1, 2)),
+                                                1e-30)
+            lut = lut0 * scale[:, None, None]
+            base = base + torch.sum(lo[:, :, 0], dim=1)
+        else:
+            scale = torch.ones(nq, dtype=torch.float32, device=q.device)
+        raw = _lookup(index, rows, lut.to(lut_type).reshape(nq, -1),
+                      lut_engine, acc)
+        return raw / scale[:, None] + base[:, None]
+
+    return scan_probe_lists(phys, score_tile, index.list_indices,
+                            index.phys_sizes, k, select_min=not is_ip,
+                            dtype=torch.float32, engine=engine,
                             tombstones=tombstones)
 
 
@@ -772,64 +953,96 @@ def _resolve_engines(index: Index,
             resolve_engine("pq_lut", index.device, engine=engine))
 
 
+def _resolve_hoisted(params: SearchParams) -> bool:
+    return params.hoisted_lut is None or bool(params.hoisted_lut)
+
+
 def _search_batch_impl(q: torch.Tensor, probe_ids: torch.Tensor,
                        index: Index, k: int, lut_dtype_name: str,
                        engines: Tuple[str, str],
                        tombstones: Optional[torch.Tensor] = None,
-                       sqrt: bool = True):
+                       sqrt: bool = True, *,
+                       int_dtype: str = "float32", hoisted: bool = True,
+                       extra: Optional[int] = None):
     """Score the probed lists of one query batch and keep the best k (the
     L2Sqrt root taken only with *sqrt*: a caller that merges squared
-    distances takes it after the merge)."""
+    distances takes it after the merge): the hoisted scan, or with
+    ``hoisted=False`` the legacy one; *int_dtype* is the
+    ``internal_distance_dtype`` (ignored by fp8 LUTs, which sum in
+    float32) and *extra* the scan's step bound (``expand_probes``)."""
     rot_q = _dot_fixed_rows(q, index.rotation.T)          # (nq, rot_dim)
-    best_d, best_i = _scan_hoisted(q, probe_ids, rot_q, index, k,
-                                   lut_dtype_name, *engines, tombstones)
+    on_hoisted, on_legacy = _INTERNAL_DTYPES[int_dtype]
+    acc = (ivf_pq_lut.SUM_FLOAT32 if lut_dtype_name == "float8_e4m3"
+           else on_hoisted if hoisted else on_legacy)
+    scan = _scan_hoisted if hoisted else _scan_legacy
+    best_d, best_i = scan(q, probe_ids, rot_q, index, k, lut_dtype_name,
+                          *engines, tombstones, acc=acc, extra=extra)
     if sqrt and index.metric == DistanceType.L2SqrtExpanded:
         best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
+
+
+def coarse_probes(queries: torch.Tensor, index: Index, n_probes: int,
+                  engine: str) -> torch.Tensor:
+    """Each query's n_probes nearest lists (coarse GEMM, kernel B2) — the
+    ranking every serving path of the family shares."""
+    coarse = _coarse_distances(queries, index.centers, index.metric)
+    _, probes = select_k(coarse, n_probes, select_min=True, engine=engine)
+    return probes
 
 
 def _full_search_impl(queries: torch.Tensor, index: Index, k: int,
                       n_probes: int, lut_dtype_name: str,
                       engines: Tuple[str, str],
                       tombstones: Optional[torch.Tensor] = None,
-                      sqrt: bool = True):
+                      sqrt: bool = True, *, int_dtype: str = "float32",
+                      hoisted: bool = True):
     """Coarse ranking + top-n_probes + probe scoring of one batch — the
     serving entry point."""
-    coarse = _coarse_distances(queries, index.centers, index.metric)
-    _, probes = select_k(coarse, n_probes, select_min=True,
-                         engine=engines[0])
+    probes = coarse_probes(queries, index, n_probes, engines[0])
     return _search_batch_impl(queries, probes, index, k, lut_dtype_name,
-                              engines, tombstones, sqrt)
+                              engines, tombstones, sqrt,
+                              int_dtype=int_dtype, hoisted=hoisted)
 
 
-def hoisted_batch_cap(index: Index, n_probes: int, lut_dtype: str
-                      ) -> Optional[int]:
-    """Query-batch cap (a power of two) bounding the compressed-LUT
-    pipeline's per-batch transients to ~128 MiB, or None when the config
-    builds no per-(query, probe) tables (float32 LUT, inner product):
-    ~3 f32 copies with an n_probes axis plus the xs gather over the
-    expanded physical budget in the LUT type.  Shared by :func:`search`'s
-    query batching and the serving engine's super-batch clamp."""
-    if index.metric == DistanceType.InnerProduct or lut_dtype == "float32":
+def hoisted_batch_cap_dims(metric, per_cluster: bool, n_phys: int,
+                           max_chunks: int, n_lists: int, pq_dim: int,
+                           pq_bits: int, n_probes: int, lut_dtype: str,
+                           hoisted: bool) -> Optional[int]:
+    """Query-batch cap (a power of two) bounding the hoisted pipeline's
+    per-batch transients to ~128 MiB, from the layout's numbers, or None
+    when the config builds no per-(query, probe) tables (the legacy path,
+    PER_SUBSPACE at the float32 LUT, PER_SUBSPACE inner product): ~3 f32
+    copies with an n_probes axis plus the per-step slices over the
+    expanded physical budget in the LUT type.  The JAX package's formula,
+    shared by :func:`search`'s query batching, the serving engine's
+    super-batch clamp and the tiered searcher."""
+    is_ip = DistanceType(int(metric)) == DistanceType.InnerProduct
+    if not (hoisted and (per_cluster or (not is_ip
+                                         and lut_dtype != "float32"))):
         return None
-    n_phys = index.list_codes.shape[0] - 1
-    budget = min(n_probes * index.chunk_table.shape[1],
-                 n_probes + max(0, n_phys - index.n_lists))
-    cell = index.pq_dim * (1 << index.pq_bits)
+    budget = min(n_probes * max_chunks, n_probes + max(0, n_phys - n_lists))
+    cell = pq_dim * (1 << pq_bits)
     per_q = cell * (3 * n_probes * 4
                     + budget * _LUT_DTYPES[lut_dtype].itemsize)
     return 1 << max(5, ((128 << 20) // max(per_q, 1)).bit_length() - 1)
 
 
+def hoisted_batch_cap(index: Index, n_probes: int, lut_dtype: str,
+                      hoisted: bool = True) -> Optional[int]:
+    """:func:`hoisted_batch_cap_dims` of *index*."""
+    return hoisted_batch_cap_dims(
+        index.metric, index.per_cluster, index.list_codes.shape[0] - 1,
+        index.chunk_table.shape[1], index.n_lists, index.pq_dim,
+        index.pq_bits, n_probes, lut_dtype, hoisted)
+
+
 def check_search_params(params: SearchParams) -> None:
     expects(params.lut_dtype in _LUT_DTYPES,
             f"lut_dtype must be one of {list(_LUT_DTYPES)}")
-    expects(params.internal_distance_dtype == "float32",
-            f"ivf_pq: internal_distance_dtype="
-            f"{params.internal_distance_dtype!r} {_NOT_PORTED}")
-    expects(params.hoisted_lut is None or bool(params.hoisted_lut),
-            f"ivf_pq: the non-hoisted search (hoisted_lut=False) "
-            f"{_NOT_PORTED}")
+    expects(params.internal_distance_dtype in _INTERNAL_DTYPES,
+            f"internal_distance_dtype must be one of "
+            f"{list(_INTERNAL_DTYPES)}")
 
 
 def search(params: SearchParams, index: Index, queries, k: int, *,
@@ -851,7 +1064,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
     if q.shape[0] == 0:
         return empty_result(0, int(k), torch.float32, index.device)
     n_probes = min(params.n_probes, index.n_lists)
-    cap = hoisted_batch_cap(index, n_probes, params.lut_dtype)
+    hoisted = _resolve_hoisted(params)
+    cap = hoisted_batch_cap(index, n_probes, params.lut_dtype, hoisted)
     if cap is not None:
         batch_size_query = min(batch_size_query, cap)
     engines = _resolve_engines(index, engine)
@@ -863,7 +1077,9 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
         if bucket != n_valid:
             qb = torch.cat([qb, qb.new_zeros((bucket - n_valid, qb.shape[1]))])
         d, i = _full_search_impl(qb, index, int(k), int(n_probes),
-                                 params.lut_dtype, engines)
+                                 params.lut_dtype, engines,
+                                 int_dtype=params.internal_distance_dtype,
+                                 hoisted=hoisted)
         out_d.append(d[:n_valid])
         out_i.append(i[:n_valid])
     if len(out_d) == 1:

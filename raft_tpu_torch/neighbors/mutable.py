@@ -117,27 +117,31 @@ def _mark_used(tensors) -> None:
 
 
 def _family_scan(q, index, k: int, n_probes: int, lut_dtype: str,
-                 engines: Tuple[str, str], tombstones):
+                 engines: Tuple[str, str], tombstones, pq_kw):
     """One segment through the family's own batch search, its bitmap
-    threaded into the scan, squared distances (no L2Sqrt root)."""
+    threaded into the scan, squared distances (no L2Sqrt root); *pq_kw*
+    holds IVF-PQ's ``int_dtype`` and ``hoisted``."""
     if isinstance(index, ivf_flat.Index):
         return ivf_flat._search_batch_impl(q, index, k, n_probes, False,
                                            engines[0], tombstones)
     return ivf_pq._full_search_impl(q, index, k, n_probes, lut_dtype,
-                                    engines, tombstones, sqrt=False)
+                                    engines, tombstones, sqrt=False,
+                                    **pq_kw)
 
 
 def _merged_search_impl(q, main, delta, tomb_main, tomb_delta, k: int,
                         n_probes: int, lut_dtype: str,
-                        engines: Tuple[str, str]):
+                        engines: Tuple[str, str], pq_kw=None):
     """main ∪ delta for one batch: two masked family scans folded by
     ``merge_sorted_parts`` (main is part 0 and wins ties); the L2Sqrt
     root is taken after the fold, which compares squared distances."""
     metric = main.metric
-    d, i = _family_scan(q, main, k, n_probes, lut_dtype, engines, tomb_main)
+    pq_kw = pq_kw or {}
+    d, i = _family_scan(q, main, k, n_probes, lut_dtype, engines, tomb_main,
+                        pq_kw)
     if delta is not None:
         dd, di = _family_scan(q, delta, k, n_probes, lut_dtype, engines,
-                              tomb_delta)
+                              tomb_delta, pq_kw)
         d, i = merge_sorted_parts(
             torch.stack([d, dd]), torch.stack([i, di]), k=k,
             select_min=metric != DistanceType.InnerProduct)
@@ -644,11 +648,15 @@ class MutableSearcher:
             self.lut_dtype = "float32"
             sk = resolve_engine("select_k", main.device, engine=engine)
             self.engines = (sk, sk)
+            self.pq_kw = {}
         else:
             self.params = params or ivf_pq.SearchParams()
             ivf_pq.check_search_params(self.params)
             self.lut_dtype = self.params.lut_dtype
             self.engines = ivf_pq._resolve_engines(main, engine)
+            self.pq_kw = dict(
+                int_dtype=self.params.internal_distance_dtype,
+                hoisted=ivf_pq._resolve_hoisted(self.params))
         self.engine = engine
         self.n_probes = int(min(self.params.n_probes, main.n_lists))
 
@@ -657,13 +665,14 @@ class MutableSearcher:
         if self.kind != "ivf_pq":
             return None
         return ivf_pq.hoisted_batch_cap(self.mutable._mut_core.main,
-                                        self.n_probes, self.lut_dtype)
+                                        self.n_probes, self.lut_dtype,
+                                        self.pq_kw["hoisted"])
 
     def dispatch(self, qb: torch.Tensor):
         main, delta, tm, td = self.mutable._snapshot()
         return _merged_search_impl(qb, main, delta, tm, td, self.k,
                                    self.n_probes, self.lut_dtype,
-                                   self.engines)
+                                   self.engines, self.pq_kw)
 
     def solo(self, q):
         return search(self.mutable, q, self.k, params=self.params,

@@ -2,7 +2,8 @@
 port of ``raft_tpu/neighbors/serialize.py``: ``_finish`` :67,
 ``_atomic_savez`` :89, ``_unpack`` :108, ``save_ivf_flat`` :144,
 ``load_ivf_flat`` :152, ``save_ivf_pq`` :160, ``save_mutable`` :265,
-``load_mutable`` :337, ``load_ivf_pq`` :471), with numpy only.
+``load_mutable`` :337, ``save_tiered`` :417, ``load_tiered`` :445,
+``load_ivf_pq`` :471), with numpy only.
 
 An archive is one ``.npz``: every array leaf plus ``__header__``, a JSON
 header (magic, per-kind version, kind, aux, per-array CRC32 manifest).
@@ -39,8 +40,9 @@ from raft_tpu_torch.neighbors._common import tensor_to_array
 
 _MAGIC = "raft-tpu-index"
 #: the version each kind is written at (the JAX package's)
-_VERSIONS = {"ivf_flat": 1, "ivf_pq": 2, "mutable": 1}
-_READABLE_VERSIONS = {"ivf_flat": (1,), "ivf_pq": (1, 2), "mutable": (1,)}
+_VERSIONS = {"ivf_flat": 1, "ivf_pq": 2, "mutable": 1, "tiered": 1}
+_READABLE_VERSIONS = {"ivf_flat": (1,), "ivf_pq": (1, 2), "mutable": (1,),
+                      "tiered": (1,)}
 
 
 def _normalize(path) -> str:
@@ -166,15 +168,14 @@ def load_ivf_pq(path, device=None) -> ivf_pq.Index:
         t = {k: torch.as_tensor(a[k], device=dev)
              for k in ("centers", "rotation", "codebooks", "list_codes",
                        "owner")}
-        expects(ivf_pq.CodebookKind(aux["codebook_kind"])
-                == ivf_pq.CodebookKind.PER_SUBSPACE,
-                "ivf_pq: codebook_kind=PER_CLUSTER is not ported yet")
+        per_cluster = (ivf_pq.CodebookKind(aux["codebook_kind"])
+                       == ivf_pq.CodebookKind.PER_CLUSTER)
         rot_centers = t["centers"] @ t["rotation"]
         a.setdefault("list_adc", ivf_pq._build_list_adc(
-            rot_centers, t["codebooks"]).cpu().numpy())
+            rot_centers, t["codebooks"], per_cluster).cpu().numpy())
         a.setdefault("list_csum", ivf_pq._csum_for_packed(
             t["list_codes"], t["owner"], rot_centers, t["codebooks"],
-            int(aux["pq_bits"])).cpu().numpy())
+            int(aux["pq_bits"]), per_cluster=per_cluster).cpu().numpy())
     return ivf_pq.index_from_arrays(
         a, aux["metric"], aux["codebook_kind"], aux["pq_bits"],
         aux.get("dataset_dtype", "float32"), device=dev)
@@ -279,3 +280,57 @@ def load_mutable(path, device=None, comms=None):
     if dead.size:
         mut.delete(dead)
     return mut
+
+
+def save_tiered(path, tiered) -> None:
+    """Write a :class:`~raft_tpu_torch.neighbors.tiering.TieredIndex` to
+    *path* (``.npz``; atomic and checksummed): the resident family
+    leaves, reassembled from the host blocks, plus the residency policy
+    (the hot-list mask, the tile size) and the host refine store.  The
+    split itself is not stored: :func:`load_tiered` recuts it from the
+    mask.  The JAX package's layout, so either package reads the
+    other's."""
+    from raft_tpu_torch.neighbors import tiering
+
+    if tiered.kind == "ivf_flat":
+        fam = {"metric": int(tiered.metric),
+               "adaptive_centers": bool(tiered.aux["adaptive_centers"])}
+    else:
+        fam = {"metric": int(tiered.metric),
+               "codebook_kind": int(tiered.aux["codebook_kind"]),
+               "pq_bits": int(tiered.aux["pq_bits"]),
+               "dataset_dtype": tiered.aux["dataset_dtype"]}
+    arrays = {name: tensor_to_array(t)
+              for name, t in tiering.family_arrays(tiered).items()}
+    arrays["tiered_hot_lists"] = np.asarray(tiered.hot_lists)
+    if tiered.refine_store is not None:
+        arrays["tiered_refine_store"] = tiered.refine_store.cpu().numpy()
+    aux = {"kind": tiered.kind, "tile_phys": int(tiered.tile_phys),
+           "family": fam}
+    _atomic_savez(path, _finish("tiered", arrays, aux))
+
+
+def load_tiered(path, device=None):
+    """A tiered index on *device* (``None``: the card) from an archive
+    either package's ``save_tiered`` wrote: the family index restored on
+    the host, then tiered onto *device* under the archived hot-list mask
+    and tile size — the same split as the saved one, with only the model
+    tables and the hot block put on the device."""
+    from raft_tpu_torch.neighbors import tiering
+
+    dev = resolve_device(device)
+    aux, a = _unpack(path, "tiered")
+    mask = a.pop("tiered_hot_lists").astype(bool)
+    store = a.pop("tiered_refine_store", None)
+    fam = aux["family"]
+    if aux["kind"] == "ivf_flat":
+        index = ivf_flat.index_from_arrays(a, fam["metric"],
+                                           fam["adaptive_centers"],
+                                           device="cpu")
+    else:
+        index = ivf_pq.index_from_arrays(
+            a, fam["metric"], fam["codebook_kind"], fam["pq_bits"],
+            fam.get("dataset_dtype", "float32"), device="cpu")
+    return tiering.tier(index, hot_lists=mask,
+                        tile_phys=int(aux["tile_phys"]), dataset=store,
+                        device=dev)

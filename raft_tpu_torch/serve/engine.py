@@ -1,7 +1,7 @@
-"""Batched query serving over brute force, IVF-Flat, IVF-PQ and the
-mutable index (port of ``raft_tpu/serve/engine.py``: the backends
-:110-291 and ``_MutableBackend`` :474, ``_make_backend`` :527,
-``ServeEngine`` :544-1633).
+"""Batched query serving over brute force, IVF-Flat, IVF-PQ, the mutable
+index and the tiered index (port of ``raft_tpu/serve/engine.py``: the
+backends :110-291, ``_TieredBackend`` :442 and ``_MutableBackend`` :474,
+``_make_backend`` :527, ``ServeEngine`` :544-1633).
 
 * **Request coalescing** — concurrent ragged requests are packed in
   arrival order into super-batches of at most ``max_batch`` rows, each
@@ -48,13 +48,17 @@ mutable index (port of ``raft_tpu/serve/engine.py``: the backends
 
 A ``mutable.MutableIndex`` is served by the mutable backend (main ∪
 delta, tombstones masked in the scan) while ``upsert`` / ``delete`` run
-on it; its compaction promotes the new core through :meth:`refresh`.
+on it; its compaction promotes the new core through :meth:`refresh`.  A
+``tiering.TieredIndex`` is served by the tiered backend (hot block on
+the device, cold tiles staged per batch, optional exact re-rank);
+``refresh(tiering.retier(t, searcher.hotness()))`` re-tiers it, and
+``/healthz`` reports its residency.
 
 Requests are ingested as float32 (``warmed_signatures()`` reports
 ``{"float32": [...]}``).  Not ported yet: serving other query types as
-themselves, the sharded, replica and tiered backends (with replica
-routing), autotuning (``attach_tuner``, ``apply_tuning``,
-``shadow_samples``) and the executable store's persisted cost rows.
+themselves, the sharded and replica backends (with replica routing),
+autotuning (``attach_tuner``, ``apply_tuning``, ``shadow_samples``) and
+the executable store's persisted cost rows.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ from raft_tpu_torch.core.handle import Handle, resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import as_float_tensor
 from raft_tpu_torch.kernels.engine import resolve_engine
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, mutable
+from raft_tpu_torch.neighbors import (brute_force, ivf_flat, ivf_pq, mutable,
+                                      tiering)
 from raft_tpu_torch.serve.admission import (AdmissionController,
                                             RejectedError, ServeRequest)
 from raft_tpu_torch.serve.schedule import (CostModel, SchedulerConfig,
@@ -101,7 +106,16 @@ _STAT_KEYS = ("requests", "queries", "super_batches", "solo_fallbacks",
 _ENGINE_IDS = itertools.count()
 
 
-class _BruteForceBackend:
+class _Backend:
+    """What every backend shares: the warm run."""
+
+    def warm(self, bucket: int) -> None:
+        """Run one batch of *bucket* zero rows."""
+        self.dispatch(torch.zeros((bucket, self.dim), dtype=torch.float32,
+                                  device=self.device))
+
+
+class _BruteForceBackend(_Backend):
     """Adapter: a dense (n, dim) array or tensor, placed on *device* (the
     card by default) → ``brute_force._knn_scan_impl``."""
 
@@ -179,7 +193,7 @@ def _pq_ingest(q, dim: int, dataset_dtype: str) -> np.ndarray:
     return q.astype(np.float32)
 
 
-class _IvfFlatBackend:
+class _IvfFlatBackend(_Backend):
     """Adapter: ``ivf_flat.Index`` → ``ivf_flat._search_batch_impl``."""
 
     name = "ivf_flat"
@@ -213,7 +227,7 @@ class _IvfFlatBackend:
                                self.k, engine=self.engine)
 
 
-class _IvfPqBackend:
+class _IvfPqBackend(_Backend):
     """Adapter: ``ivf_pq.Index`` → ``ivf_pq._full_search_impl`` (coarse +
     select + probe scan of one batch)."""
 
@@ -233,24 +247,27 @@ class _IvfPqBackend:
         self.engines = ivf_pq._resolve_engines(index, engine)
         self.engine = engine
         self.device = index.device
+        self.hoisted = ivf_pq._resolve_hoisted(self.params)
 
     def ingest(self, q) -> np.ndarray:
         return _pq_ingest(q, self.dim, self.index.dataset_dtype)
 
     def batch_cap(self) -> Optional[int]:
         return ivf_pq.hoisted_batch_cap(self.index, self.n_probes,
-                                        self.params.lut_dtype)
+                                        self.params.lut_dtype, self.hoisted)
 
     def dispatch(self, qb: torch.Tensor):
         return self.fn(qb, self.index, self.k, self.n_probes,
-                       self.params.lut_dtype, self.engines)
+                       self.params.lut_dtype, self.engines,
+                       int_dtype=self.params.internal_distance_dtype,
+                       hoisted=self.hoisted)
 
     def solo(self, q):
         return ivf_pq.search(self.params, self.index, q, self.k,
                              engine=self.engine)
 
 
-class _MutableBackend:
+class _MutableBackend(_Backend):
     """Adapter: ``mutable.MutableIndex`` → its searcher (main ∪ delta,
     tombstones masked in the scan).  Writes land on the same MutableIndex
     while it serves; each dispatch searches a snapshot of it, and
@@ -282,8 +299,45 @@ class _MutableBackend:
         return self.searcher.solo(q)
 
 
+class _TieredBackend(_Backend):
+    """Adapter: ``tiering.TieredIndex`` → its two-phase searcher (hot
+    block, staged cold tiles, optional exact re-rank).  The searcher owns
+    the staging lanes and the per-list probe counter that
+    ``refresh(tiering.retier(t, searcher.hotness()))`` re-tiers from."""
+
+    #: the telemetry label of the backend's program (``_backend_fn``)
+    fn = staticmethod(tiering.TieredSearcher.dispatch)
+
+    def __init__(self, tiered, k: int, params, engine: Optional[str]):
+        self.tiered = tiered
+        self.searcher = tiered.searcher(int(k), params, engine)
+        self.name = self.searcher.name
+        self.k = int(k)
+        self.dim = tiered.dim
+        self.device = tiered.device
+
+    def ingest(self, q) -> np.ndarray:
+        if self.tiered.kind == "ivf_pq":
+            return _pq_ingest(q, self.dim, self.tiered.aux["dataset_dtype"])
+        return _flat_ingest(q, self.dim, self.tiered.metric, self.device)
+
+    def batch_cap(self) -> Optional[int]:
+        return self.searcher.batch_cap()
+
+    def warm(self, bucket: int) -> None:
+        self.searcher.warm(bucket)     # a warm run that counts no probes
+
+    def dispatch(self, qb: torch.Tensor):
+        return self.searcher.dispatch(qb)
+
+    def solo(self, q):
+        return self.searcher.solo(q)
+
+
 def _make_backend(index, k, params, engine, metric, metric_arg,
                   batch_size_index, device):
+    if isinstance(index, tiering.TieredIndex):
+        return _TieredBackend(index, k, params, engine)
     if isinstance(index, ivf_flat.Index):
         return _IvfFlatBackend(index, k, params, engine)
     if isinstance(index, ivf_pq.Index):
@@ -299,8 +353,7 @@ def _warm(backend, buckets) -> None:
     and wait for that stream, so kernels are built and the allocator has
     seen each shape before the backend serves."""
     for b in sorted(buckets):
-        backend.dispatch(torch.zeros((b, backend.dim), dtype=torch.float32,
-                                     device=backend.device))
+        backend.warm(b)
     if backend.device.type == "cuda":
         torch.cuda.current_stream(backend.device).synchronize()
 
@@ -322,8 +375,9 @@ class ServeEngine:
     """Coalescing query server for one (index, k, params) serving key.
 
     ``index`` picks the backend by type: an ``ivf_flat.Index``, an
-    ``ivf_pq.Index`` or a ``mutable.MutableIndex`` of either (*params*
-    its family's ``SearchParams``), else a dense
+    ``ivf_pq.Index``, a ``mutable.MutableIndex`` or a
+    ``tiering.TieredIndex`` of either (*params* its family's
+    ``SearchParams``), else a dense
     (n, dim) array or tensor served by exact brute force under ``metric``
     / ``metric_arg`` in index tiles of ``batch_size_index`` rows, placed
     on ``device`` (default: the card).  ``max_batch`` bounds one
@@ -587,6 +641,11 @@ class ServeEngine:
         if self._sched_cfg is not None:
             body["scheduler"] = {"quantum_s": self._sched_cfg.quantum_s,
                                  "pending": len(self._pending)}
+        # tiered residency: the hot/cold split and the staging tile
+        stats_fn = getattr(getattr(self._backend, "searcher", None),
+                           "tier_stats", None)
+        if stats_fn is not None:
+            body["tiering"] = stats_fn()
         return body
 
     def serve_http(self, port: int = 0, host: str = "127.0.0.1", *,

@@ -155,3 +155,25 @@ def test_mutable_build_and_serialize_modules_stand_alone(monkeypatch,
         serialize.load_ivf_flat(tmp_path / "f")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serialize.load_mutable(tmp_path / "m")
+
+
+def test_tiering_and_ann_modules_stand_alone(monkeypatch):
+    """The tiered index and the ``approx_knn_*`` surface are part of the
+    walk above, import neither jax nor raft_tpu, and their entry points
+    asked for no device raise when CUDA is absent."""
+    from raft_tpu_torch.neighbors import ann, ivf_flat, tiering
+
+    for mod in (tiering, ann):
+        path = pathlib.Path(mod.__file__)
+        assert path.parent == PORT / "neighbors"
+        for name in _imports(path):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "raft_tpu")
+    x = np.random.default_rng(0).random((64, 4)).astype(np.float32)
+    idx = ivf_flat.build(ivf_flat.IndexParams(n_lists=4), x, device="cpu")
+    t = tiering.tier(idx, hot_fraction=0.5, tile_phys=2)
+    assert t.device.type == "cpu" and t.hot_scan[0].device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ann.approx_knn_build_index(ann.IVFFlatParam(nlist=4), x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tiering.tier(ivf_flat.build(ivf_flat.IndexParams(n_lists=4), x))

@@ -287,16 +287,18 @@ def test_empty_batch_and_not_ported_errors(jax_index):
         tpq.extend(tidx, x[:10], np.arange(10, dtype=np.int32))
     with pytest.raises(Exception, match="not ported"):
         tpq.build_sharded(tpq.IndexParams(n_lists=4), x[:200], None)
-    with pytest.raises(Exception, match="not ported"):
-        tpq.build(tpq.IndexParams(n_lists=4, codebook_kind=1), x[:200],
+    # PER_CLUSTER, the float16 sum and the legacy search are ported
+    # (tests/test_torch_ivf_pq_variants.py); what stays refused is an
+    # unknown codebook kind or internal distance type
+    with pytest.raises(Exception, match="codebook_kind"):
+        tpq.build(tpq.IndexParams(n_lists=4, codebook_kind=2), x[:200],
                   device="cpu")
-    for bad in (dict(internal_distance_dtype="float16"),
-                dict(hoisted_lut=False)):
-        with pytest.raises(Exception, match="not ported"):
-            tpq.search(tpq.SearchParams(4, **bad), tidx, q[:4], K)
+    with pytest.raises(Exception, match="internal_distance_dtype"):
+        tpq.search(tpq.SearchParams(4, internal_distance_dtype="bfloat16"),
+                   tidx, q[:4], K)
     arrays = tpq.index_to_arrays(tidx)
-    with pytest.raises(Exception, match="not ported"):
-        tpq.index_from_arrays(arrays, 0, codebook_kind=1, device="cpu")
+    with pytest.raises(ValueError):
+        tpq.index_from_arrays(arrays, 0, codebook_kind=2, device="cpu")
     with pytest.raises(Exception, match="lut_dtype"):
         tpq.search(tpq.SearchParams(4, lut_dtype="int8"), tidx, q[:4], K)
 

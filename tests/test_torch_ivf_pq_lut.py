@@ -214,3 +214,17 @@ def test_scan_refuses_bad_shapes():
     with pytest.raises(LogicError, match="kk"):
         ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, probe_ord, base,
                                  csum, None, 8, 8, 256, 17)
+
+
+def test_scan_refuses_the_sequential_sum():
+    """The sequential float16 sum is raw mode's (the legacy search scores
+    step by step); scan mode takes the float32 and the rounded-once sums."""
+    case = _scan_case(2, 3, 16, 8, 8, "float32", 3, seed=1)
+    block, sizes, ids, phys, lut, probe_ord, base, csum, scale = case
+    for acc in (ivf_pq_lut.SUM_FLOAT32, ivf_pq_lut.SUM_HALF_ONCE):
+        ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, probe_ord, base,
+                                 csum, None, 8, 8, 256, 4, acc=acc)
+    with pytest.raises(LogicError, match="acc"):
+        ivf_pq_lut.lut_scan_topk(block, phys, sizes, lut, probe_ord, base,
+                                 csum, None, 8, 8, 256, 4,
+                                 acc=ivf_pq_lut.SUM_HALF_SEQUENTIAL)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ (with its
 PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
-paths on one NVIDIA card.
+paths, the serving autotuner, random ball cover and the ε-neighbourhood
+on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -166,7 +167,31 @@ Phases, one JSON line each:
    ``load_tiered`` (the same bits), and the busy share of one
    super-batch (``torch.profiler``).  ``approx_knn``:
    ``approx_knn_search`` over both built indexes equals their search.
-11. the ``{"kernels": [...]}`` line, then the last line
+11. the autotuner, the low-dimensional paths and the ε-neighbourhood:
+   ``autotune`` (after the IVF-PQ open-loop phase) on the resident
+   IVF-PQ engine: launch counts reset, ``warmup()``, 8 closed-loop calls
+   to fill the shadow ring, ``AutoTuner`` over the warmed caps and
+   n_probes 10 and 40 with the default recall reference, ``run()`` while
+   a feeder thread ``submit()``s Poisson traffic at 0.5× the closed-loop
+   qps, then a forced rollback (of the winner, else of a promoted cap):
+   no live request failed or shed, each bit for bit the serve phase's
+   result or the promoted config's solo search, no kernel library built
+   or loaded and no warmed signature added from ``warm_candidates()``
+   through the rollback, the baseline restored, ``exact_reference`` on
+   the first four requests giving the ground truth's recall; each
+   candidate's best-pair qps and p99, worst recall, the decisions and
+   the tune's seconds.  ``ball_cover`` (after B5's phase): 1,000,000
+   clustered 3-d points and 1,000,000 clustered (lat, lon) points,
+   ``build_index`` (√n landmarks), ``knn_query`` of 10,000 queries at
+   k = 10 under L2 and Haversine, ``all_knn_query`` (k = 8) over every L2
+   point, ``eps_nn`` of 1,000 queries, each against a brute-force
+   checker on the card (ids equal except at near ties, adjacency except
+   within 1e-5 of ε), with the second-pass queries, B2's launches and
+   the seconds.  ``eps``: ``eps_neighbors_l2sq`` of 4,096 rows against
+   the 1M × 128 dataset in one batch (ε the median squared 10-NN
+   distance) against ``torch.cdist`` (except within 1e-5 × ε of ε), its
+   seconds and peak device memory.
+12. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -3055,6 +3080,431 @@ def kmeans_path(device, seed: int, rep: int, smi):
             (x, params))
 
 
+#: the autotune phase: the IVF-PQ variants explored beside the live
+#: n_probes, the closed-loop calls that fill the shadow ring first, and
+#: the live Poisson traffic during the tune, as a fraction of the
+#: closed-loop qps
+TUNE_PROBES = (10, 40)
+TUNE_FILL_CALLS = 8
+TUNE_LIVE_RATE = 0.5
+#: the forced rollback reports a live p99 of this many pre-promotion p99s
+TUNE_ROLLBACK_X = 10.0
+
+
+def _poisson_feed(eng, reqs, rate_qps, seed, stop):
+    """A thread submitting *reqs* (cycling) as Poisson arrivals of
+    *rate_qps* queries a second until *stop* is set; returns the thread
+    and the (request index, future) list it fills."""
+    subs = []
+    mean_rows = float(np.mean([q.shape[0] for q in reqs]))
+    gaps = np.random.default_rng(seed)
+
+    def feed():
+        t = time.perf_counter()
+        j = 0
+        while not stop.is_set():
+            t += gaps.exponential(mean_rows / rate_qps)
+            delay = t - time.perf_counter()
+            if delay > 0 and stop.wait(delay):
+                break
+            subs.append((j % len(reqs), eng.submit(reqs[j % len(reqs)])))
+            j += 1
+
+    th = threading.Thread(target=feed, daemon=True)
+    th.start()
+    return th, subs
+
+
+def _tuner_gauges(eng):
+    from raft_tpu_torch import telemetry
+
+    out = {}
+    for key, name in (("qps", "raft_tpu_autotune_qps"),
+                      ("p99_s", "raft_tpu_autotune_p99_seconds"),
+                      ("worst_recall", "raft_tpu_autotune_recall")):
+        for labels, v in telemetry.REGISTRY.get(name).items():
+            if labels[0] == eng._engine_id:
+                out.setdefault(labels[1], {})[key] = v
+    return out
+
+
+def autotune_phase(device, eng, index, x, reqs, calls, resident, truth, k,
+                   seed, smi):
+    """The autotuner on the resident IVF-PQ engine: ``warmup()``,
+    closed-loop calls to fill the shadow ring, then ``AutoTuner(eng,
+    param_variants=n_probes TUNE_PROBES)`` over the warmed ladder's caps
+    with the default recall reference, ``run()`` while a feeder thread
+    ``submit()``s Poisson traffic at ``TUNE_LIVE_RATE`` × the closed-loop
+    qps, and a forced rollback (of the winner, else of a promoted cap
+    candidate).  Checks: no live request failed or shed, each bit for bit
+    the serve phase's result (or the solo search under promoted params),
+    no kernel library built or loaded and no warmed signature added from
+    ``warm_candidates()`` through the rollback, the baseline restored,
+    and ``exact_reference`` on the first four requests giving the
+    recall the ground truth gives.  Returns the launch counts."""
+    import concurrent.futures
+
+    import torch
+
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.serve import AutoTuner, Candidate, TunerConfig
+    from raft_tpu_torch.serve.autotune import exact_reference
+
+    _reset(device)
+    eng.warmup()
+    base_params, base_cap = eng._ctor["params"], eng.max_batch
+    fill = calls[:TUNE_FILL_CALLS]
+    t0 = time.perf_counter()
+    for call in fill:
+        eng.search(call)
+    closed_qps = (sum(q.shape[0] for call in fill for q in call)
+                  / (time.perf_counter() - t0))
+    ring = len(eng.shadow_samples())
+    sheds0 = eng.stats["sheds"]
+    tuner = AutoTuner(eng, TunerConfig(seed=seed), param_variants=tuple(
+        ivf_pq.SearchParams(n_probes=p) for p in TUNE_PROBES))
+    names = [c.name for c in tuner.candidates()]
+    t0 = time.perf_counter()
+    n_sig = tuner.warm_candidates()
+    frozen = (dict(native.BUILDS), eng.warmed_signatures())
+    stop = threading.Event()
+    feeder, subs = _poisson_feed(eng, reqs, TUNE_LIVE_RATE * closed_qps,
+                                 seed, stop)
+    try:
+        report = tuner.run()
+        tune_s = time.perf_counter() - t0
+        promoted = next((c for c in tuner.candidates()
+                         if c.name == report["winner"]), None)
+        if promoted is None:   # no paired win: promote a cap to roll back
+            cap = max(b for b in eng.warmed_buckets() if b != base_cap)
+            promoted = Candidate(f"cap{cap}", max_batch=cap)
+            tuner.promote(promoted)
+        promoted_cap, promoted_params = eng.max_batch, eng._ctor["params"]
+        pre_p99 = tuner._pre_p99
+        rolled = tuner.maybe_rollback(
+            live_p99_s=TUNE_ROLLBACK_X * pre_p99)
+    finally:
+        stop.set()
+        feeder.join(STREAM_WAIT_S)
+    check(not feeder.is_alive(), "autotune: the feeder hung")
+    eng.flush()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    check(rolled, "autotune: the forced rollback did not roll back")
+    check((dict(native.BUILDS), eng.warmed_signatures()) == frozen,
+          "autotune: a kernel library was built or loaded, or a warmed "
+          "signature added, between warm_candidates() and the rollback")
+    check(eng._ctor["params"] is base_params and eng.max_batch == base_cap,
+          "autotune: the rollback did not restore the baseline")
+    check(eng.stats["sheds"] == sheds0, "autotune: a live request was shed")
+    promoted_solo = {}
+    for j, f in subs:
+        try:
+            d, i = f.result(timeout=STREAM_WAIT_S)
+        except concurrent.futures.TimeoutError:
+            check(False, "autotune: a live request never resolved")
+        except Exception as e:
+            check(False, f"autotune: a live request failed: {e!r}")
+        if (np.array_equal(d, resident[j][0])
+                and np.array_equal(i, resident[j][1])):
+            continue
+        check(promoted.params is not None,
+              "autotune: a live result differs from the baseline's")
+        if j not in promoted_solo:
+            sd, si = ivf_pq.search(promoted.params, index, reqs[j], k)
+            promoted_solo[j] = (sd.cpu().numpy(), si.cpu().numpy())
+        check(np.array_equal(d, promoted_solo[j][0])
+              and np.array_equal(i, promoted_solo[j][1]),
+              "autotune: a live result is neither the baseline's nor the "
+              "promoted config's solo search")
+    for name in ("select_k", "lut_scan"):
+        check(launches[name] > 0, f"autotune: {name} never launched")
+    # the exact oracle against the ground truth, on the first 4 requests
+    ref = exact_reference(x, k, device=device)
+    t_np = truth.cpu().numpy()
+    xd = x.double()
+    hits_ref = hits_truth = tied = total = off = 0
+    for j in range(4):
+        q = reqs[j]
+        live, got = resident[j][1], ref(q)
+        want = t_np[off:off + q.shape[0]]
+        off += q.shape[0]
+        for row in range(q.shape[0]):
+            a, b = set(got[row].tolist()), set(want[row].tolist())
+            hits_ref += len(set(live[row].tolist()) & a)
+            hits_truth += len(set(live[row].tolist()) & b)
+            total += k
+            if a != b:   # only where the k-th distance is tied
+                qd = torch.as_tensor(q[row], device=device).double()
+                dist = ((xd[sorted(a ^ b)] - qd) ** 2).sum(1)
+                kth = ((xd[sorted(b)] - qd) ** 2).sum(1).max()
+                check(bool(((dist - kth).abs() <= 1e-5 * kth).all()),
+                      "autotune: exact_reference differs from the ground "
+                      "truth outside near ties")
+                tied += len(a - b)
+    check(abs(hits_ref - hits_truth) <= tied,
+          "autotune: exact_reference's recall is not the ground truth's")
+    emit({"phase": "autotune", "path": "ivf_pq", "candidates": names,
+          "ring": ring, "closed_loop_qps": closed_qps,
+          "live_rate_qps": TUNE_LIVE_RATE * closed_qps,
+          "warmed_signatures": n_sig, "tune_s": tune_s,
+          "schedule": report["schedule"], "decisions": tuner.decisions,
+          "winner": report["winner"], "promoted": promoted.name,
+          "promoted_cap": promoted_cap,
+          "promoted_n_probes": (promoted_params.n_probes
+                                if promoted_params is not None else None),
+          "pre_promotion_p99_s": pre_p99, "rolled_back": rolled,
+          "scores": _tuner_gauges(eng), "live_requests": len(subs),
+          "live_results_of_promoted_config": len(promoted_solo),
+          "builds": dict(native.BUILDS),
+          "recall_exact_reference": hits_ref / total,
+          "recall_ground_truth": hits_truth / total,
+          "launches": launches, "card": smi})
+    return launches
+
+
+#: the ball-cover phase: RBC's own domain, as cuML's
+#: NearestNeighbors(algorithm="rbc") serves it (2-3 features)
+BC_POINTS = 1_000_000
+BC_QUERIES = 10_000
+BC_K = 10
+BC_ALL_K = 8
+#: points of the all-kNN query: the whole L2 set (18.1 s on an H100,
+#: ``tools/ball_cover_probe.py``; the 200,000-point cut it was allowed
+#: above 60 s is not needed)
+BC_ALL_POINTS = 1_000_000
+BC_EPS_QUERIES = 1_000
+#: queries per block of the brute-force checkers
+ORACLE_ROWS = 1024
+
+
+def _oracle_topk(q, x, k, dist_fn, rows=ORACLE_ROWS):
+    """The k smallest distances of *dist_fn* (sorted) and their ids, per
+    row of *q*, in blocks of *rows* queries."""
+    import torch
+
+    out_d, out_i = [], []
+    for r in range(0, q.shape[0], rows):
+        v, i = torch.topk(dist_fn(q[r:r + rows], x), k, dim=1,
+                          largest=False)
+        out_d.append(v)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _l2_direct(a, b, dtype=None, squared=False):
+    """‖a_i − b_j‖ summed column by column in *dtype* (default float64):
+    the checker of the low-dimensional paths (``torch.cdist`` without
+    its product form runs one reduction per output, ~1e9 outputs a
+    second, which 1M × 1M pairs cannot afford)."""
+    import torch
+
+    dtype = dtype or torch.float64
+    a, b = a.to(dtype), b.to(dtype)
+    d = (a[:, None, 0] - b[None, :, 0]) ** 2
+    for c in range(1, a.shape[1]):
+        d += (a[:, None, c] - b[None, :, c]) ** 2
+    return d if squared else d.sqrt_()
+
+
+def _haversine64(a, b):
+    import torch
+
+    a, b = a.double(), b.double()
+    h = (torch.sin((a[:, None, 0] - b[None, :, 0]) / 2) ** 2
+         + torch.cos(a[:, None, 0]) * torch.cos(b[None, :, 0])
+         * torch.sin((a[:, None, 1] - b[None, :, 1]) / 2) ** 2)
+    return 2.0 * torch.arcsin(torch.sqrt(torch.clamp(h, 0.0, 1.0)))
+
+
+def ball_cover_phase(device, n_lists, seed, smi):
+    """Random ball cover over 1,000,000 clustered 3-d points (the
+    mixture's recipe in 3 dimensions) and 1,000,000 clustered (lat, lon)
+    points: ``build_index`` (√n landmarks), ``knn_query`` of 10,000
+    queries at k = 10 under L2SqrtExpanded and Haversine,
+    ``all_knn_query`` (k = 8) over the first ``BC_ALL_POINTS`` L2 points
+    and ``eps_nn`` of 1,000 queries; each against a brute-force checker
+    on the card (ids equal except at near ties, adjacency except within
+    1e-5 of ε), with the queries the certificate sent to a second pass
+    and the landmarks it scanned, B2's launches and the seconds.  Each
+    result prints as it comes.  Returns the launch counts."""
+    import torch
+
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ball_cover as bc
+
+    _reset(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    comps = torch.randn(4 * n_lists, 3, generator=gen, device=device)
+    x = mixture(gen, BC_POINTS, 3, comps, 0.7, device)
+    q = mixture(gen, BC_QUERIES, 3, comps, 0.7, device)
+    centres = torch.stack([
+        (torch.rand(4 * n_lists, generator=gen, device=device) * 2 - 1)
+        * 1.4,
+        (torch.rand(4 * n_lists, generator=gen, device=device) * 2 - 1)
+        * math.pi], 1)
+    h = mixture(gen, BC_POINTS, 2, centres, 0.02, device)
+    hq = mixture(gen, BC_QUERIES, 2, centres, 0.02, device)
+    # (first pass of its batch, width, queries, landmarks scanned) a pass
+    scans = []
+    scan_landmarks, query_batch = bc._scan_landmarks, bc._query_batch
+    first_of_batch = [False]
+
+    def marked_batch(*a, **kw):
+        first_of_batch[0] = True
+        return query_batch(*a, **kw)
+
+    def counting(index, qb, probe_ids, kk, engine=None):
+        scans.append((first_of_batch[0], int(probe_ids.shape[1]),
+                      int(qb.shape[0]),
+                      int((probe_ids < index.n_landmarks).sum())))
+        first_of_batch[0] = False
+        return scan_landmarks(index, qb, probe_ids, kk, engine)
+
+    def run_knn(name, index, queries, kk, fn):
+        scans.clear()
+        b2 = native.LAUNCHES["select_k"]
+        t0 = time.perf_counter()
+        d, i = fn()
+        secs = _synced_seconds(device, t0)
+        second = [s for s in scans if not s[0]]
+        return d, i, {"query": name, "queries": int(queries.shape[0]),
+                      "k": kk, "seconds": secs,
+                      "qps": queries.shape[0] / secs,
+                      "initial_probes": scans[0][1],
+                      "second_pass_queries": sum(s[2] for s in second),
+                      "second_pass_landmarks_mean": (
+                          sum(s[3] for s in second)
+                          / max(1, sum(s[2] for s in second))),
+                      "b2_launches": native.LAUNCHES["select_k"] - b2}
+
+    def add(row):
+        emit({"phase": "ball_cover", **row, "card": smi})
+
+    bc._scan_landmarks, bc._query_batch = counting, marked_batch
+    try:
+        indexes = {}
+        for name, pts, qs, metric, dist_fn in (
+                ("l2", x, q, DistanceType.L2SqrtExpanded, _l2_direct),
+                ("haversine", h, hq, DistanceType.Haversine,
+                 _haversine64)):
+            t0 = time.perf_counter()
+            index = bc.build_index(pts, metric, seed=seed)
+            build_s = _synced_seconds(device, t0)
+            indexes[name] = index
+            d, i, row = run_knn(name, index, qs, BC_K, lambda: bc.knn_query(
+                index, qs, BC_K))
+            ref_d, ref_i = _oracle_topk(qs, pts, BC_K + 1, dist_fn,
+                                        ORACLE_ROWS // 4)
+            row["id_diffs_at_near_ties"] = check_knn(
+                f"ball_cover {name} knn_query", d, i, ref_d[:, :BC_K],
+                ref_i[:, :BC_K], ref_d)
+            row.update(build_s=build_s, n_landmarks=index.n_landmarks,
+                       capacity=index.capacity,
+                       physical_rows=int(index.list_data.shape[0]))
+            add(row)
+        pts = x[:BC_ALL_POINTS]
+        index = (indexes["l2"] if BC_ALL_POINTS >= BC_POINTS
+                 else bc.build_index(pts, seed=seed))
+        d, i, row = run_knn("all_knn", index, pts, BC_ALL_K,
+                            lambda: bc.all_knn_query(index, BC_ALL_K))
+        # float32 squared distances: 1M × 1M pairs in ~1,000 blocks
+        t0 = time.perf_counter()
+        ref_d, ref_i = _oracle_topk(
+            pts, pts, BC_ALL_K + 1,
+            lambda a, b: _l2_direct(a, b, torch.float32, squared=True))
+        ref_d = ref_d.sqrt_()
+        row["checker_s"] = _synced_seconds(device, t0)
+        row["id_diffs_at_near_ties"] = check_knn(
+            "ball_cover all_knn_query", d, i, ref_d[:, :BC_ALL_K],
+            ref_i[:, :BC_ALL_K], ref_d)
+        check(bool((i[:, 0].long() == torch.arange(
+            pts.shape[0], device=device)).float().mean() > 0.999),
+              "ball_cover all_knn_query: points are not their own nearest")
+        row["points"] = int(pts.shape[0])
+        add(row)
+        del ref_d, ref_i, d, i
+        # eps_nn: ε the median 10-NN distance of the L2 queries
+        eq = q[:BC_EPS_QUERIES]
+        d10, _ = bc.knn_query(indexes["l2"], eq, BC_K)
+        eps = float(d10[:, -1].median())
+        t0 = time.perf_counter()
+        adj, vd = bc.eps_nn(indexes["l2"], eq, eps)
+        eps_s = _synced_seconds(device, t0)
+        edge_pairs = 0
+        for r in range(0, eq.shape[0], 256):
+            ref = _l2_direct(eq[r:r + 256], x)
+            edge = (ref - eps).abs() <= 1e-5
+            edge_pairs += int(edge.sum())
+            check(not bool(((adj[r:r + 256] != (ref <= eps)) & ~edge).any()),
+                  "ball_cover eps_nn: adjacency differs from torch.cdist "
+                  "away from ε")
+        check(bool((vd == adj.sum(1)).all()),
+              "ball_cover eps_nn: degrees are not the adjacency's row sums")
+        add({"query": "eps_nn", "queries": int(eq.shape[0]), "eps": eps,
+             "seconds": eps_s, "adjacency_bytes": adj.numel(),
+             "mean_degree": float(vd.float().mean()),
+             "pairs_within_1e-5_of_eps": edge_pairs})
+        del adj, vd
+    finally:
+        bc._scan_landmarks, bc._query_batch = scan_landmarks, query_batch
+    launches = dict(native.LAUNCHES)
+    check(launches["select_k"] > 0, "ball_cover: B2 never launched")
+    emit({"phase": "ball_cover_launches", "points": BC_POINTS,
+          "all_knn_points": BC_ALL_POINTS, "launches": launches,
+          "card": smi})
+    return launches
+
+
+#: the eps phase: one row batch of the kind cuML's DBSCAN computes
+EPS_ROWS = 4096
+
+
+def eps_phase(device, x, queries, qr, truth, smi):
+    """``eps_neighbors_l2sq`` of ``EPS_ROWS`` queries against the whole
+    dataset in one batch (``batch_size`` 8,192), ε the median squared
+    10-NN distance of the recall queries; checked against a blocked
+    ``torch.cdist`` (except pairs within 1e-5 × ε of ε) and the degrees
+    against the adjacency's row sums.  Returns the launch counts."""
+    import torch
+
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import eps_neighbors_l2sq
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    _reset(device)
+    rows = queries[:EPS_ROWS]
+    eps = float(((qr - x[truth[:, -1]]) ** 2).sum(1).median())
+    t0 = time.perf_counter()
+    adj, vd = eps_neighbors_l2sq(rows, x, eps)
+    secs = _synced_seconds(device, t0)
+    launches = dict(native.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    edge_pairs = 0
+    for r in range(0, rows.shape[0], 256):
+        ref = torch.cdist(rows[r:r + 256], x,
+                          compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        edge = (ref - eps).abs() <= 1e-5 * eps
+        edge_pairs += int(edge.sum())
+        check(not bool(((adj[r:r + 256] != (ref <= eps)) & ~edge).any()),
+              "eps: adjacency differs from torch.cdist away from ε")
+    check(bool((vd == adj.sum(1)).all()),
+          "eps: degrees are not the adjacency's row sums")
+    emit({"phase": "eps", "rows": int(rows.shape[0]), "n": int(x.shape[0]),
+          "dim": int(x.shape[1]), "eps": eps, "seconds": secs,
+          "pairs_per_s": rows.shape[0] * x.shape[0] / secs,
+          "adjacency_bytes": adj.numel(),
+          "mean_degree": float(vd.float().mean()),
+          "pairs_within_1e-5_eps": edge_pairs, "peak_mem_bytes": peak,
+          "launches": launches, "card": smi})
+    del adj, vd
+    return launches
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -3108,6 +3558,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     resident_pq = served.results
     stream_pq = serve_stream("ivf_pq", device, served, q_host, n_queries,
                              smi, seed, refresh_index=index_pq)
+    launches_tune = autotune_phase(device, eng_pq, index_pq, x, reqs, calls,
+                                   resident_pq, truth, k, seed, smi)
     rows["lut_score"] = lut_phase(device, index_pq, queries, rep)
     rows["lut_scan"], rows["lut_scan_tombstones"] = lut_scan_phase(
         device, index_pq, queries, n_probes, k, rep, seed)
@@ -3136,6 +3588,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     pairwise_distance_phase(device, rep)
     rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
                                                         rep)
+    launches_bc = ball_cover_phase(device, n_lists, seed, smi)
+    launches_eps = eps_phase(device, x, queries, qr, truth, smi)
     by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
                "ivf_flat_mutable": mut_flat,
                "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
@@ -3143,7 +3597,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "ivf_pq_legacy": launches_legacy,
                "tiered_ivf_flat": launches_tf, "tiered_ivf_pq": launches_tp,
                "brute_force": launches_bf, "brute_force_stream": stream_bf,
-               **launches_km}
+               "autotune": launches_tune, "ball_cover": launches_bc,
+               "eps": launches_eps, **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():

@@ -12,7 +12,9 @@ library.  A build that fails raises with the
 compiler's output.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show which kernels its path went through.
+show which kernels its path went through; :data:`BUILDS` counts the
+``nvcc`` runs and library loads, so a run can show that a stage (the
+autotuner's exploration, a promotion) built and loaded nothing.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ LAUNCHES: Dict[str, int] = {"fused_l2_nn": 0, "fused_l2_nn_partials": 0,
                             "select_k": 0, "lut_score": 0, "lut_scan": 0,
                             "lut_scan_tombstones": 0,
                             "pairwise_accumulate": 0}
+
+#: ``nvcc`` runs ("compiled") and libraries loaded into the process
+#: ("loaded") since it started
+BUILDS: Dict[str, int] = {"compiled": 0, "loaded": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -84,6 +90,7 @@ def build_all() -> None:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
                        tmp, out)
+        BUILDS["compiled"] += 1
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -103,6 +110,7 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _declare(name, lib)
             _libs[name] = lib
+            BUILDS["loaded"] += 1
         return _libs[name]
 
 

@@ -1,8 +1,13 @@
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import (ball_cover, brute_force,
+                                      epsilon_neighborhood, ivf_flat, ivf_pq)
 from raft_tpu_torch.neighbors.brute_force import (brute_force_knn,
                                                   fused_l2_knn, knn,
                                                   knn_merge_parts)
+from raft_tpu_torch.neighbors.epsilon_neighborhood import (eps_neighbors,
+                                                           eps_neighbors_l2sq)
 from raft_tpu_torch.neighbors.haversine import haversine_knn
 
-__all__ = ["brute_force", "ivf_flat", "ivf_pq", "brute_force_knn",
-           "fused_l2_knn", "knn", "knn_merge_parts", "haversine_knn"]
+__all__ = ["ball_cover", "brute_force", "epsilon_neighborhood", "ivf_flat",
+           "ivf_pq", "brute_force_knn", "fused_l2_knn", "knn",
+           "knn_merge_parts", "eps_neighbors", "eps_neighbors_l2sq",
+           "haversine_knn"]

@@ -401,3 +401,16 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
     if len(out_d) == 1:
         return out_d[0], out_i[0]
     return torch.cat(out_d), torch.cat(out_i)
+
+
+def build_and_search(dataset, queries, k: int,
+                     index_params: Optional[IndexParams] = None,
+                     search_params: Optional[SearchParams] = None, *,
+                     device=None, engine: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Build an index over *dataset* and search it with *queries* in one
+    call (the JAX package's convenience one-shot)."""
+    index = build(index_params or IndexParams(), dataset, device=device,
+                  engine=engine)
+    return search(search_params or SearchParams(), index, queries, k,
+                  engine=engine)

@@ -187,6 +187,12 @@ class AdmissionController:
             self._observed_batch_s = (0.7 * self._observed_batch_s
                                       + 0.3 * per)
 
+    def reset_observed(self) -> None:
+        """Drop the observed per-batch EWMA (the autotuner's promotion
+        hook): after a config swap the old observations describe the OLD
+        config, so the estimate re-converges from the telemetry seed."""
+        self._observed_batch_s = None
+
     def batch_cost_s(self, fn: Optional[str]) -> float:
         """Estimated seconds to serve ONE coalesced super-batch of program
         *fn*: the engine's own observed end-to-end per-batch time first,

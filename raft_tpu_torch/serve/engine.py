@@ -1,7 +1,8 @@
 """Batched query serving over brute force, IVF-Flat, IVF-PQ, the mutable
 index and the tiered index (port of ``raft_tpu/serve/engine.py``: the
 backends :110-291, ``_TieredBackend`` :442 and ``_MutableBackend`` :474,
-``_make_backend`` :527, ``ServeEngine`` :544-1633).
+``_make_backend`` :527, ``ServeEngine`` :544-1633, with the autotuner's
+hooks :823-892).
 
 * **Request coalescing** — concurrent ragged requests are packed in
   arrival order into super-batches of at most ``max_batch`` rows, each
@@ -54,15 +55,22 @@ the device, cold tiles staged per batch, optional exact re-rank);
 ``refresh(tiering.retier(t, searcher.hotness()))`` re-tiers it, and
 ``/healthz`` reports its residency.
 
+The autotuner (:mod:`raft_tpu_torch.serve.autotune`) reads the bounded
+shadow ring of recent requests (:meth:`ServeEngine.shadow_samples`),
+applies its host knobs through :meth:`ServeEngine.apply_tuning` and shows
+in ``/healthz`` (:meth:`ServeEngine.attach_tuner`).  With a cost store
+installed (:mod:`raft_tpu_torch.core.coststore`), ``close()`` persists the
+scheduler's cost rows and a new engine over the same backend program
+seeds its cost model from them.
+
 Requests are ingested as float32 (``warmed_signatures()`` reports
 ``{"float32": [...]}``).  Not ported yet: serving other query types as
-themselves, the sharded and replica backends (with replica routing),
-autotuning (``attach_tuner``, ``apply_tuning``, ``shadow_samples``) and
-the executable store's persisted cost rows.
+themselves, and the sharded and replica backends (with replica routing).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
 from concurrent import futures
@@ -72,8 +80,9 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import telemetry
+from raft_tpu_torch.core import coststore
 from raft_tpu_torch.core.buckets import bucket_dim
-from raft_tpu_torch.core.error import expects, fail
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import Handle, resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import as_float_tensor
@@ -90,6 +99,10 @@ from raft_tpu_torch.testing import faults as _faults
 #: Bound on the per-call latency list (``last_latencies``) and on the
 #: latency histogram's reservoir.
 LATENCY_RESERVOIR = 4096
+
+#: bounded live-request shadow ring (the autotuner's shadow traffic): a
+#: representative mix, a few MB of retained request arrays at most
+_SHADOW_RING = 64
 
 #: the one type requests are served in (every backend ingests to it)
 _DTYPE = "float32"
@@ -426,6 +439,11 @@ class ServeEngine:
         self._closed = False       # close(): new requests reject typed
         self._recorder = None      # slow-request flight recorder
         self._http = None          # the live scrape server, if started
+        #: the autotuner's shadow traffic: the last _SHADOW_RING ingested
+        #: requests with rows, overwritten round-robin
+        self._shadow_ring: List[Optional[np.ndarray]] = [None] * _SHADOW_RING
+        self._shadow_pos = 0
+        self._tuner = None         # attached AutoTuner (/healthz autotune)
         self._engine_id = str(next(_ENGINE_IDS))
         #: Serving statistics: a counter view over the registry
         #: (``raft_tpu_serve_engine_stats{engine,key}``) — reads like a
@@ -448,6 +466,9 @@ class ServeEngine:
                             if self._sched_cfg is not None else 0.05),
             use_telemetry=(self._sched_cfg.use_telemetry
                            if self._sched_cfg is not None else True))
+        # cold start: the rows a previous engine over the same backend
+        # program persisted at close()
+        self._seed_cost_from_store()
         #: submit(): pending (request, future, arrival) envelopes and the
         #: scheduler thread, started lazily
         self._pending: List[Any] = []
@@ -553,15 +574,68 @@ class ServeEngine:
         with self._warmed_mut:
             return {dt: sorted(bs) for dt, bs in self._warmed.items()}
 
-    # -- autotuning: not ported yet -------------------------------------------
-    def shadow_samples(self):
-        fail("ServeEngine.shadow_samples (autotuning) is not ported yet")
+    # -- autotuning hooks --------------------------------------------------
+    def shadow_samples(self) -> List[np.ndarray]:
+        """A snapshot of the shadow ring: up to ``_SHADOW_RING`` recently
+        ingested request arrays (the autotuner's live shadow traffic)."""
+        return [q for q in list(self._shadow_ring) if q is not None]
 
     def attach_tuner(self, tuner) -> None:
-        fail("ServeEngine.attach_tuner (autotuning) is not ported yet")
+        """Attach (or detach with None) an autotuner: its state shows in
+        the ``/healthz`` body as the ``autotune`` sub-object."""
+        self._tuner = tuner
 
-    def apply_tuning(self, **knobs):
-        fail("ServeEngine.apply_tuning (autotuning) is not ported yet")
+    def apply_tuning(self, *, quantum_s: Optional[float] = None,
+                     max_batch: Optional[int] = None) -> Dict[str, Any]:
+        """Atomically apply host-side tuner knobs; returns the PREVIOUS
+        values (the tuner's rollback token).  ``max_batch`` must be a
+        warmed bucket or the construction cap, so the planner's ladder
+        stays inside the warmed shapes."""
+        expects(not self._closed, "apply_tuning() on a closed engine")
+        with self._lock:
+            prev: Dict[str, Any] = {
+                "quantum_s": (self._sched_cfg.quantum_s
+                              if self._sched_cfg is not None else None),
+                "max_batch": self.max_batch}
+            if quantum_s is not None:
+                expects(self._sched_cfg is not None,
+                        "quantum tuning needs the scheduler enabled")
+                expects(quantum_s > 0.0, "quantum_s must be positive")
+                self._sched_cfg = dataclasses.replace(
+                    self._sched_cfg, quantum_s=float(quantum_s))
+            if max_batch is not None:
+                b = int(max_batch)
+                with self._warmed_mut:
+                    warmed_any = {x for bs in self._warmed.values()
+                                  for x in bs}
+                expects(b in warmed_any
+                        or b == self._capped_max_batch(self._backend),
+                        f"max_batch={b} is neither a warmed bucket nor "
+                        "the construction cap — tuning must stay inside "
+                        "the warmed ladder")
+                self.max_batch = b
+            return prev
+
+    def _seed_cost_from_store(self) -> None:
+        """Seed the scheduler cost model from the installed cost store's
+        rows for this backend program (a no-op without a store)."""
+        store = coststore.installed()
+        fn = self._backend_fn()
+        if store is None or not fn:
+            return
+        self._cost.seed_rows(store.load_costs(fn, self._backend.device))
+
+    def _persist_cost_rows(self) -> None:
+        """Persist the cost model's observed rows into the installed cost
+        store (close()-time): the next engine's construction seeds from
+        them."""
+        store = coststore.installed()
+        fn = self._backend_fn()
+        if store is None or not fn:
+            return
+        rows = self._cost.rows()
+        if rows:
+            store.save_costs(fn, rows, self._backend.device)
 
     # -- index refresh ------------------------------------------------------
     def refresh(self, index, params=KEEP_PARAMS) -> None:
@@ -641,6 +715,10 @@ class ServeEngine:
         if self._sched_cfg is not None:
             body["scheduler"] = {"quantum_s": self._sched_cfg.quantum_s,
                                  "pending": len(self._pending)}
+        # the autotuner: decisions, promotion and the rollback guard
+        tuner = self._tuner
+        if tuner is not None:
+            body["autotune"] = tuner.health()
         # tiered residency: the hot/cold split and the staging tile
         stats_fn = getattr(getattr(self._backend, "searcher", None),
                            "tier_stats", None)
@@ -682,6 +760,9 @@ class ServeEngine:
         if self._closed:
             return
         self._closed = True
+        # the next engine over this backend program seeds its scheduler
+        # from these rows
+        self._persist_cost_rows()
         with self._pending_cv:
             pending, self._pending = list(self._pending), []
             self._pending_cv.notify_all()
@@ -839,8 +920,9 @@ class ServeEngine:
         future is left unresolved."""
         batch: List[Any] = []
         try:
-            cfg = self._sched_cfg
             while True:
+                # read each round: apply_tuning() may retune the quantum
+                cfg = self._sched_cfg
                 batch = []
                 with self._pending_cv:
                     if not self._pending:
@@ -961,6 +1043,11 @@ class ServeEngine:
         self.stats.inc("requests", len(raw))
         self.stats.inc("queries", sum(int(q.shape[0]) for q in ingested
                                       if q is not None))
+        # the shadow ring: one slot store per request with rows
+        for q in ingested:
+            if q is not None and q.shape[0]:
+                self._shadow_ring[self._shadow_pos % _SHADOW_RING] = q
+                self._shadow_pos += 1
 
         # deadline-aware admission in arrival order, BEFORE planning
         deadlines: List[Optional[float]] = [None] * len(raw)

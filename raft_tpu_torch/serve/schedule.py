@@ -102,6 +102,24 @@ class CostModel:
         """Re-point the registry seed at a new backend program (refresh)."""
         self._fn = fn
 
+    def rows(self) -> Dict[Tuple[str, int], float]:
+        """The observed per-(dtype, bucket) EWMA rows — what the engine
+        persists through ``core.coststore`` at close() so the next
+        process's first scheduler decisions use real costs."""
+        return dict(self._ewma)
+
+    def seed_rows(self, rows: Dict[Tuple[str, int], float]) -> int:
+        """Seed ABSENT per-(dtype, bucket) rows from a persisted snapshot;
+        live observations already made take precedence, rows that are not
+        positive are dropped.  Returns the number of rows seeded."""
+        n = 0
+        for (dt, b), v in rows.items():
+            key = (str(dt), int(b))
+            if key not in self._ewma and float(v) > 0.0:
+                self._ewma[key] = float(v)
+                n += 1
+        return n
+
     def observe(self, dtype: str, bucket: int, wall_s: float) -> None:
         """One collected super-batch's end-to-end wall time."""
         if wall_s <= 0.0:

@@ -14,7 +14,8 @@ spans, histograms, gauges, reservoirs, device sampling and the JSONL sink
 into no-ops; counters stay live.
 
 Not ported yet: fleet aggregation (:func:`gather`, :func:`merge`; it comes
-with the distributed item) and :func:`program_costs`.
+with the distributed item).  :func:`program_costs` is dropped: it reads
+XLA's cost analysis, which PyTorch has no counterpart of.
 
 Quick tour::
 

@@ -11,9 +11,11 @@ anyway, so sampling adds no synchronisation — and recorded into
 ``raft_tpu_device_seconds{fn}``.  On the CPU, where a dispatch runs to
 its end before it returns, the dispatch's own wall time is the sample.
 
-Not ported yet: the compile-time half (``program_costs`` and the
-``raft_tpu_program_*`` gauges read XLA's cost analysis; PyTorch has no
-counterpart) and the achieved FLOP/s and bytes/s gauges derived from it.
+The compile-time half is dropped, not ported: ``program_costs`` and the
+``raft_tpu_program_*`` gauges read XLA's cost analysis of a compiled
+program, and the port compiles none (PyTorch runs eagerly; the kernels
+are ``nvcc`` libraries).  Nothing on the serving path read them; the
+smoke derives each kernel's bound from its shapes instead.
 
 The not-sampled cost is one enabled() check, one locked add and a modulo.
 """
@@ -76,9 +78,10 @@ def _metric():
 
 def program_costs(compiled) -> Dict[str, Optional[float]]:
     """The reference harvests XLA's ``cost_analysis`` of a compiled
-    program here; the port compiles no programs and has no counterpart."""
-    fail("telemetry.program_costs is not ported yet (it reads XLA's cost "
-         "analysis; PyTorch has no counterpart)")
+    program here; the port compiles no programs, so the name stays only
+    to say so."""
+    fail("telemetry.program_costs is not ported yet and is dropped: it "
+         "reads XLA's cost analysis, which PyTorch has no counterpart of")
 
 
 def sample_due(fn: str) -> bool:

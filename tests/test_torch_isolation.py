@@ -1,5 +1,6 @@
 """The port stands alone: importing raft_tpu_torch pulls in neither jax nor
-any raft_tpu module, no file of the port (or chip_smoke.py) imports them,
+any raft_tpu module, no file of the port (or chip_smoke.py) imports them
+or the JAX package's ``bench`` folder,
 and entry points asked for no device raise when CUDA is absent."""
 
 import ast
@@ -47,7 +48,8 @@ def test_no_jax_or_raft_tpu_import_in_sources():
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "raft_tpu"), (f, name)
+            assert root not in ("jax", "jaxlib", "raft_tpu", "bench"), (
+                f, name)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

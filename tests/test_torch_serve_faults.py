@@ -493,8 +493,37 @@ class TestClose:
 @pytest.mark.parametrize("call", ["shadow_samples", "attach_tuner",
                                   "apply_tuning"])
 def test_autotuning_hooks_not_ported_yet(call):
-    eng = ServeEngine(_X, _K, max_batch=16, device="cpu")
-    args = {"shadow_samples": (), "attach_tuner": (None,),
-            "apply_tuning": ()}[call]
-    with pytest.raises(LogicError, match="not ported yet"):
-        getattr(eng, call)(*args)
+    """The autotuner's three engine hooks, which raised "not ported yet"
+    until the autotuner was ported (the test keeps its name), now work on
+    a CPU engine: the shadow ring holds the served requests, an attached
+    tuner shows in /healthz, apply_tuning applies a warmed cap and
+    returns the previous one."""
+    eng = _engine(max_batch=16)
+    try:
+        if call == "shadow_samples":
+            ring = eng.shadow_samples()
+            assert len(ring) == 1
+            np.testing.assert_array_equal(ring[0], _X[:2])
+        elif call == "attach_tuner":
+            tuner = types.SimpleNamespace(health=lambda: {"promoted": None})
+            eng.attach_tuner(tuner)
+            assert eng._health()["autotune"] == {"promoted": None}
+            eng.attach_tuner(None)
+            assert "autotune" not in eng._health()
+        else:
+            assert eng.apply_tuning(max_batch=8)["max_batch"] == 16
+            assert eng.max_batch == 8
+            _assert_solo(eng.search([_X[:12]])[0], _X, _X[:12])
+    finally:
+        eng.close()
+
+
+def test_autotuner_shadow_lane_not_ported_yet():
+    from raft_tpu_torch.serve import AutoTuner
+
+    eng = _engine(max_batch=16)
+    try:
+        with pytest.raises(LogicError, match="not ported yet"):
+            AutoTuner(eng, shadow_lane=0)
+    finally:
+        eng.close()

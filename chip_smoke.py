@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ (with its
 PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
-paths, the serving autotuner, random ball cover and the ε-neighbourhood
-on one NVIDIA card.
+paths, the serving autotuner, random ball cover, the ε-neighbourhood and
+the distributed layer (MNMG k-means and kNN at world 1 over NCCL and
+world 2 over gloo) on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -126,7 +127,28 @@ Phases, one JSON line each:
    near ties and distances to rtol 1e-5; on every query, the kernel path
    against the plain path (``engine="torch"``) in the same way.  Then a
    short ``serve_stream`` pass: 1,024 queries at 0.5×, so B5 runs under
-   the scheduler.
+   the scheduler.  Then the distributed layer.  ``mnmg``: a world of
+   one over NCCL in this process (a ``FileStore`` in a temporary
+   directory), every ``self_tests`` check true; MNMG k-means at
+   configs[1] from the k-means path's init in its three loops, launch
+   counts reset first, each bit for bit ``kmeans.fit`` with
+   ``InitMethod.Array`` (centroids, ``n_iter``) with ``n_iter`` + 1
+   allreduces (fori: ``max_iter`` + 1) of (k·d + k + 1)·4 bytes and the
+   inertia's 4, ``predict`` bit for bit, B1 and B3 launched, seconds
+   beside the single-device fit's; ``knn_mnmg`` over the 1M dataset at
+   10,000 queries, k = 10, under L2 and L1 with the index and the query
+   partition, each bit for bit ``brute_force.knn`` with one allgather of
+   nq·2k·4 bytes (the query partition: its padded slice's), B2 and B5
+   launched, qps beside ``knn``'s; ``telemetry.gather`` the local
+   snapshot.  ``mnmg_w2``: two worker processes on the card over gloo
+   (NCCL takes one rank per device), each making the smoke's data from
+   the seed and holding half the rows, awaited under
+   ``MNMG_W2_TIMEOUT_S`` (a failed or hung worker fails the smoke):
+   k-means (tol 0, ``MNMG_W2_ITERS`` steps) within 1e-5 of world 1's
+   centroids, ARI ≥ ``MNMG_W2_ARI``, inertia within 1e-5; ``knn_mnmg``
+   (index partition) under L1 bit for bit world 1's and under L2 ids
+   equal except at near ties, distances to rtol 1e-5; ``gather`` holding
+   both hosts; seconds and the collectives staged through the host.
 8. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
    1,024 × 16,384 × 128 against ``engine="torch"`` (rtol 1e-5, atol
    1e-5); the seven B5 metrics must launch B5 and the others must not.
@@ -2951,7 +2973,7 @@ def kmeans_path(device, seed: int, rep: int, smi):
     ``kmeans``, ``kmeans_checks``, ``kmeans_l1``, ``kmeans_cosine`` and
     ``silhouette`` lines) and the kernels at its shapes.  Returns (launch
     counts by path, the kernels' k-means fields, the data and the fit's
-    parameters for ``--profile``)."""
+    parameters for ``--profile``, and the init's centroids)."""
     import torch
 
     from raft_tpu_torch import cluster, stats
@@ -3077,7 +3099,7 @@ def kmeans_path(device, seed: int, rep: int, smi):
 
     rows = kmeans_kernel_rows(device, x, c_fit, buf, rep)
     return ({"kmeans": launches, "kmeans_l1": launches_l1}, rows,
-            (x, params))
+            (x, params, c0))
 
 
 #: the autotune phase: the IVF-PQ variants explored beside the live
@@ -3505,6 +3527,380 @@ def eps_phase(device, x, queries, qr, truth, smi):
     del adj, vd
     return launches
 
+# ---------------------------------------------------------------------------
+# the distributed layer: world 1 over NCCL in this process, world 2 over
+# gloo in two worker processes on the one card (NCCL takes one rank per
+# device)
+
+#: world 2's k-means and its world-1 twin: tol 0 and this many EM steps
+#: (``loop="host"`` reads no δ², so exactly this many)
+MNMG_W2_ITERS = 20
+#: how far world 2's k-means may lie from world 1's: its centroids (rtol,
+#: atol), its labels (ARI at least) and its inertia (relative)
+MNMG_W2_RTOL = MNMG_W2_ATOL = 1e-5
+MNMG_W2_ARI = 0.999
+MNMG_W2_INERTIA_RTOL = 1e-5
+#: the longest the two workers may take together, their start included
+MNMG_W2_TIMEOUT_S = 420
+#: every this-many-th row of a dataset is the witness that a worker made
+#: the same data as the smoke's process
+WITNESS_STEP = 9973
+
+
+def _witness(t):
+    return t[::WITNESS_STEP].cpu().numpy()
+
+
+def _calls(comms, name):
+    return (comms.collective_calls[name],
+            comms.collective_calls[f"{name}_bytes"])
+
+
+def _delta(after, before):
+    return tuple(a - b for a, b in zip(after, before))
+
+
+def mnmg_phase(device, seed, km, x, queries, k, smi):
+    """The ``mnmg`` line: a world of one over NCCL in this process (a
+    ``FileStore`` in a temporary directory, destroyed at the end): every
+    ``self_tests`` check; MNMG k-means at configs[1] from the k-means
+    path's init through the three loops, each bit for bit
+    ``kmeans.fit(InitMethod.Array)`` with ``n_iter`` + 1 allreduces (fori:
+    ``max_iter`` + 1) of (k·d + k + 1)·4 bytes (the last of 4), and
+    ``predict`` bit for bit; ``knn_mnmg`` over the 1M dataset under L2
+    and L1 with both partitions, bit for bit ``brute_force.knn`` with one
+    allgather each; ``telemetry.gather`` the local snapshot.  Returns
+    (k-means launches, kNN launches, world 1's results for ``mnmg_w2``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch import cluster, telemetry
+    from raft_tpu_torch.cluster import InitMethod, KMeansParams, kmeans_mnmg
+    from raft_tpu_torch.comms import CommsSession, self_tests
+    from raft_tpu_torch.core.buckets import bucket_dim
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.neighbors.knn_mnmg import knn_mnmg
+
+    t_phase = time.perf_counter()
+    kx, kc0 = km
+    nk, dim = kc0.shape
+    nq = queries.shape[0]
+    row = {"phase": "mnmg", "world": 1, "card": smi}
+    store = tempfile.mkdtemp(prefix="raft_smoke_store_")
+    session = CommsSession(multihost=dict(
+        init_method=f"file://{store}/store", world_size=1, rank=0),
+        device=device).init()
+    try:
+        comms = session.comms
+        row["backend"] = comms.backend
+        want = "nccl" if device.type == "cuda" else "gloo"
+        check(comms.backend == want, f"mnmg: backend {comms.backend}")
+        row["self_tests"] = self_tests.run_all(comms)
+        check(all(row["self_tests"].values()),
+              f"mnmg self_tests: {row['self_tests']}")
+
+        # k-means: the three loops, then predict, counted from 0
+        params = KMeansParams(n_clusters=nk, init=InitMethod.Array,
+                              seed=seed)
+        packed = (nk * dim + nk + 1) * 4
+        # one step first: the communicator's first 528 KB allreduce
+        kmeans_mnmg.fit(KMeansParams(n_clusters=nk, init=InitMethod.Array,
+                                     max_iter=1), comms, kx, centroids=kc0)
+        _reset(device)
+        fits = {}
+        for loop in ("device", "fori", "host"):
+            before = _calls(comms, "allreduce")
+            t0 = time.perf_counter()
+            # host: δ² read every step, so it stops where kmeans.fit does
+            out = kmeans_mnmg.fit(params, comms, kx, centroids=kc0,
+                                  loop=loop, sync_every=1)
+            fits[loop] = (out, _synced_seconds(device, t0),
+                          _delta(_calls(comms, "allreduce"), before))
+        labels, _ = kmeans_mnmg.predict(params, comms, kx,
+                                        fits["device"][0].centroids)
+        launches_km = dict(native.LAUNCHES)
+        for name in ("fused_l2_nn", "fused_l2_nn_partials"):
+            check(launches_km[name] > 0, f"mnmg k-means never launched {name}")
+        t0 = time.perf_counter()
+        ref = cluster.fit(params, kx, centroids=kc0)
+        ref_s = _synced_seconds(device, t0)
+        ref_labels, _ = cluster.predict(params, kx, ref.centroids)
+        n_ref = int(ref.n_iter)
+        by_loop = {}
+        for loop, (out, secs, (calls, nbytes)) in fits.items():
+            steps = params.max_iter if loop == "fori" else n_ref
+            same = (torch.equal(out.centroids, ref.centroids)
+                    and int(out.n_iter) == n_ref)
+            by_loop[loop] = {"s": secs, "n_iter": int(out.n_iter),
+                             "inertia": float(out.inertia),
+                             "allreduces": calls, "allreduce_bytes": nbytes,
+                             "equals_kmeans_fit": same}
+            check(same, f"mnmg k-means loop={loop}: centroids or n_iter "
+                  "differ from kmeans.fit")
+            check((calls, nbytes) == (steps + 1, steps * packed + 4),
+                  f"mnmg k-means loop={loop}: {calls} allreduces of "
+                  f"{nbytes} bytes, want {steps + 1} of {steps * packed + 4}")
+        same_labels = torch.equal(labels, ref_labels)
+        check(same_labels, "mnmg predict labels differ from kmeans.predict")
+        row["kmeans"] = {
+            "config": "BASELINE.json configs[1], from the k-means path's "
+            "init", "n": kx.shape[0], "dim": dim, "n_clusters": nk,
+            "max_iter": params.max_iter, "tol": params.tol,
+            "kmeans_fit_s": ref_s, "n_iter": n_ref, "by_loop": by_loop,
+            "allreduce_payload_bytes": packed,
+            "predict_equals_kmeans_predict": same_labels,
+            "launches": launches_km}
+        # world 2's twin: tol 0, exactly MNMG_W2_ITERS steps
+        p20 = KMeansParams(n_clusters=nk, init=InitMethod.Array,
+                           max_iter=MNMG_W2_ITERS, tol=0.0)
+        t0 = time.perf_counter()
+        w1 = kmeans_mnmg.fit(p20, comms, kx, centroids=kc0, loop="host")
+        w1_s = _synced_seconds(device, t0)
+        w1_labels, _ = kmeans_mnmg.predict(p20, comms, kx, w1.centroids)
+        row["kmeans"][f"tol0_{MNMG_W2_ITERS}_steps_s"] = w1_s
+
+        # kNN over the 1M dataset, both partitions, counted from 0
+        metrics = {"l2": DistanceType.L2SqrtExpanded, "l1": DistanceType.L1}
+        # a batch of each metric first: the first products and launches
+        # of a shape pay for their loading
+        for metric in metrics.values():
+            knn_mnmg(comms, x, queries[:1024], k, metric, device=device)
+        _reset(device)
+        got = {}
+        for mname, metric in metrics.items():
+            for part in ("index", "queries"):
+                before = _calls(comms, "allgather")
+                t0 = time.perf_counter()
+                d, i = knn_mnmg(comms, x, queries, k, metric, partition=part,
+                                device=device)
+                got[mname, part] = (d, i, _synced_seconds(device, t0),
+                                    _delta(_calls(comms, "allgather"),
+                                           before))
+        launches_knn = dict(native.LAUNCHES)
+        for name in ("select_k", "pairwise_accumulate"):
+            check(launches_knn[name] > 0, f"mnmg kNN never launched {name}")
+        knn_rows = {}
+        for mname, metric in metrics.items():
+            t0 = time.perf_counter()
+            rd, ri = brute_force.knn(x, queries, k, metric, device=device)
+            ref_s = _synced_seconds(device, t0)
+            for part in ("index", "queries"):
+                d, i, secs, (calls, nbytes) = got[mname, part]
+                per = nq if part == "index" else bucket_dim(nq)
+                same = torch.equal(d, rd) and torch.equal(i, ri)
+                knn_rows[f"{mname}_{part}"] = {
+                    "s": secs, "qps": nq / secs, "knn_s": ref_s,
+                    "knn_qps": nq / ref_s, "allgathers": calls,
+                    "allgather_bytes": nbytes, "equals_knn": same}
+                check(same, f"mnmg kNN {mname} partition={part}: differs "
+                      "from brute_force.knn")
+                check((calls, nbytes) == (1, per * 2 * k * 4),
+                      f"mnmg kNN {mname} partition={part}: {calls} "
+                      f"allgathers of {nbytes} bytes")
+        row["knn"] = {"n": x.shape[0], "queries": nq, "k": k,
+                      "by_case": knn_rows, "launches": launches_knn}
+        fleet = telemetry.gather(comms)
+        local = (fleet["world"] == 1 and list(fleet["hosts"]) == ["0"]
+                 and fleet["rollup"] == telemetry.merge(
+                     [fleet["hosts"]["0"]]) and not fleet["partial"])
+        row["gather_is_local_snapshot"] = local
+        check(local, "mnmg: gather at world 1 is not the local snapshot")
+        row["collective_calls"] = dict(comms.collective_calls)
+        world1 = {"kmeans": (w1.centroids, w1_labels, float(w1.inertia),
+                             w1_s),
+                  "knn": {m: got[m, "index"][:3] for m in metrics},
+                  "tie_l2": brute_force.knn(x, queries, k + 1,
+                                            metrics["l2"], device=device)[0]}
+    finally:
+        session.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches_km, launches_knn, world1
+
+
+def _w2_worker(comms, p):
+    """One rank of ``mnmg_w2``: half the rows of the k-means data and of
+    the 1M dataset, made the smoke's way from its seed."""
+    import torch
+
+    from raft_tpu_torch import telemetry
+    from raft_tpu_torch.cluster import InitMethod, KMeansParams, kmeans_mnmg
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors.knn_mnmg import knn_mnmg
+    from raft_tpu_torch.random import RngState, make_blobs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = comms.device
+    n, dim, nk = p["km_shape"]
+    kx, _, _ = make_blobs(RngState(p["seed"]), n, dim, n_clusters=nk,
+                          cluster_std=1.0, device=device)
+    check(np.array_equal(_witness(kx), p["km_rows"]),
+          "mnmg_w2 worker: its k-means data differ from the smoke's")
+    c0 = torch.as_tensor(p["c0"], device=device)
+    params = KMeansParams(n_clusters=nk, init=InitMethod.Array,
+                          max_iter=p["iters"], tol=0.0)
+    # one step first: this process's first launches load the kernels
+    kmeans_mnmg.fit(KMeansParams(n_clusters=nk, init=InitMethod.Array,
+                                 max_iter=1, tol=0.0),
+                    comms, kx, centroids=c0, loop="host")
+    _reset(device)
+    comms.barrier()
+    t0 = time.perf_counter()
+    fit = kmeans_mnmg.fit(params, comms, kx, centroids=c0, loop="host")
+    fit_s = _synced_seconds(device, t0)
+    labels, _ = kmeans_mnmg.predict(params, comms, kx, fit.centroids)
+    out = {"kmeans": {"centroids": fit.centroids.cpu().numpy(),
+                      "labels": labels.cpu().numpy(),
+                      "inertia": float(fit.inertia),
+                      "n_iter": int(fit.n_iter), "s": fit_s,
+                      "launches": dict(native.LAUNCHES)}}
+    del kx
+    d = p["data"]
+    gen = torch.Generator(device=device).manual_seed(p["seed"])
+    comps = torch.randn(4 * d["n_lists"], d["dim"], generator=gen,
+                        device=device)
+    x = mixture(gen, d["n"], d["dim"], comps, 0.7, device)
+    queries = mixture(gen, d["n_queries"], d["dim"], comps, 0.7, device)
+    check(np.array_equal(_witness(x), p["x_rows"])
+          and np.array_equal(_witness(queries), p["q_rows"]),
+          "mnmg_w2 worker: its 1M dataset differs from the smoke's")
+    metrics = {"l2": DistanceType.L2SqrtExpanded, "l1": DistanceType.L1}
+    for metric in metrics.values():
+        knn_mnmg(comms, x, queries[:1024], p["k"], metric, device=device)
+    _reset(device)
+    out["knn"] = {}
+    for mname, metric in metrics.items():
+        comms.barrier()
+        t0 = time.perf_counter()
+        dd, ii = knn_mnmg(comms, x, queries, p["k"], metric, device=device)
+        out["knn"][mname] = (dd.cpu().numpy(), ii.cpu().numpy(),
+                             _synced_seconds(device, t0))
+    out["knn_launches"] = dict(native.LAUNCHES)
+    fleet = telemetry.gather(comms, timeout=60.0)
+    out["gather"] = {"world": fleet["world"],
+                     "hosts": sorted(fleet["hosts"]),
+                     "partial": fleet["partial"],
+                     "missing_ranks": fleet["missing_ranks"]}
+    out["collective_calls"] = dict(comms.collective_calls)
+    return out
+
+
+def mnmg_w2_phase(device, seed, km, x, queries, n_lists, k, world1, smi):
+    """The ``mnmg_w2`` line: two worker processes on the one card over
+    gloo (``raft_tpu_torch.testing.world``), each holding half the rows,
+    with a mailbox server in this process for the host plane.  k-means
+    (tol 0, ``MNMG_W2_ITERS`` steps) against world 1's: centroids, ARI of
+    the labels, inertia; ``knn_mnmg`` (index partition) under L1 bit for
+    bit and under L2 ids equal except at near ties, distances to rtol
+    1e-5; ``telemetry.gather`` holding both hosts; the seconds and the
+    collectives staged through the host.  A worker that fails or hangs
+    raises here, and the smoke exits non-zero.  Returns (k-means
+    launches, kNN launches), summed over both workers."""
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.comms.hostcomm import MailboxServer
+    from raft_tpu_torch.testing.world import run_world
+
+    t_phase = time.perf_counter()
+    kx, kc0 = km
+    payload = {"seed": seed, "km_shape": KMEANS_SHAPE,
+               "c0": kc0.cpu().numpy(), "km_rows": _witness(kx),
+               "data": {"n": x.shape[0], "n_queries": queries.shape[0],
+                        "dim": x.shape[1], "n_lists": n_lists},
+               "x_rows": _witness(x), "q_rows": _witness(queries),
+               "k": k, "iters": MNMG_W2_ITERS}
+    with tempfile.TemporaryDirectory(prefix="raft_smoke_w2_") as tmp, \
+            MailboxServer() as server:
+        t0 = time.perf_counter()
+        outs = run_world("chip_smoke:_w2_worker", 2, payload, workdir=tmp,
+                         backend="gloo", device=device.type, threads=4,
+                         timeout=MNMG_W2_TIMEOUT_S,
+                         coordinator="%s:%d" % server.address)
+        wall = time.perf_counter() - t0
+    row = {"phase": "mnmg_w2", "world": 2, "backend": "gloo",
+           "workers_wall_s": wall, "card": smi}
+    r0, r1 = outs
+    for key in ("centroids", "labels"):
+        check(np.array_equal(r0["kmeans"][key], r1["kmeans"][key]),
+              f"mnmg_w2: the ranks' k-means {key} differ")
+    c1, labels1, inertia1, w1_s = world1["kmeans"]
+    c2 = torch.as_tensor(r0["kmeans"]["centroids"], device=device)
+    labels2 = torch.as_tensor(r0["kmeans"]["labels"], device=device)
+    ari = float(stats.adjusted_rand_index(labels1, labels2))
+    gap = abs(r0["kmeans"]["inertia"] - inertia1) / abs(inertia1)
+    close = bool(torch.allclose(c2, c1, rtol=MNMG_W2_RTOL,
+                                atol=MNMG_W2_ATOL))
+    row["kmeans"] = {
+        "iters": MNMG_W2_ITERS, "n_iter": r0["kmeans"]["n_iter"],
+        "s_by_rank": [o["kmeans"]["s"] for o in outs], "world1_s": w1_s,
+        "centroids_max_abs_err": float((c2 - c1).abs().max()),
+        "centroids_within_tol": close, "ari_vs_world1": ari,
+        "inertia": r0["kmeans"]["inertia"], "world1_inertia": inertia1,
+        "inertia_rel_gap": gap}
+    check(close, f"mnmg_w2 k-means: centroids beyond rtol {MNMG_W2_RTOL}, "
+          f"atol {MNMG_W2_ATOL} of world 1's")
+    check(ari >= MNMG_W2_ARI, f"mnmg_w2 k-means: ARI {ari} against world 1")
+    check(gap <= MNMG_W2_INERTIA_RTOL,
+          f"mnmg_w2 k-means: inertia {gap} relative from world 1's")
+    knn_rows = {}
+    for mname in ("l2", "l1"):
+        d1, i1, s1 = world1["knn"][mname]
+        for o in outs[1:]:
+            check(all(np.array_equal(a, b) for a, b in zip(
+                o["knn"][mname][:2], r0["knn"][mname][:2])),
+                f"mnmg_w2 kNN {mname}: the ranks' results differ")
+        d2 = torch.as_tensor(r0["knn"][mname][0], device=device)
+        i2 = torch.as_tensor(r0["knn"][mname][1], device=device)
+        nq = d2.shape[0]
+        secs = max(o["knn"][mname][2] for o in outs)
+        rowm = {"s": secs, "qps": nq / secs, "world1_s": s1,
+                "world1_qps": nq / s1,
+                "equals_world1": bool(torch.equal(d2, d1)
+                                      and torch.equal(i2, i1))}
+        if mname == "l1":
+            check(rowm["equals_world1"],
+                  "mnmg_w2 kNN l1: differs from world 1 (B5 sums every "
+                  "pair in one fixed order)")
+        else:
+            rowm["id_diffs_at_near_ties"] = check_knn(
+                "mnmg_w2 kNN l2 vs world 1", d2, i2, d1, i1,
+                world1["tie_l2"])
+        knn_rows[mname] = rowm
+    row["knn"] = {"partition": "index", "by_metric": knn_rows}
+    for o in outs:
+        check(o["gather"] == {"world": 2, "hosts": ["0", "1"],
+                              "partial": False, "missing_ranks": []},
+              f"mnmg_w2 gather: {o['gather']}")
+    row["gather_hosts"] = r0["gather"]["hosts"]
+    calls = r0["collective_calls"]
+    row["collective_calls_rank0"] = calls
+    row["host_staged"] = {key[:-len("_host_staged")]: v
+                          for key, v in calls.items()
+                          if key.endswith("_host_staged")}
+    launches_km = {name: sum(o["kmeans"]["launches"][name] for o in outs)
+                   for name in r0["kmeans"]["launches"]}
+    launches_knn = {name: sum(o["knn_launches"][name] for o in outs)
+                    for name in r0["knn_launches"]}
+    for name in ("fused_l2_nn", "fused_l2_nn_partials"):
+        check(launches_km[name] > 0, f"mnmg_w2 k-means never launched {name}")
+    for name in ("select_k", "pairwise_accumulate"):
+        check(launches_knn[name] > 0, f"mnmg_w2 kNN never launched {name}")
+    row["launches"] = {"kmeans": launches_km, "knn": launches_knn}
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches_km, launches_knn
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -3585,6 +3981,13 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     stream_bf = serve_stream("brute_force", device, served, q_host,
                              min(1024, n_queries), smi, seed,
                              rates=STREAM_RATES[:1], checks=False)
+    km_data = (km_state[0], km_state[2])
+    mnmg_km, mnmg_knn, world1 = mnmg_phase(device, seed, km_data, x,
+                                           queries, k, smi)
+    mnmg_km_w2, mnmg_knn_w2 = mnmg_w2_phase(device, seed, km_data, x,
+                                            queries, n_lists, k, world1,
+                                            smi)
+    del world1
     pairwise_distance_phase(device, rep)
     rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
                                                         rep)
@@ -3598,7 +4001,9 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "tiered_ivf_flat": launches_tf, "tiered_ivf_pq": launches_tp,
                "brute_force": launches_bf, "brute_force_stream": stream_bf,
                "autotune": launches_tune, "ball_cover": launches_bc,
-               "eps": launches_eps, **launches_km}
+               "eps": launches_eps, "mnmg_km": mnmg_km,
+               "mnmg_km_w2": mnmg_km_w2, "mnmg_knn": mnmg_knn,
+               "mnmg_knn_w2": mnmg_knn_w2, **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():
@@ -3610,7 +4015,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         profile_serve("brute_force", eng_bf, q_host, device)
         profile_build("ivf_flat", device, x, n_lists)
         profile_build("ivf_pq", device, x, n_lists)
-        profile_kmeans(device, *km_state)
+        profile_kmeans(device, *km_state[:2])
     return rows
 
 

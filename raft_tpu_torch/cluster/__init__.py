@@ -1,5 +1,6 @@
-"""Clustering: k-means and balanced k-means (port of ``raft_tpu/cluster``;
-reference raft/cluster/).  Single linkage is not ported yet."""
+"""Clustering: k-means, balanced k-means and multi-GPU k-means
+(:mod:`.kmeans_mnmg`) (port of ``raft_tpu/cluster``; reference
+raft/cluster/).  Single linkage is not ported yet."""
 
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
 from raft_tpu_torch.cluster.kmeans import (EMPartials, KMeans, KMeansOutput,
@@ -14,6 +15,7 @@ from raft_tpu_torch.cluster.kmeans import (EMPartials, KMeans, KMeansOutput,
                                            shuffle_and_gather, transform,
                                            unpack_em_partials,
                                            update_centroids)
+from raft_tpu_torch.cluster import kmeans_mnmg  # noqa: F401
 from raft_tpu_torch.cluster.kmeans_balanced import (adjust_centers,
                                                     build_clusters,
                                                     build_hierarchical)

@@ -1,6 +1,6 @@
 """Device resolution and the resource handle (port of
 ``raft_tpu/core/handle.py`` ``Stream`` / ``Handle``; reference
-``raft::handle_t``, core/handle.hpp:54,88-130).
+``raft::handle_t``, core/handle.hpp:54,88-130,231-262).
 
 A :class:`Handle` is a device plus a pool of streams.  On a CUDA device a
 :class:`Stream` wraps a ``torch.cuda.Stream``; on the CPU it is a lane
@@ -11,7 +11,7 @@ runs on both.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -76,7 +76,9 @@ class Stream:
 
 
 class Handle:
-    """Device plus stream pool (pylibraft ``Handle(n_streams=...)``)."""
+    """Device plus stream pool (pylibraft ``Handle(n_streams=...)``), and
+    the communicator slots of the reference's ``comms_t`` (handle.hpp:
+    231-262) that MNMG entry points read."""
 
     def __init__(self, device=None, n_streams: int = 0):
         expects(n_streams >= 0, "n_streams must be >= 0")
@@ -84,6 +86,8 @@ class Handle:
         self._stream = Stream(self.device, "main")
         self._pool: List[Stream] = [Stream(self.device, f"pool{i}")
                                     for i in range(n_streams)]
+        self._comms = None
+        self._subcomms: Dict[str, object] = {}
 
     def get_next_usable_stream(self, idx: Optional[int] = None) -> Stream:
         """Pool stream ``idx`` (mod pool size) if a pool exists, else the
@@ -97,6 +101,26 @@ class Handle:
             s.synchronize()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- comms (reference core/handle.hpp:231-262) ---------------------------
+    def set_comms(self, comms) -> None:
+        self._comms = comms
+
+    def get_comms(self):
+        expects(self._comms is not None,
+                "ERROR: Communicator was not initialized on the handle")
+        return self._comms
+
+    def comms_initialized(self) -> bool:
+        return self._comms is not None
+
+    def set_subcomm(self, key: str, comms) -> None:
+        self._subcomms[key] = comms
+
+    def get_subcomm(self, key: str):
+        expects(key in self._subcomms,
+                f"ERROR: Subcommunicator {key} was never initialized")
+        return self._subcomms[key]
 
 
 @contextlib.contextmanager

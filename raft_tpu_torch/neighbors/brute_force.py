@@ -80,6 +80,31 @@ def _knn_scan_impl(index: torch.Tensor, queries: torch.Tensor, k: int,
     return best_d, best_i
 
 
+def _knn_batched(index: torch.Tensor, queries: torch.Tensor, k: int,
+                 metric: DistanceType, metric_arg: float, tile: int,
+                 batch_size_query: int, engine: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_knn_scan_impl` over query batches of *batch_size_query*
+    rows, each padded to its bucket and sliced after."""
+    select_min = metric != DistanceType.InnerProduct
+    bs = int(batch_size_query)
+    out_d, out_i = [], []
+    for q0 in range(0, queries.shape[0], bs):
+        qb = queries[q0:q0 + bs]
+        n_valid = qb.shape[0]
+        bucket = min(bucket_dim(n_valid), bs)
+        if bucket != n_valid:
+            qb = torch.cat([qb, qb.new_zeros((bucket - n_valid,
+                                              qb.shape[1]))])
+        d, i = _knn_scan_impl(index, qb, k, metric, metric_arg, tile,
+                              select_min, engine)
+        out_d.append(d[:n_valid])
+        out_i.append(i[:n_valid])
+    if len(out_d) == 1:
+        return out_d[0], out_i[0]
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 def knn(index, queries, k: int,
         metric: Union[str, DistanceType] = DistanceType.L2SqrtExpanded,
         metric_arg: float = 2.0, *, batch_size_index: int = 16384,
@@ -104,23 +129,9 @@ def knn(index, queries, k: int,
     k = int(k)
     if queries.shape[0] == 0:
         return empty_result(0, k, accum_dtype(queries.dtype), dev)
-    tile = min(int(batch_size_index), index.shape[0])
-    select_min = metric != DistanceType.InnerProduct
-    bs = int(batch_size_query)
-    out_d, out_i = [], []
-    for q0 in range(0, queries.shape[0], bs):
-        qb = queries[q0:q0 + bs]
-        n_valid = qb.shape[0]
-        bucket = min(bucket_dim(n_valid), bs)
-        if bucket != n_valid:
-            qb = torch.cat([qb, qb.new_zeros((bucket - n_valid,
-                                              qb.shape[1]))])
-        d, i = _knn_scan_impl(index, qb, k, metric, float(metric_arg), tile,
-                              select_min, engine)
-        out_d.append(d[:n_valid])
-        out_i.append(i[:n_valid])
-    d = out_d[0] if len(out_d) == 1 else torch.cat(out_d)
-    i = out_i[0] if len(out_i) == 1 else torch.cat(out_i)
+    d, i = _knn_batched(index, queries, k, metric, float(metric_arg),
+                        min(int(batch_size_index), index.shape[0]),
+                        int(batch_size_query), engine)
     if global_id_offset:
         expects(global_id_offset >= 0, "global_id_offset must be >= 0")
         if int(global_id_offset) + index.shape[0] - 1 > _INT32_MAX:

@@ -921,18 +921,20 @@ class ServeEngine:
         batch: List[Any] = []
         try:
             while True:
-                # read each round: apply_tuning() may retune the quantum
-                cfg = self._sched_cfg
                 batch = []
                 with self._pending_cv:
                     if not self._pending:
                         if self._closed:
                             return
-                        self._pending_cv.wait(timeout=cfg.quantum_s)
+                        self._pending_cv.wait(
+                            timeout=self._sched_cfg.quantum_s)
                         if not self._pending:
                             if self._closed:
                                 return
                             continue
+                    # read at every decision, after any wait:
+                    # apply_tuning() may retune the quantum meanwhile
+                    cfg = self._sched_cfg
                     now = telemetry.now()
                     rows = 0
                     dls: List[float] = []

@@ -13,9 +13,10 @@ Global off switch: ``RAFT_TPU_TELEMETRY=0`` (or :func:`set_enabled`) turns
 spans, histograms, gauges, reservoirs, device sampling and the JSONL sink
 into no-ops; counters stay live.
 
-Not ported yet: fleet aggregation (:func:`gather`, :func:`merge`; it comes
-with the distributed item).  :func:`program_costs` is dropped: it reads
-XLA's cost analysis, which PyTorch has no counterpart of.
+Fleet aggregation (:mod:`.aggregate`): :func:`merge` folds snapshots
+exactly, :func:`gather` collects every rank's over a communicator's host
+plane.  :func:`program_costs` is dropped: it reads XLA's cost analysis,
+which PyTorch has no counterpart of.
 
 Quick tour::
 
@@ -29,8 +30,8 @@ Quick tour::
 
 from __future__ import annotations
 
-from raft_tpu_torch.core.error import fail
 from raft_tpu_torch.telemetry import device as _device
+from raft_tpu_torch.telemetry.aggregate import gather, merge  # noqa: F401
 from raft_tpu_torch.telemetry.device import (  # noqa: F401
     program_costs,
     sample_every,
@@ -76,20 +77,6 @@ def __getattr__(name):
         return importlib.import_module("raft_tpu_torch.telemetry.http")
     raise AttributeError(f"module 'raft_tpu_torch.telemetry' has no "
                          f"attribute {name!r}")
-
-
-def gather(*args, **kwargs):
-    """Fleet snapshot over a communicator: not ported yet (it comes with
-    the distributed item)."""
-    fail("telemetry.gather is not ported yet (it comes with the "
-         "distributed item)")
-
-
-def merge(*args, **kwargs):
-    """Fold per-host snapshots: not ported yet (it comes with the
-    distributed item)."""
-    fail("telemetry.merge is not ported yet (it comes with the "
-         "distributed item)")
 
 
 def counter(name: str, help: str = "", labelnames=()) -> Counter:

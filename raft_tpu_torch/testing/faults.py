@@ -15,8 +15,12 @@ Sites (each hook names its site; directives select by site):
   Retries and isolation re-dispatches are attempts too: a directive with
   ``times=1`` (the default) injects exactly one failure and the retry
   then succeeds.
-* ``comms`` — accepted by the grammar; the port has no communicator yet,
-  so no hook consults it.
+* ``comms`` — consulted by :class:`raft_tpu_torch.comms.Comms` at every
+  counted collective (``op=<name>``: allreduce, bcast, allgather,
+  reducescatter) and on the host plane at each ``isend`` and each pending
+  ``waitall`` receive (``op=isend`` / ``op=waitall``); ``rank=`` is the
+  communicator's host rank.  A directive fires before anything is sent —
+  the dead-host case ``telemetry.gather`` degrades around.
 * ``refresh`` — consulted by ``ServeEngine._refresh`` at two stages:
   ``pre_warm`` (before the replacement backend warms anything) and
   ``pre_swap`` (after every warmed bucket ran on it, immediately before

@@ -1,7 +1,8 @@
 """The port stands alone: importing raft_tpu_torch pulls in neither jax nor
 any raft_tpu module, no file of the port (or chip_smoke.py) imports them
 or the JAX package's ``bench`` folder,
-and entry points asked for no device raise when CUDA is absent."""
+and entry points asked for no device raise when CUDA is absent — the
+distributed ones included, none of which drops to gloo on the CPU."""
 
 import ast
 import pathlib
@@ -23,7 +24,15 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "raft_tpu" or n.startswith("raft_tpu."))
 print("BAD", bad)
+print("COMMS", sorted(n for n in sys.modules
+                      if n.startswith("raft_tpu_torch.comms.")))
 """
+#: the distributed layer's modules
+DISTRIBUTED = ("comms/__init__.py", "comms/comms.py", "comms/comms_types.py",
+               "comms/hostcomm.py", "comms/self_tests.py",
+               "comms/session.py", "cluster/kmeans_mnmg.py",
+               "neighbors/knn_mnmg.py", "neighbors/ann_mnmg.py",
+               "telemetry/aggregate.py", "testing/world.py")
 
 
 def test_import_leaves_jax_and_raft_tpu_out():
@@ -31,6 +40,12 @@ def test_import_leaves_jax_and_raft_tpu_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    # the walk imported the communicator package
+    assert ("COMMS ['raft_tpu_torch.comms.comms', "
+            "'raft_tpu_torch.comms.comms_types', "
+            "'raft_tpu_torch.comms.hostcomm', "
+            "'raft_tpu_torch.comms.self_tests', "
+            "'raft_tpu_torch.comms.session']") in out.stdout, out.stdout
 
 
 def _imports(path):
@@ -45,6 +60,7 @@ def _imports(path):
 def test_no_jax_or_raft_tpu_import_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PORT / f for f in DISTRIBUTED} <= set(files)
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -83,6 +99,46 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ServeEngine(x, 3)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    # the session's default device is the card: no process group is
+    # created, NCCL or gloo
+    from raft_tpu_torch.comms import CommsSession
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CommsSession().init()
+    assert not torch.distributed.is_initialized()
+    # kmeans_mnmg.fit and knn_mnmg over a gloo world of one (a process of
+    # its own: the process group is process-global)
+    out = subprocess.run([sys.executable, "-c", _MNMG_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "RAISED:fit,knn_mnmg,predict", out.stdout
+
+
+_MNMG_PROBE = """
+import numpy as np, torch
+from raft_tpu_torch.cluster import KMeansParams, kmeans_mnmg
+from raft_tpu_torch.comms import CommsSession
+from raft_tpu_torch.neighbors.knn_mnmg import knn_mnmg
+
+session = CommsSession(device="cpu").init()
+torch.cuda.is_available = lambda: False
+x = np.zeros((64, 4), np.float32)
+raised = []
+for name, call in (
+        ("fit", lambda: kmeans_mnmg.fit(KMeansParams(n_clusters=2),
+                                        session.comms, x, centroids=x[:2])),
+        ("knn_mnmg", lambda: knn_mnmg(session.comms, x, x, 3)),
+        ("predict", lambda: kmeans_mnmg.predict(KMeansParams(n_clusters=2),
+                                                session.comms, x, x[:2]))):
+    try:
+        call()
+    except RuntimeError as e:
+        if "no CUDA device" in str(e):
+            raised.append(name)
+assert session.comms.backend == "gloo"
+session.destroy()
+print("RAISED:" + ",".join(raised))
+"""
 
 
 def test_engine_policy():

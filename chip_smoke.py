@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ (with its
 PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
-paths, the serving autotuner, random ball cover, the ε-neighbourhood and
-the distributed layer (MNMG k-means and kNN at world 1 over NCCL and
-world 2 over gloo) on one NVIDIA card.
+paths (each request type on its own ladder), the serving autotuner,
+random ball cover, the ε-neighbourhood, the distributed layer (MNMG
+k-means and kNN at world 1 over NCCL and world 2 over gloo) and sharded
+and replicated serving on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -149,6 +150,28 @@ Phases, one JSON line each:
    (index partition) under L1 bit for bit world 1's and under L2 ids
    equal except at near ties, distances to rtol 1e-5; ``gather`` holding
    both hosts; seconds and the collectives staged through the host.
+   Then the request types and scale-out serving.  ``serve_dtypes``
+   (right after the brute-force phase): the brute-force L1 and IVF-Flat
+   engines warmed in float32, bfloat16 and float16 and fed the ragged
+   calls over every query in each type (host tensors), the types in
+   turns forward and back; every request bit for bit its solo search in
+   its type, no signature added, no kernel library built; qps by type.
+   ``sharded`` (a world of one over NCCL in this process):
+   ``build_sharded`` for both IVF families, bit for bit the built
+   indexes' ``shard()``, and ``shard_brute_force`` under L1; each served
+   closed loop in turns with a single-device engine over the same index
+   (bit for bit its results) and open loop at 0.5× its qps; an IVF-PQ
+   ``save_sharded`` / ``load_sharded`` round trip.  ``sharded_w2`` (two
+   gloo workers, rank 0 leading each engine, rank 1 in ``follow()``):
+   the world-1 IVF indexes from archives, sharded, beside each worker's
+   own ``build_sharded``; distances bit for bit world 1's, ids equal
+   except at exact ties.  ``replica_w2`` (R = 2 replica groups of one
+   rank, IVF-PQ): both lanes serving bit for bit the single-device
+   engine, in turns with lane 1 drained; ``AutoTuner(shadow_lane=1)``
+   under Poisson live traffic with no live request failed; the fault
+   plan ``comms:op=replica_dispatch:rank=1:raise`` draining lane 1 with
+   no failed request.  Each prints its kernels' launches and fails if a
+   kernel of its path (``PATH_KERNELS``) never launched.
 8. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
    1,024 × 16,384 × 128 against ``engine="torch"`` (rtol 1e-5, atol
    1e-5); the seven B5 metrics must launch B5 and the others must not.
@@ -217,7 +240,8 @@ Phases, one JSON line each:
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
-of each engine, over one IVF-Flat and one IVF-PQ build, and over the
+of each engine (the world-1 sharded engines too), over one IVF-Flat and
+one IVF-PQ build, and over the
 k-means path's k-means‖ init and its weighted k-means++ finish alone
 (``torch.profiler``).
 
@@ -229,6 +253,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import pathlib
@@ -302,6 +327,15 @@ PATH_KERNELS = {
     "ivf_pq_legacy": ("select_k", "lut_score"),
     "tiered_ivf_flat": ("select_k",),
     "tiered_ivf_pq": ("select_k", "lut_scan"),
+    # the brute-force L1 and IVF-Flat engines in three request types
+    "serve_dtypes": ("pairwise_accumulate", "select_k"),
+    # build_sharded's training and list assignment (B1, B3), every select
+    # (B2), the IVF-PQ shard scan (B4) and brute force under L1 (B5)
+    "sharded": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
+                "lut_scan", "pairwise_accumulate"),
+    "sharded_w2": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
+                   "lut_scan", "pairwise_accumulate"),
+    "replica_w2": ("select_k", "lut_scan"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -1263,6 +1297,27 @@ def _reset(device):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     native.reset_launches()
+
+
+class _PathLaunches:
+    """The launch counts of one path's own work, when a phase interleaves
+    it with comparison runs: each :meth:`span` sets the counts to 0 on
+    entry and adds them to :attr:`total` on exit, so what runs between
+    spans is not counted."""
+
+    def __init__(self):
+        from raft_tpu_torch.kernels import native
+
+        self.total = {name: 0 for name in native.LAUNCHES}
+
+    @contextlib.contextmanager
+    def span(self):
+        from raft_tpu_torch.kernels import native
+
+        native.reset_launches()
+        yield
+        for name, n in native.LAUNCHES.items():
+            self.total[name] += n
 
 
 def _synced_seconds(device, t0) -> float:
@@ -3901,6 +3956,630 @@ def mnmg_w2_phase(device, seed, km, x, queries, n_lists, k, world1, smi):
     return launches_km, launches_knn
 
 
+#: the types the serve_dtypes phase warms and serves
+SERVE_DTYPES = ("float32", "bfloat16", "float16")
+#: the sharded phase's open-loop rate, a fraction of its closed-loop qps
+SHARDED_STREAM_RATE = 0.5
+#: the bound on each distributed serving world (start, data, builds,
+#: serving): a failed or hung worker fails the smoke
+SERVE_W2_TIMEOUT_S = 600
+#: the replica phase's live traffic under the shadow-lane tune, as a
+#: fraction of its closed-loop qps
+REPLICA_TUNE_RATE = 0.5
+
+
+def serve_dtypes_phase(device, engines, q_host, n_queries, smi):
+    """The ``serve_dtypes`` line: the brute-force L1 and IVF-Flat engines
+    (*engines*: path → (engine, solo search)) warmed in float32, bfloat16
+    and float16, then the ragged closed-loop calls over every query in
+    each type, sent as host tensors of that type: every request bit for
+    bit its solo search in its own type, no signature added after the
+    warm-up and no kernel library built or loaded; qps by type.  Launch
+    counts are those of the engines' warm-ups and passes only (the solo
+    searches they are checked against run outside the counted spans);
+    returns them."""
+    import torch
+
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.serve.engine import DTYPES
+
+    _reset(device)
+    counted = _PathLaunches()
+    builds0 = dict(native.BUILDS)
+    row = {"phase": "serve_dtypes", "card": smi, "queries": n_queries,
+           "types": list(SERVE_DTYPES)}
+    for path, (eng, solo) in engines.items():
+        t0 = time.perf_counter()
+        with counted.span():
+            n_warm = eng.warmup(dtypes=SERVE_DTYPES)
+        warm_s = time.perf_counter() - t0
+        sigs = eng.warmed_signatures()
+        typed = {name: ragged_calls(
+            torch.from_numpy(q_host).to(DTYPES[name]), n_queries)
+            for name in SERVE_DTYPES}
+        qps = {name: [] for name in SERVE_DTYPES}
+        # the types in turns, forward then back: each type's qps is the
+        # mean of its two passes
+        for order in (SERVE_DTYPES, SERVE_DTYPES[::-1]):
+            for name in order:
+                reqs, calls = typed[name]
+                with counted.span():
+                    results, _, serve_s = _closed_loop(eng, calls,
+                                                       warm=False)
+                qps[name].append(n_queries / serve_s)
+                if len(qps[name]) > 1:
+                    continue
+                for q, out in zip(reqs, results):
+                    sd, si = solo(q)
+                    check(np.array_equal(out[0], sd.cpu().numpy())
+                          and np.array_equal(out[1], si.cpu().numpy()),
+                          f"serve_dtypes {path} {name}: coalesced results "
+                          "differ from the solo search in their type")
+        by_type = {name: {"qps": float(np.mean(v)), "qps_passes": v}
+                   for name, v in qps.items()}
+        check(eng.warmed_signatures() == sigs,
+              f"serve_dtypes {path}: serving added a signature")
+        row[path] = {"warmup_signatures": n_warm, "warmup_s": warm_s,
+                     "signatures": sigs, "by_type": by_type,
+                     "qps_vs_float32": {
+                         name: by_type[name]["qps"]
+                         / by_type["float32"]["qps"]
+                         for name in SERVE_DTYPES},
+                     "coalesced_equals_solo": True}
+    check(dict(native.BUILDS) == builds0,
+          "serve_dtypes: a kernel library was built or loaded while serving")
+    launches = counted.total
+    row["launches"] = launches
+    emit(row)
+    for name in PATH_KERNELS["serve_dtypes"]:
+        check(launches[name] > 0, f"serve_dtypes never launched {name}")
+    return launches
+
+
+def _results_arrays(results):
+    return (np.concatenate([r[0] for r in results]),
+            np.concatenate([r[1] for r in results]))
+
+
+def _exact_ties_only(what, got, want):
+    """Distances bit for bit; ids equal except where the distance is tied
+    exactly with a neighbour in its row.  Returns the count of ids that
+    differ at such ties."""
+    gd, gi = got
+    wd, wi = want
+    check(np.array_equal(gd, wd), f"{what}: distances differ")
+    diff = gi != wi
+    tied = np.zeros_like(diff)
+    tied[:, 1:] |= wd[:, 1:] == wd[:, :-1]
+    tied[:, :-1] |= wd[:, :-1] == wd[:, 1:]
+    check(not (diff & ~tied).any(),
+          f"{what}: ids differ away from exact distance ties")
+    return int(diff.sum())
+
+
+def _closed_loop(eng, calls, warm: bool = True):
+    """Every call through *eng* (after its warm-up, with *warm*):
+    (results, warm-up seconds, serve seconds)."""
+    t0 = time.perf_counter()
+    if warm:
+        eng.warmup()
+    warm_s = time.perf_counter() - t0
+    results = []
+    t0 = time.perf_counter()
+    for call in calls:
+        results.extend(eng.search(call))
+    serve_s = time.perf_counter() - t0
+    for out in results:
+        check(isinstance(out, tuple), f"a request failed: {out!r}")
+    return results, warm_s, serve_s
+
+
+def _index_equal(a, b) -> bool:
+    import torch
+
+    return (a.kind == b.kind and a.aux == b.aux
+            and all(torch.equal(u, v) for u, v in
+                    zip(a.stacked + a.replicated, b.stacked + b.replicated)))
+
+
+def sharded_phase(device, x, q_host, reqs, calls, n_queries, n_lists,
+                  n_probes, k, resident, smi, profile: bool = False):
+    """The ``sharded`` line: a world of one over NCCL in this process.
+    Launch counts reset, then ``ivf_flat.build_sharded`` and
+    ``ivf_pq.build_sharded`` (bit for bit the single-device builds'
+    ``shard()``) and ``shard_brute_force`` under L1; each served by a
+    ``ServeEngine`` closed loop over every query in turns with a
+    single-device engine over the same index (single, sharded, sharded,
+    single; each qps the mean of its two passes; the results bit for bit
+    the single-device engine's, *resident*) and open loop at
+    ``SHARDED_STREAM_RATE`` × its closed-loop qps (every request bit for
+    bit); a ``save_sharded`` / ``load_sharded`` round trip of the IVF-PQ
+    index.  B1, B2, B3, B4's scan mode and B5 must launch in the sharded
+    builds and engines themselves: the launch counts are theirs only (the
+    single-device engines and the archive check run outside the counted
+    spans).  With
+    *profile*, one super-batch of each engine is traced after its open
+    loop.  Returns (launches, {kind: results}, {kind: closed-loop
+    qps})."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.comms import CommsSession
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.neighbors import ann_mnmg, ivf_flat, ivf_pq, serialize
+    from raft_tpu_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    row = {"phase": "sharded", "world": 1, "card": smi}
+    store = tempfile.mkdtemp(prefix="raft_smoke_store_")
+    session = CommsSession(multihost=dict(
+        init_method=f"file://{store}/store", world_size=1, rank=0),
+        device=device).init()
+    got, qps = {}, {}
+    try:
+        comms = session.comms
+        row["backend"] = comms.backend
+        _reset(device)
+        counted = _PathLaunches()
+        builds = {}
+        for kind, mod, params in (
+                ("ivf_flat", ivf_flat, ivf_flat.IndexParams(n_lists=n_lists)),
+                ("ivf_pq", ivf_pq, ivf_pq.IndexParams(n_lists=n_lists))):
+            t0 = time.perf_counter()
+            with counted.span():
+                sh = mod.build_sharded(params, x, comms, device=device)
+                build_s = _synced_seconds(device, t0)
+            same = _index_equal(sh, resident[kind][1].shard(comms))
+            check(same, f"sharded {kind}: build_sharded differs from the "
+                  "single-device build's shard()")
+            builds[kind] = sh
+            row[f"{kind}_build"] = {"s": build_s, "aux": sh.aux,
+                                    "equals_build_then_shard": same}
+        with counted.span():
+            builds["brute_force"] = ann_mnmg.shard_brute_force(
+                x, comms, DistanceType.L1, device=device)
+        params = {"ivf_flat": ivf_flat.SearchParams(n_probes=n_probes),
+                  "ivf_pq": ivf_pq.SearchParams(n_probes=n_probes),
+                  "brute_force": None}
+        offsets = np.cumsum([0] + [q.shape[0] for q in reqs[:-1]])
+        for kind, sh in builds.items():
+            eng = ServeEngine(sh, k, params[kind], max_batch=1024)
+            kw = ({"metric": "l1", "device": device}
+                  if kind == "brute_force" else {})
+            one = ServeEngine(resident[kind][1], k, params[kind],
+                              max_batch=1024, **kw)
+            t0 = time.perf_counter()
+            with counted.span():
+                eng.warmup()
+            warm_s = time.perf_counter() - t0
+            one.warmup()
+            passes = {"single": [], "sharded": []}
+            single = resident[kind][0]
+            for who in ("single", "sharded", "sharded", "single"):
+                with (counted.span() if who == "sharded"
+                      else contextlib.nullcontext()):
+                    results, _, serve_s = _closed_loop(
+                        one if who == "single" else eng, calls, warm=False)
+                passes[who].append(n_queries / serve_s)
+                check(all(np.array_equal(a[0], b[0])
+                          and np.array_equal(a[1], b[1])
+                          for a, b in zip(results, single.results)),
+                      f"sharded {kind}: {who} results differ from the "
+                      "single-device engine's")
+            one.close()
+            qps[kind] = float(np.mean(passes["sharded"]))
+            ref_d, ref_i = _results_arrays(results)
+            rate = SHARDED_STREAM_RATE * qps[kind]
+            with counted.span():
+                timed = _stream_pass(eng, reqs, rate, None, 0)
+            _check_stream(f"sharded {kind}", timed[0], reqs, offsets, ref_d,
+                          ref_i, rejections_ok=False)
+            stream = _stream_row(f"sharded_{kind}", SHARDED_STREAM_RATE, eng,
+                                 reqs, timed, {}, rate, None, smi)
+            row[kind] = {"backend": eng.backend, "warmup_s": warm_s,
+                         "qps": qps[kind],
+                         "single_device_qps": float(np.mean(
+                             passes["single"])),
+                         "qps_passes": passes,
+                         "equals_single_device": True,
+                         "open_loop": {key: stream[key] for key in (
+                             "offered_qps", "achieved_qps",
+                             "latency_s_p50", "latency_s_p99",
+                             "e2e_latency_s_p50", "e2e_latency_s_p99")},
+                         "stats": dict(eng.stats)}
+            if profile:
+                profile_serve(f"sharded_{kind}", eng, q_host, device)
+            eng.close()
+            got[kind] = results
+        # the archive of the IVF-PQ shard: the same blocks, the same bits
+        path = ARCHIVE_DIR / "sharded_ivf_pq"
+        ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        serialize.save_sharded(path, builds["ivf_pq"])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = serialize.load_sharded(path, comms, device=device)
+        load_s = _synced_seconds(device, t0)
+        same = _index_equal(back, builds["ivf_pq"])
+        d0, i0 = ann_mnmg.search(builds["ivf_pq"], q_host[:1024], k,
+                                 params["ivf_pq"])
+        d1, i1 = ann_mnmg.search(back, q_host[:1024], k, params["ivf_pq"])
+        same = same and torch.equal(d0, d1) and torch.equal(i0, i1)
+        check(same, "sharded: the loaded IVF-PQ archive differs")
+        row["archive"] = {"kind": "ivf_pq", "save_s": save_s,
+                          "load_s": load_s,
+                          "bytes": path.with_suffix(".npz").stat().st_size,
+                          "round_trip_equal": same}
+        path.with_suffix(".npz").unlink()
+        launches = counted.total
+        row["collective_calls"] = dict(comms.collective_calls)
+    finally:
+        session.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    for name in PATH_KERNELS["sharded"]:
+        check(launches[name] > 0, f"sharded never launched {name}")
+    return launches, got, qps
+
+
+def _serve_data(p, device):
+    """The smoke's 1M dataset and queries, made in a worker from the seed
+    as ``run`` makes them (checked against the parent's rows)."""
+    import torch
+
+    d = p["data"]
+    gen = torch.Generator(device=device).manual_seed(p["seed"])
+    comps = torch.randn(4 * d["n_lists"], d["dim"], generator=gen,
+                        device=device)
+    x = mixture(gen, d["n"], d["dim"], comps, 0.7, device)
+    queries = mixture(gen, d["n_queries"], d["dim"], comps, 0.7, device)
+    check(np.array_equal(_witness(x), p["x_rows"])
+          and np.array_equal(_witness(queries), p["q_rows"]),
+          "serving worker: its data differ from the smoke's")
+    return x, queries
+
+
+def _sharded_w2_worker(comms, p):
+    """One rank of ``sharded_w2``: the smoke's data from the seed; the
+    two IVF indexes ``build_sharded`` over the world (B1 and B3 on rank
+    0), each against the shard of the world-1 index loaded from its
+    archive; brute force L1 row-sharded; each served by a ``ServeEngine``
+    that rank 0 leads and rank 1 follows.  The launch counts are the
+    builds' and the engines' (the archive's load runs outside them)."""
+    import torch
+
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ann_mnmg, ivf_flat, ivf_pq, serialize
+    from raft_tpu_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = comms.device
+    x, queries = _serve_data(p, device)
+    q_host = queries.cpu().numpy()
+    _, calls = ragged_calls(q_host, q_host.shape[0])
+    # this process's first launches load the kernels
+    ivf_flat.search(ivf_flat.SearchParams(),
+                    ivf_flat.build(ivf_flat.IndexParams(n_lists=8),
+                                   x[:4096], device=device), q_host[:8], 2)
+    _reset(device)
+    counted = _PathLaunches()
+    comms.barrier()
+    out = {"rank": comms.get_rank(), "kinds": {}}
+    mods = {"ivf_flat": (ivf_flat, serialize.load_ivf_flat),
+            "ivf_pq": (ivf_pq, serialize.load_ivf_pq)}
+    for kind in ("ivf_flat", "ivf_pq", "brute_force"):
+        res = {}
+        if kind == "brute_force":
+            with counted.span():
+                sh = ann_mnmg.shard_brute_force(x, comms, DistanceType.L1,
+                                                device=device)
+            params = None
+        else:
+            mod, load = mods[kind]
+            t0 = time.perf_counter()
+            with counted.span():
+                built = mod.build_sharded(
+                    mod.IndexParams(n_lists=p["n_lists"]), x, comms,
+                    device=device)
+                res["build_s"] = _synced_seconds(device, t0)
+            sh = load(p["archives"][kind], device=device).shard(comms)
+            res["build_sharded_equals_world1_shard"] = _index_equal(built,
+                                                                    sh)
+            del built
+            params = mod.SearchParams(n_probes=p["n_probes"])
+        eng = ServeEngine(sh, p["k"], params, max_batch=1024)
+        if eng.is_leader:
+            with counted.span():
+                results, warm_s, serve_s = _closed_loop(eng, calls)
+                eng.close()
+            res.update(results=_results_arrays(results), warm_s=warm_s,
+                       serve_s=serve_s, qps=q_host.shape[0] / serve_s,
+                       stats=dict(eng.stats))
+        else:
+            with counted.span():
+                res["follow"] = eng.follow()
+        res["wire"] = dict(eng._wire.calls)
+        out["kinds"][kind] = res
+        del eng, sh
+    out["launches"] = counted.total
+    out["collective_calls"] = dict(comms.collective_calls)
+    return out
+
+
+def _payload(seed, x, queries, n_lists, n_probes, k, archives):
+    return {"seed": seed,
+            "data": {"n": x.shape[0], "n_queries": queries.shape[0],
+                     "dim": x.shape[1], "n_lists": n_lists},
+            "x_rows": _witness(x), "q_rows": _witness(queries),
+            "n_lists": n_lists, "n_probes": n_probes, "k": k,
+            "archives": archives}
+
+
+def _world(target, payload, device):
+    import tempfile
+
+    from raft_tpu_torch.testing.world import run_world
+
+    import torch
+
+    if device.type == "cuda":
+        # what this process's allocator caches, the workers' contexts and
+        # data need
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raft_smoke_serve_") as tmp:
+        t0 = time.perf_counter()
+        outs = run_world(target, 2, payload, workdir=tmp, backend="gloo",
+                         device=device.type, threads=4,
+                         timeout=SERVE_W2_TIMEOUT_S)
+        return outs, time.perf_counter() - t0
+
+
+def sharded_w2_phase(device, seed, x, queries, n_lists, n_probes, k,
+                     resident, world1, qps1, smi):
+    """The ``sharded_w2`` line: two worker processes on the one card over
+    gloo, rank 0 leading each ``ServeEngine`` and rank 1 following.  The
+    world-1 IVF indexes reach them as archives (``save_ivf_flat`` /
+    ``save_ivf_pq``); each worker also runs ``build_sharded`` over the
+    world, which must equal the archive's shard on each rank.  Every
+    kind: distances bit for bit world 1's, ids equal except at exact
+    distance ties; qps beside world 1's.  Returns the launches summed
+    over both workers."""
+    from raft_tpu_torch.neighbors import serialize
+
+    t_phase = time.perf_counter()
+    ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+    archives = {}
+    for kind, save in (("ivf_flat", serialize.save_ivf_flat),
+                       ("ivf_pq", serialize.save_ivf_pq)):
+        path = ARCHIVE_DIR / f"w1_{kind}.npz"
+        save(path, resident[kind][1])
+        archives[kind] = str(path)
+    outs, wall = _world("chip_smoke:_sharded_w2_worker",
+                        _payload(seed, x, queries, n_lists, n_probes, k,
+                                 archives), device)
+    for path in archives.values():
+        pathlib.Path(path).unlink()
+    row = {"phase": "sharded_w2", "world": 2, "backend": "gloo",
+           "workers_wall_s": wall, "card": smi}
+    lead, follower = outs
+    for kind, res in lead["kinds"].items():
+        check(follower["kinds"][kind]["follow"] == "close",
+              f"sharded_w2 {kind}: the follower was not released")
+        ties = _exact_ties_only(f"sharded_w2 {kind} vs world 1",
+                                res["results"],
+                                _results_arrays(world1[kind]))
+        row[kind] = {"qps": res["qps"], "world1_qps": qps1[kind],
+                     "warmup_s": res["warm_s"],
+                     "id_diffs_at_exact_ties": ties,
+                     "distances_equal_world1": True,
+                     "stats": res["stats"], "wire_rank0": res["wire"]}
+        if kind != "brute_force":
+            same = [o["kinds"][kind]["build_sharded_equals_world1_shard"]
+                    for o in outs]
+            check(all(same), f"sharded_w2 {kind}: build_sharded differs "
+                  f"from the world-1 archive's shard on a rank ({same})")
+            row[kind]["build_s_by_rank"] = [o["kinds"][kind]["build_s"]
+                                            for o in outs]
+            row[kind]["build_sharded_equals_world1_shard"] = same
+    row["collective_calls_rank0"] = lead["collective_calls"]
+    row["host_staged"] = {key[:-len("_host_staged")]: v for key, v in
+                          lead["collective_calls"].items()
+                          if key.endswith("_host_staged")}
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in lead["launches"]}
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    for name in PATH_KERNELS["sharded_w2"]:
+        check(launches[name] > 0, f"sharded_w2 never launched {name}")
+    return launches
+
+
+def _replica_w2_worker(comms, p):
+    """One rank of ``replica_w2``: the world-1 IVF-PQ index from its
+    archive, ``replicate``-d into two groups of one rank; rank 0 leads
+    the replica engine (closed loop with both lanes live, the
+    shadow-lane tune under live traffic, the fault plan that drains lane
+    1, closed loop again), rank 1 follows."""
+    import torch
+
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.neighbors import ann_mnmg, ivf_pq, serialize
+    from raft_tpu_torch.serve import AutoTuner, ServeEngine, TunerConfig
+    from raft_tpu_torch.testing import faults
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = comms.device
+    _, queries = _serve_data(p, device)
+    q_host = queries.cpu().numpy()
+    reqs, calls = ragged_calls(q_host, q_host.shape[0])
+    index = serialize.load_ivf_pq(p["archives"]["ivf_pq"], device=device)
+    rep = ann_mnmg.replicate(index, comms, 2)
+    params = ivf_pq.SearchParams(n_probes=p["n_probes"])
+    _reset(device)
+    comms.barrier()
+    eng = ServeEngine(rep, p["k"], params, max_batch=1024)
+    out = {"rank": comms.get_rank()}
+    if not eng.is_leader:
+        out["follow"] = eng.follow()
+        out["launches"] = dict(native.LAUNCHES)
+        out["wire"] = dict(eng._wire.calls)
+        return out
+    router = eng._router
+
+    def lanes():
+        return [router._dispatches.get((eng._engine_id, str(r)))
+                for r in range(rep.n_replicas)]
+
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    # both lanes live against lane 1 drained (the router's operator
+    # drain), in turns; each qps the mean of its two passes
+    passes = {"both": [], "drained": []}
+    served = {"both": [0, 0], "drained": [0, 0]}
+    first = None
+    for who in ("both", "drained", "drained", "both"):
+        (router.drain if who == "drained" else router.restore)(1)
+        before = lanes()
+        results, _, serve_s = _closed_loop(eng, calls, warm=False)
+        passes[who].append(q_host.shape[0] / serve_s)
+        served[who] = [a + b - c for a, b, c in
+                       zip(served[who], lanes(), before)]
+        got = _results_arrays(results)
+        first = got if first is None else first
+        check(np.array_equal(got[0], first[0])
+              and np.array_equal(got[1], first[1]),
+              f"replica_w2: the {who} pass gave other results")
+    router.restore(1)
+    out["both_lanes"] = {"results": first,
+                         "qps": float(np.mean(passes["both"])),
+                         "qps_passes": passes["both"], "warm_s": warm_s,
+                         "lanes": served["both"]}
+    out["drained"] = {"qps": float(np.mean(passes["drained"])),
+                      "qps_passes": passes["drained"],
+                      "lanes": served["drained"]}
+    # the shadow-lane tune under Poisson live traffic
+    sigs = eng.warmed_signatures()
+    stop = threading.Event()
+    feeder, subs = _poisson_feed(
+        eng, reqs, REPLICA_TUNE_RATE * out["both_lanes"]["qps"], p["seed"],
+        stop)
+    t0 = time.perf_counter()
+    report = AutoTuner(eng, TunerConfig(seed=p["seed"]),
+                       shadow_lane=1).run()
+    tune_s = time.perf_counter() - t0
+    stop.set()
+    feeder.join(STREAM_WAIT_S)
+    check(not feeder.is_alive(), "replica_w2: the feeder hung")
+    live = [f.result(timeout=STREAM_WAIT_S) for _, f in subs]
+    ref_d, ref_i = out["both_lanes"]["results"]
+    offsets = np.cumsum([0] + [q.shape[0] for q in reqs[:-1]])
+    for (j, _f), o in zip(subs, live):
+        n = reqs[j].shape[0]
+        check(isinstance(o, tuple)
+              and np.array_equal(o[0], ref_d[offsets[j]:offsets[j] + n])
+              and np.array_equal(o[1], ref_i[offsets[j]:offsets[j] + n]),
+              "replica_w2: a live request under the tune failed or differs")
+    out["tune"] = {"winner": report["winner"], "s": tune_s,
+                   "decisions": report["decisions"],
+                   "live_requests": len(live),
+                   "lane_restored": router.degraded_lanes() == [],
+                   "signatures_unchanged": eng.warmed_signatures() == sigs}
+    # a promoted cap stays inside the ladder; the fault plan drains lane 1
+    faults0 = eng.stats["replica_faults"]
+    before = lanes()
+    with faults.plan("comms:op=replica_dispatch:rank=1:raise"):
+        results, _, serve_s = _closed_loop(eng, calls, warm=False)
+    out["one_lane"] = {"results": _results_arrays(results),
+                       "qps": q_host.shape[0] / serve_s,
+                       "lanes": [a - b for a, b in zip(lanes(), before)],
+                       "replica_faults": eng.stats["replica_faults"] - faults0,
+                       "replica_reroutes": eng.stats["replica_reroutes"],
+                       "dispatch_errors": eng.stats["dispatch_errors"],
+                       "healthz_replicas": eng._health()["replicas"]}
+    out["stats"] = dict(eng.stats)
+    eng.close()
+    out["launches"] = dict(native.LAUNCHES)
+    out["wire"] = dict(eng._wire.calls)
+    return out
+
+
+def replica_w2_phase(device, seed, x, queries, n_lists, n_probes, k,
+                     resident, smi):
+    """The ``replica_w2`` line: R = 2 replica groups of one rank each on
+    the one card (two gloo workers), IVF-PQ from the world-1 archive.
+    Both lanes serve (the router's dispatch counts, lane 1's results over
+    the wire) bit for bit the single-device engine, in turns with lane 1
+    drained (both, drained, drained, both); the shadow-lane tune
+    (``AutoTuner(shadow_lane=1)``) runs under Poisson live traffic with no
+    failed live request; the fault plan ``comms:op=replica_dispatch:
+    rank=1:raise`` drains lane 1 with no failed request; qps with both
+    lanes live and with one.  Returns the launches summed over both
+    workers."""
+    from raft_tpu_torch.neighbors import serialize
+
+    t_phase = time.perf_counter()
+    ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+    path = ARCHIVE_DIR / "w1_ivf_pq.npz"
+    serialize.save_ivf_pq(path, resident["ivf_pq"][1])
+    outs, wall = _world("chip_smoke:_replica_w2_worker",
+                        _payload(seed, x, queries, n_lists, n_probes, k,
+                                 {"ivf_pq": str(path)}), device)
+    path.unlink()
+    lead, follower = outs
+    check(follower["follow"] == "close",
+          "replica_w2: the follower was not released")
+    single = _results_arrays(resident["ivf_pq"][0].results)
+    for key in ("both_lanes", "one_lane"):
+        got = lead[key]["results"]
+        check(np.array_equal(got[0], single[0])
+              and np.array_equal(got[1], single[1]),
+              f"replica_w2 {key}: results differ from the single-device "
+              "engine's")
+    both, one = lead["both_lanes"], lead["one_lane"]
+    check(all(n > 0 for n in both["lanes"]),
+          f"replica_w2: a lane served nothing ({both['lanes']})")
+    check(lead["wire"]["result"] > 0,
+          "replica_w2: no result came back over the wire from lane 1")
+    check(one["replica_faults"] >= 1 and one["replica_reroutes"] > 0
+          and one["dispatch_errors"] == 0
+          and one["healthz_replicas"]["degraded"] == [1],
+          f"replica_w2: the fault plan did not drain lane 1 cleanly ({one})")
+    check(lead["tune"]["lane_restored"]
+          and lead["tune"]["signatures_unchanged"],
+          f"replica_w2: the shadow-lane tune left {lead['tune']}")
+    row = {"phase": "replica_w2", "world": 2, "replicas": 2,
+           "group_size": 1, "backend": "gloo", "workers_wall_s": wall,
+           "card": smi,
+           "both_lanes": {key: both[key] for key in (
+               "qps", "qps_passes", "lanes", "warm_s")},
+           "lane_1_drained": lead["drained"],
+           "one_lane": {key: one[key] for key in (
+               "qps", "lanes", "replica_faults", "replica_reroutes",
+               "dispatch_errors", "healthz_replicas")},
+           "single_device_qps": resident["ivf_pq"][0].row["qps"],
+           "equals_single_device": True, "tune": lead["tune"],
+           "stats": lead["stats"], "wire_rank0": lead["wire"],
+           "wire_rank1": follower["wire"]}
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in lead["launches"]}
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    for name in PATH_KERNELS["replica_w2"]:
+        check(launches[name] > 0, f"replica_w2 never launched {name}")
+    return launches
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -3942,6 +4621,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         return mixture(gen_m, rows, dim, comps, 0.7, device)
 
     eng_flat, launches_flat, served = ivf_flat_path(*args)
+    resident = {"ivf_flat": (served, eng_flat.index)}
     resident_flat = served.results
     stream_flat = serve_stream("ivf_flat", device, served, q_host, n_queries,
                                smi, seed)
@@ -3951,6 +4631,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         ivf_flat.SearchParams(n_probes=n_probes), calls, n_queries, qr,
         truth, k, fresh, smi, seed)
     index_pq, eng_pq, launches_pq, served = ivf_pq_path(*args)
+    resident["ivf_pq"] = (served, index_pq)
     resident_pq = served.results
     stream_pq = serve_stream("ivf_pq", device, served, q_host, n_queries,
                              smi, seed, refresh_index=index_pq)
@@ -3978,9 +4659,18 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         k, fresh, smi, seed)
     eng_bf, launches_bf, served = brute_force_path(device, x, queries, reqs,
                                                    calls, n_queries, qr, k)
+    resident["brute_force"] = (served, x)
     stream_bf = serve_stream("brute_force", device, served, q_host,
                              min(1024, n_queries), smi, seed,
                              rates=STREAM_RATES[:1], checks=False)
+    from raft_tpu_torch.neighbors import brute_force
+
+    flat_params = ivf_flat.SearchParams(n_probes=n_probes)
+    launches_dt = serve_dtypes_phase(device, {
+        "brute_force": (eng_bf, lambda q: brute_force.knn(
+            x, q, k, "l1", device=device)),
+        "ivf_flat": (eng_flat, lambda q: ivf_flat.search(
+            flat_params, eng_flat.index, q, k))}, q_host, n_queries, smi)
     km_data = (km_state[0], km_state[2])
     mnmg_km, mnmg_knn, world1 = mnmg_phase(device, seed, km_data, x,
                                            queries, k, smi)
@@ -3988,6 +4678,16 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                                             queries, n_lists, k, world1,
                                             smi)
     del world1
+    launches_sh, world1_sh, qps_sh = sharded_phase(
+        device, x, q_host, reqs, calls, n_queries, n_lists, n_probes, k,
+        resident, smi, profile)
+    launches_sh_w2 = sharded_w2_phase(device, seed, x, queries, n_lists,
+                                      n_probes, k, resident, world1_sh,
+                                      qps_sh, smi)
+    del world1_sh
+    launches_rep = replica_w2_phase(device, seed, x, queries, n_lists,
+                                    n_probes, k, resident, smi)
+    del resident
     pairwise_distance_phase(device, rep)
     rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
                                                         rep)
@@ -4003,7 +4703,9 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "autotune": launches_tune, "ball_cover": launches_bc,
                "eps": launches_eps, "mnmg_km": mnmg_km,
                "mnmg_km_w2": mnmg_km_w2, "mnmg_knn": mnmg_knn,
-               "mnmg_knn_w2": mnmg_knn_w2, **launches_km}
+               "mnmg_knn_w2": mnmg_knn_w2, "serve_dtypes": launches_dt,
+               "sharded": launches_sh, "sharded_w2": launches_sh_w2,
+               "replica_w2": launches_rep, **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():

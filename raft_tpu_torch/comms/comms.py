@@ -45,7 +45,7 @@ import dataclasses
 import itertools
 import queue
 import threading
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -107,6 +107,8 @@ class Comms:
     session_id / host_rank / host_world / coordinator: the host p2p plane
       (``host_rank`` / ``host_world`` default to this process's global
       rank and the world size).
+    timeout_s: the bound on every wait of the groups made on this
+      communicator's behalf (its session's process-group timeout).
     """
 
     def __init__(self, group=None, *, ranks: Optional[Sequence[int]] = None,
@@ -114,7 +116,8 @@ class Comms:
                  session_id: str = "default",
                  host_rank: Optional[int] = None,
                  coordinator: Optional[str] = None,
-                 host_world: Optional[int] = None):
+                 host_world: Optional[int] = None,
+                 timeout_s: float = 600.0):
         expects(dist.is_available() and dist.is_initialized(),
                 "Comms needs a torch.distributed process group: "
                 "CommsSession(...).init() or init_process_group first")
@@ -135,6 +138,7 @@ class Comms:
         self.device = torch.device(device)
         self.groups = groups
         self.session_id = session_id
+        self.timeout_s = float(timeout_s)
         self._host_rank = (host_rank if host_rank is not None
                            else self._global_rank)
         self._host_world = (host_world if host_world is not None
@@ -150,9 +154,12 @@ class Comms:
                 "collective calls, payload bytes and host-staged calls",
                 labelnames=("comm", "key"),
                 fixed=(next(_COMM_IDS),)))
-        # the process groups this communicator created (comm_split), for
-        # CommsSession.destroy
+        # the process groups this communicator created (comm_split, a
+        # serving engine's control groups), for CommsSession.destroy; and
+        # the serving control groups by lanes — both shared by every
+        # communicator carved from this one
         self._made: List[object] = []
+        self._control: Dict[Tuple, Any] = {}
         from raft_tpu_torch.comms import hostcomm
 
         coordinator = coordinator or hostcomm.default_coordinator()
@@ -212,9 +219,11 @@ class Comms:
                     if self._global_rank in g)
         sub = Comms(made[mine], ranks=group_list[mine], device=self.device,
                     groups=group_list, session_id=self.session_id,
-                    host_rank=self._host_rank, host_world=self._host_world)
+                    host_rank=self._host_rank, host_world=self._host_world,
+                    timeout_s=self.timeout_s)
         sub._mailbox = self._mailbox  # one host-plane connection a process
         sub._made = self._made
+        sub._control = self._control
         sub._split_pgs = made
         return sub
 
@@ -244,8 +253,10 @@ class Comms:
                       device=self.device,
                       session_id=f"{self.session_id}/replica{r}",
                       host_rank=self._host_rank,
-                      host_world=self._host_world)
+                      host_world=self._host_world, timeout_s=self.timeout_s)
             g._mailbox = self._mailbox
+            g._made = self._made
+            g._control = self._control
             groups.append(g)
         return ReplicaLayout(parent=self, split=split, groups=tuple(groups),
                              n_replicas=n_replicas, group_size=gsz)
@@ -548,12 +559,13 @@ def as_comms(comms_or_handle) -> Comms:
 def build_comms(group=None, *, device=None, session_id: str = "default",
                 coordinator: Optional[str] = None,
                 host_rank: Optional[int] = None,
-                host_world: Optional[int] = None) -> Comms:
+                host_world: Optional[int] = None,
+                timeout_s: float = 600.0) -> Comms:
     """The world communicator of an initialized process group (reference
     ``build_comms_nccl_only``, comms/std_comms.hpp:42).  *coordinator*
     ("host:port" of a :class:`~raft_tpu_torch.comms.hostcomm.MailboxServer`)
     enables the cross-process host p2p plane (``build_comms_nccl_ucx``'s
-    role)."""
+    role).  *timeout_s* is the process group's timeout."""
     return Comms(group, device=device, session_id=session_id,
                  coordinator=coordinator, host_rank=host_rank,
-                 host_world=host_world)
+                 host_world=host_world, timeout_s=timeout_s)

@@ -111,6 +111,7 @@ class CommsSession:
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
             torch.cuda.set_device(device)
+        timeout_s = float(self._multihost.get("timeout_s", 600))
         if dist.is_initialized():
             expects(not self._multihost,
                     "multihost= given, but this process already has a "
@@ -129,11 +130,11 @@ class CommsSession:
                 world, rank = 1, 0
             dist.init_process_group(
                 backend, init_method=init_method, world_size=world,
-                rank=rank, timeout=datetime.timedelta(
-                    seconds=float(mh.get("timeout_s", 600))))
+                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
             self._owns_world = True
         self.comms = build_comms(device=device, session_id=self.session_id,
-                                 coordinator=self._coordinator)
+                                 coordinator=self._coordinator,
+                                 timeout_s=timeout_s)
         handle = Handle(device=device)
         handle.set_comms(self.comms)  # reference handle.set_comms
         st = get_comms_state(self.session_id)
@@ -154,7 +155,8 @@ class CommsSession:
     def destroy(self) -> None:
         """Tear down the session (reference ``Comms.destroy``, comms.py:220):
         the process groups it made — the world, if this session created
-        it, else the groups its communicator's splits created."""
+        it, else the groups its communicator's splits and serving engines
+        created."""
         with _state_lock:
             _session_state.pop(self.session_id, None)
         if self.comms is not None:
@@ -164,6 +166,8 @@ class CommsSession:
                 for pg in self.comms._made:
                     if pg != dist.GroupMember.NON_GROUP_MEMBER:
                         dist.destroy_process_group(pg)
+            self.comms._made.clear()
+            self.comms._control.clear()
             if self.comms._mailbox is not None:
                 self.comms._mailbox.close()
         if self._store_dir is not None:

@@ -139,6 +139,13 @@ class Index:
         total = self.list_data.shape[0] * self.capacity
         return 1.0 - self.size / max(total, 1)
 
+    def shard(self, comms):
+        """This rank's round-robin list shard of the index across *comms*'
+        ranks (``ann_mnmg.shard_ivf_flat``)."""
+        from raft_tpu_torch.neighbors import ann_mnmg
+
+        return ann_mnmg.shard_ivf_flat(self, comms)
+
 
 def index_from_arrays(arrays: Dict[str, np.ndarray], metric,
                       adaptive_centers: bool = False, device=None) -> Index:
@@ -190,6 +197,15 @@ def _ingest(data, device) -> torch.Tensor:
             f"ivf_flat: unsupported dataset type {x.dtype}; the port stores "
             "float32, int8, uint8 or bfloat16")
     return x
+
+
+def ingest_queries(queries, device) -> torch.Tensor:
+    """Queries as float32 on *device*: every storage type, and float16,
+    widens exactly."""
+    q = torch.as_tensor(queries, device=device)
+    expects(q.dtype in STORAGE_DTYPES or q.dtype == torch.float16,
+            f"ivf_flat: unsupported query type {q.dtype}")
+    return q.float()
 
 
 def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -254,6 +270,55 @@ def build(params: IndexParams, dataset, ids=None, *, device=None,
         expects(ids is None, "ids were passed but add_data_on_build=False "
                 "stores no rows — pass them to extend() instead")
     return index
+
+
+def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
+                  device=None, engine: Optional[str] = None):
+    """Train once and populate straight into list shards (the JAX
+    package's ``build_sharded``): the communicator's first rank trains the
+    centres and assigns every row its list, both broadcast; then each rank
+    packs ONLY the rows of its round-robin list shard.  The result is an
+    ``ann_mnmg.ShardedIndex``, bit for bit ``build(params,
+    dataset).shard(comms)`` on the same device and engine, without the
+    full padded index on any rank.  Every rank passes the same
+    *dataset*."""
+    from raft_tpu_torch.neighbors import ann_mnmg
+
+    comms = ann_mnmg._full_axis_comms(comms)
+    dev = resolve_device(device)
+    x = _ingest(dataset, dev)
+    expects(x.ndim == 2, "dataset must be (n, dim)")
+    expects(params.metric in _SUPPORTED,
+            f"ivf_flat: unsupported metric {params.metric}")
+    expects(params.add_data_on_build,
+            "build_sharded populates by construction — use "
+            "build(add_data_on_build=False) + extend + shard() for "
+            "deferred ingest")
+    n, dim = x.shape
+    n_lists = min(params.n_lists, n)
+
+    def train():
+        xf = x.float()
+        centers = _train_centers(params, xf, n_lists, engine)
+        q = _normalize_rows(xf) if params.metric == \
+            DistanceType.CosineExpanded else xf
+        return centers, _assign_lists(q, centers, params.metric, engine)
+
+    centers, labels = ann_mnmg.train_on_first(
+        comms, [((n_lists, dim), torch.float32, dev),
+                ((n,), torch.int32, dev)], train)
+    ids = (torch.arange(n, dtype=torch.int32, device=dev) if ids is None
+           else torch.as_tensor(ids, device=dev).to(torch.int32))
+    expects(ids.shape == (n,), "ids must be (n,)")
+    mine = torch.nonzero(labels.long() % comms.get_size()
+                         == comms.get_rank()).flatten()
+    ((data,), idx, psz, table, _, probe_extra, _) = \
+        ann_mnmg.populate_shard(comms, labels, n_lists, (x[mine],), ids,
+                                mine)
+    aux = ann_mnmg._ivf_flat_aux(comms.get_size(), int(dim),
+                                 int(params.metric), n_lists, probe_extra)
+    return ann_mnmg.ShardedIndex("ivf_flat", comms, (centers,),
+                                 (data, idx, psz, table), aux)
 
 
 def extend(index: Index, new_vectors, new_ids=None, *,
@@ -374,10 +439,10 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search the index (reference ``ivf_flat::search``): returns
     (distances (nq, k) f32, indices (nq, k) int32) on the index's device.
-    Queries of any storage type are widened to float32.
+    Queries of any storage type, or float16, are widened to float32.
     ``engine`` picks kernel B2 (``"cuda"``) or its plain version
     (``"torch"``) for the selections; the default follows the device."""
-    q = _ingest(queries, index.device).float()
+    q = ingest_queries(queries, index.device)
     expects(q.ndim == 2 and q.shape[1] == index.dim, "query dim mismatch")
     expects(k >= 1, "k must be >= 1")
     n_probes = min(params.n_probes, index.n_lists)

@@ -46,7 +46,9 @@ read inside the scan: by kernel B4's scan mode, so a dead row never
 enters a step's best ``kk``, and by ``_common.scan_probe_lists`` on the
 per-step path.
 
-Not ported yet (raises): ``build_sharded``.
+``build_sharded`` trains once and packs each rank's list shard of an
+``ann_mnmg.ShardedIndex`` directly; ``Index.shard(comms)`` partitions a
+built index.
 """
 
 from __future__ import annotations
@@ -62,14 +64,15 @@ from raft_tpu_torch.cluster.kmeans import (centroids_from_sums,
                                            fused_em_step_batched)
 from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
 from raft_tpu_torch.core.buckets import bucket_dim
-from raft_tpu_torch.core.error import LogicError, expects
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
 from raft_tpu_torch.kernels import ivf_pq_lut
 from raft_tpu_torch.kernels.engine import resolve_engine
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors._build import (extend_device, pack_device,
+from raft_tpu_torch.neighbors._build import (DEFAULT_TILE_ROWS,
+                                             extend_device, pack_device,
                                              run_tiles)
 from raft_tpu_torch.neighbors._common import (_SCAN_STACK_MIN_K,
                                               empty_result, expand_probes,
@@ -93,7 +96,6 @@ ARRAY_FIELDS = ("centers", "rotation", "codebooks", "list_codes",
 _FLOAT_FIELDS = ("centers", "rotation", "codebooks", "list_adc", "list_csum")
 #: rows of the residual sample the PCA-balanced rotation is fitted on
 _PCA_SAMPLE = 50_000
-_NOT_PORTED = "is not ported yet"
 #: the sum's type of each ``internal_distance_dtype`` on the hoisted and
 #: on the legacy path (kernel B4's ``acc``)
 _INTERNAL_DTYPES = {
@@ -219,6 +221,13 @@ class Index:
     def padding_fraction(self) -> float:
         total = self.list_codes.shape[0] * self.capacity
         return 1.0 - self.size / max(total, 1)
+
+    def shard(self, comms):
+        """This rank's round-robin list shard of the index across *comms*'
+        ranks (``ann_mnmg.shard_ivf_pq``)."""
+        from raft_tpu_torch.neighbors import ann_mnmg
+
+        return ann_mnmg.shard_ivf_pq(self, comms)
 
 
 def _ingest_dataset(data, device) -> Tuple[torch.Tensor, str]:
@@ -545,24 +554,31 @@ def _train_model(params: IndexParams, x: torch.Tensor,
     return centers, labels, rotation, codebooks
 
 
+def _encode_tile(index: Index, xt: torch.Tensor, lt: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None):
+    """(packed codes, csum) of one row tile under *index*'s model:
+    residual → rotate → encode → pack, and the per-candidate list-side
+    sum.  With *keep* only those rows are encoded; the rotation product
+    still runs on the whole tile, so a row's bits do not depend on which
+    rows of its tile are kept."""
+    lt = lt.long()
+    rot = (xt - index.centers[lt]) @ index.rotation
+    if keep is not None:
+        rot, lt = rot[keep], lt[keep]
+    codes = _encode(rot, index.codebooks, lt, index.per_cluster)
+    return (_pack_codes(codes, index.pq_bits),
+            _csum_for_codes(codes, lt, index.rot_centers, index.codebooks,
+                            index.per_cluster))
+
+
 def _encode_rows(index: Index, x: torch.Tensor, labels: torch.Tensor):
     """(packed codes, csum) of *x*'s rows under *index*'s model, in row
-    tiles (``_build.run_tiles``): residual → rotate → encode → pack, and
-    the per-candidate list-side sum."""
+    tiles (``_build.run_tiles``)."""
     if x.shape[0] == 0:
         return (torch.zeros((0, _code_bytes(index.pq_dim, index.pq_bits)),
                             dtype=torch.uint8, device=x.device),
                 torch.zeros(0, device=x.device))
-
-    def tile(xt, lt):
-        lt = lt.long()
-        codes = _encode((xt - index.centers[lt]) @ index.rotation,
-                        index.codebooks, lt, index.per_cluster)
-        return (_pack_codes(codes, index.pq_bits),
-                _csum_for_codes(codes, lt, index.rot_centers,
-                                index.codebooks, index.per_cluster))
-
-    return run_tiles(tile, x, labels)
+    return run_tiles(lambda xt, lt: _encode_tile(index, xt, lt), x, labels)
 
 
 def _empty_index(centers, rotation, codebooks, metric, pq_bits: int,
@@ -659,11 +675,63 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     return _populate(index, x, new_ids, labels, in_place=in_place)
 
 
-def build_sharded(params: IndexParams, dataset, comms, ids=None):
+def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
+                  device=None, engine: Optional[str] = None):
     """Train once and populate straight into list shards (the JAX
-    package's ``build_sharded``): not ported yet — the port has no
-    communicator layer."""
-    raise LogicError(f"ivf_pq.build_sharded {_NOT_PORTED}")
+    package's ``build_sharded``): the communicator's first rank trains the
+    model (coarse centres, rotation, codebooks) and assigns every row its
+    list, all broadcast; then each rank encodes and packs ONLY the rows of
+    its round-robin list shard, in the row tiles of :func:`build`.  The
+    result is an ``ann_mnmg.ShardedIndex``, bit for bit ``build(params,
+    dataset).shard(comms)`` on the same device and engine, without the
+    full packed index on any rank.  Every rank passes the same
+    *dataset*."""
+    from raft_tpu_torch.neighbors import ann_mnmg
+
+    comms = ann_mnmg._full_axis_comms(comms)
+    dev = resolve_device(device)
+    x, dataset_dtype = _ingest_dataset(dataset, dev)
+    _validate_build(params, x)
+    expects(params.add_data_on_build,
+            "build_sharded populates by construction — use "
+            "build(add_data_on_build=False) + extend + shard() for "
+            "deferred ingest")
+    n, dim = x.shape
+    n_lists = min(params.n_lists, n)
+    pq_dim = params.pq_dim or _calc_pq_dim(dim)
+    rot_dim = -(-dim // pq_dim) * pq_dim
+    per_cluster = (CodebookKind(int(params.codebook_kind))
+                   == CodebookKind.PER_CLUSTER)
+    specs = [((n_lists, dim), torch.float32, dev),
+             ((n,), torch.int32, dev),
+             ((dim, rot_dim), torch.float32, dev),
+             ((n_lists if per_cluster else pq_dim, 1 << params.pq_bits,
+               rot_dim // pq_dim), torch.float32, dev)]
+    centers, labels, rotation, codebooks = ann_mnmg.train_on_first(
+        comms, specs, lambda: _train_model(params, x, engine))
+    model = _empty_index(centers, rotation, codebooks, params.metric,
+                         params.pq_bits, dataset_dtype, params.codebook_kind)
+    ids = (torch.arange(n, dtype=torch.int32, device=dev) if ids is None
+           else torch.as_tensor(ids, device=dev).to(torch.int32))
+    expects(ids.shape == (n,), "ids must be (n,)")
+    keep = labels.long() % comms.get_size() == comms.get_rank()
+    tile = max(8, min(DEFAULT_TILE_ROWS, n))
+    parts = [_encode_tile(model, x[t0:t0 + tile], labels[t0:t0 + tile],
+                          keep[t0:t0 + tile])
+             for t0 in range(0, n, tile)]
+    packed = torch.cat([p for p, _ in parts])
+    csum = torch.cat([c for _, c in parts])
+    ((codes, list_csum), idx, psz, table, owner, probe_extra,
+     max_chunks) = ann_mnmg.populate_shard(
+        comms, labels, n_lists, (packed, csum), ids,
+        torch.nonzero(keep).flatten())
+    aux = ann_mnmg._ivf_pq_aux(
+        comms.get_size(), int(dim), int(params.metric), n_lists,
+        probe_extra, int(params.pq_bits), int(params.codebook_kind),
+        dataset_dtype, int(model.pq_dim), max_chunks)
+    return ann_mnmg.ShardedIndex(
+        "ivf_pq", comms, (centers, rotation, codebooks, model.list_adc),
+        (codes, idx, psz, table, owner, list_csum), aux)
 
 
 def index_from_arrays(arrays: Dict[str, np.ndarray], metric,

@@ -1,9 +1,12 @@
-"""Index archives, in the JAX package's format both ways (single-device
-port of ``raft_tpu/neighbors/serialize.py``: ``_finish`` :67,
-``_atomic_savez`` :89, ``_unpack`` :108, ``save_ivf_flat`` :144,
-``load_ivf_flat`` :152, ``save_ivf_pq`` :160, ``save_mutable`` :265,
-``load_mutable`` :337, ``save_tiered`` :417, ``load_tiered`` :445,
-``load_ivf_pq`` :471), with numpy only.
+"""Index archives, in the JAX package's format both ways (port of
+``raft_tpu/neighbors/serialize.py``: ``_finish`` :67, ``_atomic_savez``
+:89, ``_unpack`` :108, ``save_ivf_flat`` :144, ``load_ivf_flat`` :152,
+``save_ivf_pq`` :160, ``save_sharded`` :170, ``load_sharded`` :200,
+``save_mutable`` :265, ``load_mutable`` :337, ``save_tiered`` :417,
+``load_tiered`` :445, ``load_ivf_pq`` :471), with numpy only.  A sharded
+archive holds the replicated tables and every rank's blocks stacked as
+(world, …); the port's ``save_sharded`` gathers them to the first rank,
+which writes, and ``load_sharded`` gives each rank its own row.
 
 An archive is one ``.npz``: every array leaf plus ``__header__``, a JSON
 header (magic, per-kind version, kind, aux, per-array CRC32 manifest).
@@ -36,12 +39,14 @@ from raft_tpu_torch.core.error import CorruptionError, LogicError, expects
 from raft_tpu_torch.core.handle import resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
-from raft_tpu_torch.neighbors._common import tensor_to_array
+from raft_tpu_torch.neighbors._common import array_to_tensor, tensor_to_array
 
 _MAGIC = "raft-tpu-index"
 #: the version each kind is written at (the JAX package's)
-_VERSIONS = {"ivf_flat": 1, "ivf_pq": 2, "mutable": 1, "tiered": 1}
+_VERSIONS = {"ivf_flat": 1, "ivf_pq": 2, "mutable": 1, "tiered": 1,
+             "sharded": 1}
 _READABLE_VERSIONS = {"ivf_flat": (1,), "ivf_pq": (1, 2), "mutable": (1,),
+                      "sharded": (1,),
                       "tiered": (1,)}
 
 
@@ -155,6 +160,60 @@ def save_ivf_pq(path, index: ivf_pq.Index) -> None:
     """Write an IVF-PQ index to *path* (``.npz``, version 2; atomic and
     checksummed) — the JAX package's ``load_ivf_pq`` reads it."""
     _atomic_savez(path, _finish("ivf_pq", _leaves(index), _pq_aux(index)))
+
+
+def _gather_leaf(comms, leaf: torch.Tensor) -> np.ndarray:
+    """Every rank's block of one stacked leaf as the (world, …) array of
+    the archive (bfloat16 travels as its bits)."""
+    bf16 = leaf.dtype == torch.bfloat16
+    parts = comms.allgather(leaf.view(torch.int16) if bf16 else leaf)
+    return tensor_to_array(parts.view(torch.bfloat16) if bf16 else parts)
+
+
+def save_sharded(path, sharded) -> None:
+    """Write an ``ann_mnmg.ShardedIndex`` to *path* (``.npz``; atomic and
+    checksummed) in the JAX package's layout: ``rep{j}`` the replicated
+    tables, ``st{j}`` each stacked leaf as (world, …), the aux (world
+    included) in the header.  A collective: every rank calls it, the
+    blocks are gathered to the first rank, which writes, and every rank
+    returns once the archive is in place."""
+    comms = sharded.comms
+    stacked = [_gather_leaf(comms, leaf) for leaf in sharded.stacked]
+    if comms.get_rank() == 0:
+        arrays = {f"rep{j}": tensor_to_array(leaf)
+                  for j, leaf in enumerate(sharded.replicated)}
+        arrays.update({f"st{j}": a for j, a in enumerate(stacked)})
+        _atomic_savez(path, _finish("sharded", arrays,
+                                    {"kind": sharded.kind,
+                                     "aux": dict(sharded.aux)}))
+    comms.barrier()
+
+
+def load_sharded(path, comms, device=None):
+    """An ``ann_mnmg.ShardedIndex`` from an archive either package's
+    ``save_sharded`` wrote: every rank reads the replicated tables and its
+    own row of each stacked leaf onto *device* (``None``: the card).  The
+    archive's world must be the communicator's size — a partition is laid
+    out for one world; re-shard the base index to change it."""
+    from raft_tpu_torch.comms.comms import as_comms
+    from raft_tpu_torch.neighbors import ann_mnmg
+
+    comms = ann_mnmg._full_axis_comms(as_comms(comms))
+    dev = resolve_device(device)
+    aux, a = _unpack(path, "sharded")
+    world = int(aux["aux"]["world"])
+    expects(world == comms.get_size(),
+            f"archive was sharded for world={world}, communicator has "
+            f"{comms.get_size()} — re-shard the base index instead")
+    rank = comms.get_rank()
+    n_rep = sum(1 for name in a if name.startswith("rep"))
+    n_st = sum(1 for name in a if name.startswith("st"))
+    replicated = tuple(array_to_tensor(a[f"rep{j}"], dev)
+                       for j in range(n_rep))
+    stacked = tuple(array_to_tensor(a[f"st{j}"][rank], dev)
+                    for j in range(n_st))
+    return ann_mnmg.ShardedIndex(aux["kind"], comms, replicated, stacked,
+                                 dict(aux["aux"]))
 
 
 def load_ivf_pq(path, device=None) -> ivf_pq.Index:

@@ -21,7 +21,11 @@ measurements give the same decisions).
   super-batch dispatched and fetched under the engine lock, so a live
   ``search()`` waits behind at most one shadow super-batch and is never
   shed or failed.  Each replay fetches its results to the host, so its
-  qps and p99 are wall times of finished work.  Scores are qps and p99
+  qps and p99 are wall times of finished work.  A replica engine's tuner
+  may take a ``shadow_lane``: :meth:`AutoTuner.explore` drains that lane
+  through the engine's router (live requests route around it and none
+  fails), replays knob candidates on it through the leader's protocol,
+  and restores it after.  Scores are qps and p99
   under a recall-probe floor (:func:`exact_reference` for an exact
   oracle; the live config's own ids by default).
 * **Atomic promotion, guarded rollback.**  A winner of successive halving
@@ -34,10 +38,12 @@ measurements give the same decisions).
   ``raft_tpu_autotune_guard_disarmed_total`` counts it.
 
 Every decision exports through the ``raft_tpu_autotune_*`` counters and
-gauges and through the engine's ``/healthz`` ``autotune`` object.
-
-Not ported yet: replica-lane evaluation (``shadow_lane=``), which waits
-for the replica backend.
+gauges and through the engine's ``/healthz`` ``autotune`` object.  The
+replay groups requests by type and replays each type on its own ladder.
+Params candidates need a backend of their own, which a distributed
+engine's followers do not build: over a sharded or replica engine only
+knob candidates are explored (params promote through ``refresh``, which
+every rank runs).
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import telemetry
-from raft_tpu_torch.core.error import expects, fail
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.serve import spmd
 from raft_tpu_torch.serve.schedule import choose_batches
 
 #: decision labels exported via raft_tpu_autotune_decisions_total
@@ -157,8 +164,14 @@ class AutoTuner:
                  measure: Optional[Callable[[Candidate, List[np.ndarray]],
                                             Score]] = None):
         if shadow_lane is not None:
-            fail("AutoTuner(shadow_lane=): replica-lane evaluation is not "
-                 "ported yet (the port has no replica backend)")
+            router = getattr(engine, "_router", None)
+            expects(router is not None
+                    and 0 <= int(shadow_lane) < router.n_lanes,
+                    f"shadow_lane={shadow_lane}: needs a replica engine "
+                    "with that lane")
+        #: replica engines: the drained lane shadow replays dispatch to
+        self._shadow_lane = (None if shadow_lane is None
+                             else int(shadow_lane))
         self.engine = engine
         self.cfg = config or TunerConfig()
         expects(self.cfg.eta >= 2, "TunerConfig.eta must be >= 2")
@@ -275,7 +288,7 @@ class AutoTuner:
         warmed bucket — the ONE tuner stage allowed to build or warm, as
         ``warmup()`` and ``refresh()`` are, off the request path.  Returns
         the number of signatures warmed."""
-        from raft_tpu_torch.serve.engine import _make_backend, _warm
+        from raft_tpu_torch.serve.engine import DTYPES, _make_backend, _warm
 
         eng = self.engine
         sigs = eng.warmed_signatures()
@@ -284,12 +297,16 @@ class AutoTuner:
         for cand in self.candidates():
             if cand.params is None or cand.name in self._shadow:
                 continue
+            expects(not eng._backend.distributed,
+                    f"candidate {cand.name}: params candidates of a "
+                    "distributed engine would need a backend on every "
+                    "rank — explore knob candidates there")
             be = _make_backend(eng.index, c["k"], cand.params,
                                self._candidate_engine(cand), c["metric"],
                                c["metric_arg"], c["batch_size_index"],
                                c["device"])
-            for bs in sigs.values():
-                _warm(be, bs)
+            for dt, bs in sigs.items():
+                _warm(be, bs, DTYPES[dt])
                 n += len(bs)
             self._shadow[cand.name] = be
         return n
@@ -340,18 +357,23 @@ class AutoTuner:
                 return False
         return True
 
-    def _dispatch(self, be, block: np.ndarray
+    def _dispatch(self, be, block: torch.Tensor,
+                  lane: Optional[int] = None
                   ) -> Tuple[np.ndarray, np.ndarray]:
-        """One shadow super-batch: the block to the backend's device,
-        dispatched, and its results fetched to the host.  A params
+        """One shadow super-batch: the host block dispatched (a
+        distributed backend's on replica lane *lane*, through the leader's
+        protocol) and its results fetched to the host.  A params
         candidate's own backend runs unlocked; the LIVE backend runs under
         the engine lock, dispatch and fetch together, so a live
         ``search()`` waits behind at most this one super-batch."""
         eng = self.engine
 
         def run():
-            qb = torch.from_numpy(block).to(be.device)
-            d, i = be.dispatch(qb)
+            if be.distributed:
+                r = be.dispatch(block, lane or 0)
+            else:
+                r = be.dispatch(block.to(be.device))
+            d, i = r.result() if isinstance(r, spmd.Pending) else r
             return d.cpu().numpy(), i.cpu().numpy()
 
         if be is not eng._backend:
@@ -359,30 +381,35 @@ class AutoTuner:
         with eng._lock:
             return run()
 
-    def _measure_real(self, cand: Candidate,
-                      requests: List[np.ndarray]) -> Score:
+    def _measure_real(self, cand: Candidate, requests: List[Any]) -> Score:
         """Replay *requests* through the candidate's lane — its own warmed
         backend for a params candidate, the live backend's warmed buckets
-        otherwise — and measure (qps, p99, probe recall), never through
-        admission."""
+        otherwise (on the drained ``shadow_lane`` of a replica engine) —
+        and measure (qps, p99, probe recall), never through admission or
+        the router."""
         expects(requests, "no shadow traffic: serve some requests first "
                           "or pass shadow_plan=")
         eng = self.engine
         be = self._shadow.get(cand.name)
+        lane = None
         if be is None:
             be = eng._backend
+            lane = self._shadow_lane
         cap = cand.max_batch if cand.max_batch is not None \
             else eng.max_batch
-        qps, p99, results, served = self._replay(be, requests, cap)
+        qps, p99, results, served = self._replay(be, requests, cap, lane)
         recall = self._recall_probe(requests, results, served)
         return Score(qps=qps, p99_s=p99, recall=recall,
                      served=len(served) / len(requests))
 
-    def _replay(self, be, requests: List[np.ndarray], cap: int):
+    def _replay(self, be, requests: List[Any], cap: int,
+                lane: Optional[int] = None):
         """Coalesce and dispatch *requests* as the engine's plan stage
-        does — buckets only through ``_bucket_for`` over the warmed set
-        capped at *cap* — each super-batch's results on the host before
-        its requests count as done."""
+        does — per type, buckets only through ``_bucket_for`` over that
+        type's warmed set capped at *cap* — each super-batch's results on
+        the host before its requests count as done."""
+        from raft_tpu_torch.serve.engine import dtype_name
+
         eng = self.engine
         sigs = eng.warmed_signatures()
         ingested = [be.ingest(q) for q in requests]
@@ -392,7 +419,7 @@ class AutoTuner:
         by_dtype: Dict[str, List[int]] = {}
         skipped = 0
         for j, q in enumerate(ingested):
-            dt = str(q.dtype)
+            dt = dtype_name(q.dtype)
             warmed = {b for b in sigs.get(dt, ()) if b <= cap}
             if not warmed or q.shape[0] > max(warmed) or q.shape[0] == 0:
                 skipped += 1   # never solo off-path
@@ -414,11 +441,11 @@ class AutoTuner:
                 members = [(idxs[jj], start, n) for jj, start, n in batch]
                 total = members[-1][1] + members[-1][2]
                 bucket = eng._bucket_for(total, warmed)
-                block = np.zeros((bucket, be.dim),
-                                 ingested[members[0][0]].dtype)
+                block = torch.zeros((bucket, be.dim),
+                                    dtype=ingested[members[0][0]].dtype)
                 for j, start, n in members:
                     block[start:start + n] = ingested[j]
-                d, i = self._dispatch(be, block)
+                d, i = self._dispatch(be, block, lane)
                 done = telemetry.now() - t_start
                 for j, start, n in members:
                     results[j] = (d[start:start + n], i[start:start + n])
@@ -451,17 +478,20 @@ class AutoTuner:
                 tot += ids.shape[1]
         return hit / max(tot, 1)
 
-    def _live_ids(self, q: np.ndarray) -> np.ndarray:
+    def _live_ids(self, q) -> np.ndarray:
         """The serving config's own ids for one request, through the live
-        backend's warmed ladder."""
+        backend's warmed ladder (on the shadow lane of a replica
+        engine)."""
+        from raft_tpu_torch.serve.engine import dtype_name
+
         eng = self.engine
         be = eng._backend
         qi = be.ingest(q)
-        warmed = set(eng.warmed_signatures().get(str(qi.dtype), ()))
+        warmed = set(eng.warmed_signatures().get(dtype_name(qi.dtype), ()))
         bucket = eng._bucket_for(int(qi.shape[0]), warmed)
-        block = np.zeros((bucket, be.dim), qi.dtype)
+        block = torch.zeros((bucket, be.dim), dtype=qi.dtype)
         block[:qi.shape[0]] = qi
-        return self._dispatch(be, block)[1][:qi.shape[0]]
+        return self._dispatch(be, block, self._shadow_lane)[1][:qi.shape[0]]
 
     # -- explore (successive halving) ---------------------------------------
     def explore(self) -> Optional[Candidate]:
@@ -478,11 +508,20 @@ class AutoTuner:
                     f"{c.name} has no warmed shadow backend")
         if not cands:
             return None
+        # the shadow lane takes no live traffic while the tuner replays
+        # on it; a lane the router had drained already stays drained
+        router = getattr(self.engine, "_router", None)
+        drained = (self._shadow_lane is not None and router is not None
+                   and self._shadow_lane not in router.degraded_lanes())
+        if drained:
+            router.drain(self._shadow_lane)
         self._exploring.set(1, self._label)
         try:
             return self._halve(cands)
         finally:
             self._exploring.set(0, self._label)
+            if drained:
+                router.restore(self._shadow_lane)
 
     def _halve(self, survivors: List[Candidate]) -> Optional[Candidate]:
         cfg = self.cfg
@@ -623,11 +662,10 @@ class AutoTuner:
             # drop the buckets above it: warm them again, so the ladder
             # is the pre-promotion one
             now_warmed = eng.warmed_signatures()
-            lost = sorted({b for bs in self._pre_warmed.values()
-                           for b in bs}
-                          - {b for bs in now_warmed.values() for b in bs})
-            if lost:
-                eng.warmup(lost)
+            for dt, bs in self._pre_warmed.items():
+                lost = sorted(set(bs) - set(now_warmed.get(dt, ())))
+                if lost:
+                    eng.warmup(lost, dtypes=(dt,))
         eng.apply_tuning(quantum_s=prev.get("quantum_s"),
                          max_batch=prev.get("max_batch"))
         adm = eng._admission

@@ -1,18 +1,33 @@
 """Batched query serving over brute force, IVF-Flat, IVF-PQ, the mutable
-index and the tiered index (port of ``raft_tpu/serve/engine.py``: the
-backends :110-291, ``_TieredBackend`` :442 and ``_MutableBackend`` :474,
-``_make_backend`` :527, ``ServeEngine`` :544-1633, with the autotuner's
-hooks :823-892).
+index, the tiered index and the sharded and replicated indexes of
+``ann_mnmg`` (port of ``raft_tpu/serve/engine.py``: the backends
+:110-291, ``_ShardedBackend`` :294 and ``_ReplicaBackend`` :392 with
+``_sharded_ingest`` :341 and ``_sharded_batch_cap`` :376 as their shared
+``ingest`` / ``batch_cap``, ``_TieredBackend`` :442 and
+``_MutableBackend`` :474, ``_make_backend`` :527,
+``ServeEngine`` :544-1633, with the autotuner's hooks :823-892, replica
+routing :1539-1615).
 
-* **Request coalescing** — concurrent ragged requests are packed in
-  arrival order into super-batches of at most ``max_batch`` rows, each
-  padded on the host to its power-of-two bucket and searched as ONE
-  batch; results are sliced back per request.  Every query row's result
-  is independent of the other rows of its batch, so a request's answer
-  equals what the solo ``search`` of its index type (``knn`` for a dense
-  index) returns for it.  A request larger than the largest warmed
-  bucket is served solo.  An IVF-PQ engine with a compressed LUT clamps
-  its super-batch to ``ivf_pq.hoisted_batch_cap``.
+* **Request coalescing** — concurrent ragged requests are grouped by
+  type and packed in arrival order into super-batches of at most
+  ``max_batch`` rows of ONE type, each padded on the host to its
+  power-of-two bucket and searched as ONE batch; results are sliced back
+  per request.  Every query row's result is independent of the other
+  rows of its batch, so a request's answer equals what the solo
+  ``search`` of its index type (``knn`` for a dense index) returns for
+  it.  A request larger than the largest warmed bucket is served solo.
+  An IVF-PQ engine with a compressed LUT clamps its super-batch to
+  ``ivf_pq.hoisted_batch_cap``.
+* **Per-type ladders** — ``warmup(dtypes=...)`` warms every bucket for
+  each type; ``warmed_signatures()`` maps each type's name (``float32``,
+  ``bfloat16``, ``float16``, …) to its buckets, and the cost rows are per
+  (type, bucket).  A request keeps its type where its backend's solo
+  search would: brute force keeps it (the scan widens it to the index's
+  type on the device), IVF-Flat keeps float types and widens int8 /
+  uint8 exactly, IVF-PQ widens every type to float32 after its
+  dataset-type check.  A request arrives as a numpy array or a tensor; a
+  bfloat16 one as a tensor or as ``ml_dtypes`` bits, and it is never
+  carried through a numpy bfloat16.
 * **Continuous batching** (ON by default) — the telemetry-steered
   chooser (``schedule.choose_batches``) cuts the queue where the measured
   per-bucket costs say; cold, it packs as the drain-all planner does.
@@ -35,14 +50,15 @@ hooks :823-892).
   super-batch is split and re-dispatched member by member.  Nothing
   falls back to the plain PyTorch versions.
 * ``refresh()`` swaps the index atomically (the old backend keeps serving
-  until the new one has run every warmed bucket), ``close()`` is bounded
-  and idempotent.
+  until the new one has run every warmed signature), ``close()`` is
+  bounded and idempotent.
 * **Telemetry** — ``serve.*`` spans (host wall time only, no device
   synchronisation), a per-engine latency histogram
   (:meth:`ServeEngine.latency_quantiles`), ``stats`` as a registry-backed
   counter view, per-dispatch host time into
-  ``raft_tpu_aot_dispatch_seconds{fn,sig}`` and sampled device time (CUDA
-  events on the lane, read after collection has waited anyway) into
+  ``raft_tpu_aot_dispatch_seconds{fn,sig}`` (``sig`` =
+  ``"{type}[bucket,dim]"``) and sampled device time (CUDA events on the
+  lane, read after collection has waited anyway) into
   ``raft_tpu_device_seconds{fn}`` — the costs admission and the chooser
   read.  :meth:`ServeEngine.serve_http` serves ``/metrics``, ``/healthz``,
   ``/varz`` and ``/debug/slow``.
@@ -55,6 +71,24 @@ the device, cold tiles staged per batch, optional exact re-rank);
 ``refresh(tiering.retier(t, searcher.hotness()))`` re-tiers it, and
 ``/healthz`` reports its residency.
 
+**Distributed serving.**  An ``ann_mnmg.ShardedIndex`` is served by the
+sharded backend: every super-batch runs on every rank of the index's
+communicator (one allgather each).  An ``ann_mnmg.ReplicaSet`` is served
+by the replica backend: each super-batch runs on ONE replica group, the
+one the :class:`~raft_tpu_torch.serve.schedule.ReplicaRouter` picks
+(least estimated completion time); a lane whose dispatch fails is
+drained and the same block re-routes to a live lane
+(``stats["replica_faults"]`` / ``stats["replica_reroutes"]``), and
+``/healthz`` carries the router's ``replicas`` object.  The engine is
+made on every rank with that rank's part of the index, in the same order
+on every rank.  Rank 0 leads: it owns the public API; every other rank
+calls :meth:`ServeEngine.follow`, which returns when the leader closes
+the engine (``"close"``) or refreshes it to a new index (``"refresh"``:
+the rank passes its own part of the new index to :meth:`refresh`, then
+follows again).  The protocol between them, its control groups and what
+it stages through the host are set out in :mod:`raft_tpu_torch.serve.
+spmd`.
+
 The autotuner (:mod:`raft_tpu_torch.serve.autotune`) reads the bounded
 shadow ring of recent requests (:meth:`ServeEngine.shadow_samples`),
 applies its host knobs through :meth:`ServeEngine.apply_tuning` and shows
@@ -62,10 +96,6 @@ in ``/healthz`` (:meth:`ServeEngine.attach_tuner`).  With a cost store
 installed (:mod:`raft_tpu_torch.core.coststore`), ``close()`` persists the
 scheduler's cost rows and a new engine over the same backend program
 seeds its cost model from them.
-
-Requests are ingested as float32 (``warmed_signatures()`` reports
-``{"float32": [...]}``).  Not ported yet: serving other query types as
-themselves, and the sharded and replica backends (with replica routing).
 """
 
 from __future__ import annotations
@@ -87,13 +117,15 @@ from raft_tpu_torch.core.handle import Handle, resolve_device
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import as_float_tensor
 from raft_tpu_torch.kernels.engine import resolve_engine
-from raft_tpu_torch.neighbors import (brute_force, ivf_flat, ivf_pq, mutable,
-                                      tiering)
+from raft_tpu_torch.neighbors import (ann_mnmg, brute_force, ivf_flat,
+                                      ivf_pq, mutable, tiering)
+from raft_tpu_torch.serve import spmd
 from raft_tpu_torch.serve.admission import (AdmissionController,
                                             RejectedError, ServeRequest)
-from raft_tpu_torch.serve.schedule import (CostModel, SchedulerConfig,
-                                           choose_batches, should_dispatch)
-from raft_tpu_torch.serve.supervise import DispatchSupervisor
+from raft_tpu_torch.serve.schedule import (CostModel, ReplicaRouter,
+                                           SchedulerConfig, choose_batches,
+                                           should_dispatch)
+from raft_tpu_torch.serve.supervise import DispatchSupervisor, retryable
 from raft_tpu_torch.testing import faults as _faults
 
 #: Bound on the per-call latency list (``last_latencies``) and on the
@@ -104,11 +136,11 @@ LATENCY_RESERVOIR = 4096
 #: representative mix, a few MB of retained request arrays at most
 _SHADOW_RING = 64
 
-#: the one type requests are served in (every backend ingests to it)
-_DTYPE = "float32"
+#: the types a ladder may be warmed in, by name (the control plane's
+#: wire types)
+DTYPES = {str(dt).replace("torch.", ""): dt for dt in spmd.DTYPES}
 
-#: the serving statistics every engine reports (the reference's keys; the
-#: replica keys stay 0 until a replica backend is ported)
+#: the serving statistics every engine reports (the reference's keys)
 _STAT_KEYS = ("requests", "queries", "super_batches", "solo_fallbacks",
               "coalesced_requests", "refreshes", "admitted", "sheds",
               "expired", "retries", "watchdog_timeouts", "isolation_splits",
@@ -119,12 +151,89 @@ _STAT_KEYS = ("requests", "queries", "super_batches", "solo_fallbacks",
 _ENGINE_IDS = itertools.count()
 
 
-class _Backend:
-    """What every backend shares: the warm run."""
+def dtype_name(dtype) -> str:
+    """The ladder key of a type: ``"float32"``, ``"bfloat16"``, … for a
+    torch or numpy type, a JAX type or a name."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    if isinstance(dtype, str):
+        return dtype
+    return np.dtype(dtype).name
 
-    def warm(self, bucket: int) -> None:
-        """Run one batch of *bucket* zero rows."""
-        self.dispatch(torch.zeros((bucket, self.dim), dtype=torch.float32,
+
+def _request_tensor(q) -> torch.Tensor:
+    """A request on the host in its own type: a tensor (on any device)
+    as it is, a numpy array as it is — a bfloat16 one (``ml_dtypes``,
+    or its two-byte raw items) through its bits, since the host that
+    serves may have no numpy bfloat16; float64 becomes float32, as
+    everywhere in the port."""
+    if isinstance(q, torch.Tensor):
+        t = q.detach().cpu()
+    else:
+        a = np.asarray(q)
+        if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                          and a.dtype.itemsize == 2):
+            t = torch.from_numpy(np.ascontiguousarray(a).view(
+                np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.float() if t.dtype == torch.float64 else t
+
+
+def _check_shape(t: torch.Tensor, dim: int) -> torch.Tensor:
+    expects(t.ndim == 2 and t.shape[1] == dim,
+            "query must be (n, dim) with the index's dim")
+    return t
+
+
+def _float_ingest(q, dim: int, kind: str) -> torch.Tensor:
+    """Brute force: the request keeps its (floating) type."""
+    t = _check_shape(_request_tensor(q), dim)
+    expects(t.dtype.is_floating_point,
+            f"{kind}: unsupported query dtype {t.dtype}")
+    return t
+
+
+def _flat_ingest(q, dim: int, metric, device) -> torch.Tensor:
+    """An IVF-Flat request in its compute form, as the solo path makes
+    it: float types stay, int8/uint8 widen exactly to float32; cosine
+    queries are normalized in float32 on the device as the solo path
+    does."""
+    t = _check_shape(_request_tensor(q), dim)
+    if t.dtype in (torch.int8, torch.uint8):
+        t = t.float()
+    expects(t.dtype in (torch.float32, torch.bfloat16, torch.float16),
+            f"ivf_flat: unsupported query dtype {t.dtype}")
+    if metric == DistanceType.CosineExpanded and t.shape[0]:
+        return ivf_flat._normalize_rows(t.to(device).float()).cpu()
+    return t
+
+
+def _pq_ingest(q, dim: int, dataset_dtype: str) -> torch.Tensor:
+    """An IVF-PQ request widened to float32 (exact for every type the
+    family takes) after its dataset-type check, as the solo path's
+    cast."""
+    t = _request_tensor(q)
+    if t.dtype in (torch.int8, torch.uint8):
+        q_dtype = dtype_name(t.dtype)
+    else:
+        expects(t.dtype.is_floating_point,
+                f"ivf_pq: unsupported query dtype {t.dtype}")
+        q_dtype = "float32"
+    expects(q_dtype in (dataset_dtype, "float32"),
+            f"query dtype {q_dtype} != index dataset dtype {dataset_dtype}")
+    return _check_shape(t, dim).float()
+
+
+class _Backend:
+    """What the single-device backends share: the warm run."""
+
+    #: a backend that runs across ranks takes the host block itself
+    distributed = False
+
+    def warm(self, bucket: int, dtype=torch.float32) -> None:
+        """Run one batch of *bucket* zero rows of *dtype*."""
+        self.dispatch(torch.zeros((bucket, self.dim), dtype=dtype,
                                   device=self.device))
 
 
@@ -152,15 +261,10 @@ class _BruteForceBackend(_Backend):
         self.dim = int(self.index.shape[1])
         self.engine = engine
 
-    def ingest(self, q) -> np.ndarray:
-        """Host-side float32 ingest; the batch takes the index's type on
-        the device, as ``knn`` converts a solo request."""
-        q = np.asarray(q)
-        expects(q.ndim == 2 and q.shape[1] == self.dim,
-                "query must be (n, dim) with the index's dim")
-        expects(np.issubdtype(q.dtype, np.floating),
-                f"brute force: unsupported query dtype {q.dtype}")
-        return q.astype(np.float32, copy=False)
+    def ingest(self, q) -> torch.Tensor:
+        """The request in its own type; the batch takes the index's type
+        on the device, as ``knn`` converts a solo request."""
+        return _float_ingest(q, self.dim, "brute force")
 
     def dispatch(self, qb: torch.Tensor):
         return self.fn(
@@ -171,39 +275,6 @@ class _BruteForceBackend(_Backend):
         return brute_force.knn(self.index, q, self.k, self.metric,
                                self.metric_arg, batch_size_index=self.tile,
                                device=self.device, engine=self.engine)
-
-
-def _flat_ingest(q, dim: int, metric, device) -> np.ndarray:
-    """Host-side compute-form conversion of an IVF-Flat request, matching
-    what the solo path does before batching: int8/uint8 widen exactly to
-    float32; cosine queries are normalized on the device as the solo path
-    does."""
-    q = np.asarray(q)
-    expects(q.ndim == 2 and q.shape[1] == dim, "query dim mismatch")
-    if q.dtype in (np.int8, np.uint8):
-        q = q.astype(np.float32)
-    expects(q.dtype == np.float32, f"query dtype {q.dtype}: the port "
-            "serves float32")
-    if metric == DistanceType.CosineExpanded and q.shape[0]:
-        qt = torch.as_tensor(q, device=device)
-        return ivf_flat._normalize_rows(qt).cpu().numpy()
-    return q
-
-
-def _pq_ingest(q, dim: int, dataset_dtype: str) -> np.ndarray:
-    """Host-side float32 ingest of an IVF-PQ request, the same conversion
-    as the solo path's cast (int8/uint8 and half types widen exactly)."""
-    q = np.asarray(q)
-    if q.dtype in (np.int8, np.uint8):
-        q_dtype = str(q.dtype)
-    else:
-        expects(np.issubdtype(q.dtype, np.floating),
-                f"ivf_pq: unsupported query dtype {q.dtype}")
-        q_dtype = "float32"
-    expects(q_dtype in (dataset_dtype, "float32"),
-            f"query dtype {q_dtype} != index dataset dtype {dataset_dtype}")
-    expects(q.ndim == 2 and q.shape[1] == dim, "query dim mismatch")
-    return q.astype(np.float32)
 
 
 class _IvfFlatBackend(_Backend):
@@ -227,17 +298,16 @@ class _IvfFlatBackend(_Backend):
         self.engine = resolve_engine("select_k", index.device, engine=engine)
         self.device = index.device
 
-    def ingest(self, q) -> np.ndarray:
+    def ingest(self, q) -> torch.Tensor:
         return _flat_ingest(q, self.dim, self.index.metric, self.device)
 
     def dispatch(self, qb: torch.Tensor):
-        return self.fn(qb, self.index, self.k, self.n_probes, self.sqrt,
-                       self.engine)
+        return self.fn(qb.float(), self.index, self.k, self.n_probes,
+                       self.sqrt, self.engine)
 
     def solo(self, q):
-        return ivf_flat.search(self.params, self.index,
-                               np.asarray(q).astype(np.float32, copy=False),
-                               self.k, engine=self.engine)
+        return ivf_flat.search(self.params, self.index, q, self.k,
+                               engine=self.engine)
 
 
 class _IvfPqBackend(_Backend):
@@ -262,7 +332,7 @@ class _IvfPqBackend(_Backend):
         self.device = index.device
         self.hoisted = ivf_pq._resolve_hoisted(self.params)
 
-    def ingest(self, q) -> np.ndarray:
+    def ingest(self, q) -> torch.Tensor:
         return _pq_ingest(q, self.dim, self.index.dataset_dtype)
 
     def batch_cap(self) -> Optional[int]:
@@ -270,7 +340,7 @@ class _IvfPqBackend(_Backend):
                                         self.params.lut_dtype, self.hoisted)
 
     def dispatch(self, qb: torch.Tensor):
-        return self.fn(qb, self.index, self.k, self.n_probes,
+        return self.fn(qb.float(), self.index, self.k, self.n_probes,
                        self.params.lut_dtype, self.engines,
                        int_dtype=self.params.internal_distance_dtype,
                        hoisted=self.hoisted)
@@ -296,7 +366,7 @@ class _MutableBackend(_Backend):
         self.dim = mut.dim
         self.device = mut.device
 
-    def ingest(self, q) -> np.ndarray:
+    def ingest(self, q) -> torch.Tensor:
         core = self.mutable._mut_core
         if self.mutable.kind == "ivf_pq":
             return _pq_ingest(q, self.dim, core.main.dataset_dtype)
@@ -306,7 +376,7 @@ class _MutableBackend(_Backend):
         return self.searcher.batch_cap()
 
     def dispatch(self, qb: torch.Tensor):
-        return self.searcher.dispatch(qb)
+        return self.searcher.dispatch(qb.float())
 
     def solo(self, q):
         return self.searcher.solo(q)
@@ -329,7 +399,7 @@ class _TieredBackend(_Backend):
         self.dim = tiered.dim
         self.device = tiered.device
 
-    def ingest(self, q) -> np.ndarray:
+    def ingest(self, q) -> torch.Tensor:
         if self.tiered.kind == "ivf_pq":
             return _pq_ingest(q, self.dim, self.tiered.aux["dataset_dtype"])
         return _flat_ingest(q, self.dim, self.tiered.metric, self.device)
@@ -337,18 +407,166 @@ class _TieredBackend(_Backend):
     def batch_cap(self) -> Optional[int]:
         return self.searcher.batch_cap()
 
-    def warm(self, bucket: int) -> None:
-        self.searcher.warm(bucket)     # a warm run that counts no probes
+    def warm(self, bucket: int, dtype=torch.float32) -> None:
+        # a warm run that counts no probes; every type the tiered family
+        # takes reaches the scan as float32
+        self.searcher.warm(bucket)
 
     def dispatch(self, qb: torch.Tensor):
-        return self.searcher.dispatch(qb)
+        return self.searcher.dispatch(qb.float())
 
     def solo(self, q):
         return self.searcher.solo(q)
 
 
+class _DistributedBackend:
+    """What the sharded and replica backends share: a searcher over this
+    rank's shard, the engine's :class:`~raft_tpu_torch.serve.spmd.
+    LaneWire`, and the generation the leader's ops name.  ``dispatch``
+    takes the HOST block: the leader sends it to the lane's followers,
+    then queues its own shard on its dispatch thread when the lane holds
+    it, or returns the lane's result in flight — a ``spmd.Pending`` either
+    way (device (d, i), inline, in a world of one)."""
+
+    distributed = True
+
+    def _setup(self, local: "ann_mnmg.ShardedIndex", k: int, params,
+               engine: Optional[str], wire: spmd.LaneWire) -> None:
+        expects(k >= 1, "k must be >= 1")
+        expects(local.kind != "brute_force" or params is None,
+                "sharded brute-force serving takes no SearchParams "
+                "(metric/metric_arg ride the index)")
+        self._local = local
+        self.params = params
+        self.searcher = local.searcher(int(k), params, engine)
+        self.fn = self.searcher.fn
+        self.k = int(k)
+        self.dim = int(local.dim)
+        self.device = local.device
+        self.wire = wire
+        self.gen = 0
+
+    def ingest(self, q) -> torch.Tensor:
+        """Each kind's single-device ingest rule."""
+        sh = self._local
+        if sh.kind == "brute_force":
+            return _float_ingest(q, self.dim, "brute force")
+        if sh.kind == "ivf_pq":
+            return _pq_ingest(q, self.dim, sh.aux["dataset_dtype"])
+        return _flat_ingest(q, self.dim, sh.metric, self.device)
+
+    def batch_cap(self) -> Optional[int]:
+        return ann_mnmg.batch_cap(self._local, self.searcher)
+
+    def _run(self, lane: int, block: torch.Tensor):
+        wire = self.wire
+        with wire.locks[lane]:
+            posted = wire.post(lane, self.gen, block, self.k)
+            if lane != wire.lane:
+                return posted
+
+            def search():
+                # as the single-device path copies: a blocking copy from
+                # pageable memory would wait for the lane's earlier work
+                d, i = self.searcher.dispatch(
+                    block.to(self.device, non_blocking=True))
+                for w, _ in posted:
+                    w.wait()
+                return d, i
+
+            if not wire.async_local:
+                return search()
+            return wire.run_local(search, block.shape[0], self.k,
+                                  self.device)
+
+    @staticmethod
+    def _wait(out):
+        return out.result() if isinstance(out, spmd.Pending) else out
+
+    def warm(self, bucket: int, dtype=torch.float32) -> float:
+        """Run *bucket* zero rows of *dtype* on every lane and wait, so a
+        re-route to any lane runs a warmed signature.  Returns the
+        fastest lane's seconds (what the engine's router books a batch of
+        that signature at, at least)."""
+        block = torch.zeros((bucket, self.dim), dtype=dtype)
+        secs = []
+        for lane in range(self.wire.n_lanes):
+            t0 = telemetry.now()
+            self._wait(self._run(lane, block))
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            secs.append(telemetry.now() - t0)
+        return min(secs)
+
+    def run_follower(self, block: torch.Tensor):
+        """A follower's share of one dispatch: its shard's search."""
+        return self.searcher.dispatch(block.to(self.device,
+                                               non_blocking=True))
+
+    def solo(self, q, replica: int = 0):
+        """The request as ``ann_mnmg.search`` batches it — bucketed
+        batches of at most its batch size — each dispatched on lane
+        *replica*, so the result is ``search``'s."""
+        cap = self.batch_cap()
+        bs = ann_mnmg._QUERY_BATCH if cap is None else min(
+            ann_mnmg._QUERY_BATCH, cap)
+        d, i = ann_mnmg.bucketed(
+            self.ingest(q), bs,
+            lambda qb: self._wait(self._run(replica, qb)))
+        return d.cpu(), i.cpu()
+
+
+class _ShardedBackend(_DistributedBackend):
+    """Adapter: ``ann_mnmg.ShardedIndex`` → its ``ShardedSearcher``; each
+    super-batch runs on every rank of the index's communicator (one
+    lane)."""
+
+    def __init__(self, sharded, k: int, params, engine: Optional[str],
+                 wire: spmd.LaneWire):
+        self.sharded = sharded
+        self.name = f"sharded_{sharded.kind}"
+        self._setup(sharded, k, params, engine, wire)
+
+    def dispatch(self, block: torch.Tensor, replica: int = 0):
+        return self._run(0, block)
+
+
+class _ReplicaBackend(_DistributedBackend):
+    """Adapter: ``ann_mnmg.ReplicaSet`` → one lane per replica group;
+    ``dispatch(block, replica)`` runs a batch on that group only.  The
+    engine's :class:`ReplicaRouter` owns lane choice, draining and
+    re-routing."""
+
+    def __init__(self, rep, k: int, params, engine: Optional[str],
+                 wire: spmd.LaneWire):
+        self.rep = rep
+        self.name = f"replica_{rep.kind}"
+        self.n_replicas = rep.n_replicas
+        self._setup(rep.local, k, params, engine, wire)
+
+    def dispatch(self, block: torch.Tensor, replica: int = 0):
+        # the fault plane's comms site, per replica lane, checked on the
+        # leader before anything is sent: `comms:op=replica_dispatch:
+        # rank=1:raise` faults lane 1
+        _faults.check("comms", op="replica_dispatch", rank=int(replica))
+        return self._run(int(replica), block)
+
+
+def _lanes(index) -> Optional[List[List[int]]]:
+    """The lanes of a distributed index (None for a single-device one)."""
+    if isinstance(index, ann_mnmg.ReplicaSet):
+        return [list(index.ranks(r)) for r in range(index.n_replicas)]
+    if isinstance(index, ann_mnmg.ShardedIndex):
+        return [list(index.comms.ranks)]
+    return None
+
+
 def _make_backend(index, k, params, engine, metric, metric_arg,
-                  batch_size_index, device):
+                  batch_size_index, device, wire=None):
+    if isinstance(index, ann_mnmg.ReplicaSet):
+        return _ReplicaBackend(index, k, params, engine, wire)
+    if isinstance(index, ann_mnmg.ShardedIndex):
+        return _ShardedBackend(index, k, params, engine, wire)
     if isinstance(index, tiering.TieredIndex):
         return _TieredBackend(index, k, params, engine)
     if isinstance(index, ivf_flat.Index):
@@ -361,14 +579,19 @@ def _make_backend(index, k, params, engine, metric, metric_arg,
                               batch_size_index, device, engine)
 
 
-def _warm(backend, buckets) -> None:
-    """Run *backend* once at every bucket on the caller's current stream
-    and wait for that stream, so kernels are built and the allocator has
-    seen each shape before the backend serves."""
-    for b in sorted(buckets):
-        backend.warm(b)
+def _warm(backend, buckets, dtype=torch.float32) -> Dict[int, Any]:
+    """Run *backend* once at every bucket in *dtype* on the caller's
+    current stream and wait for that stream, so kernels are built and the
+    allocator has seen each shape before the backend serves.  Returns
+    what each warm run returned (a distributed backend: its seconds)."""
+    out = {b: backend.warm(b, dtype) for b in sorted(buckets)}
     if backend.device.type == "cuda":
         torch.cuda.current_stream(backend.device).synchronize()
+    return out
+
+
+def _rows(q) -> int:
+    return int(q.shape[0]) if hasattr(q, "shape") else len(q)
 
 
 class _KeepParams:
@@ -388,9 +611,9 @@ class ServeEngine:
     """Coalescing query server for one (index, k, params) serving key.
 
     ``index`` picks the backend by type: an ``ivf_flat.Index``, an
-    ``ivf_pq.Index``, a ``mutable.MutableIndex`` or a
-    ``tiering.TieredIndex`` of either (*params* its family's
-    ``SearchParams``), else a dense
+    ``ivf_pq.Index``, a ``mutable.MutableIndex``, a
+    ``tiering.TieredIndex`` of either, an ``ann_mnmg.ShardedIndex`` or
+    ``ReplicaSet`` (*params* its family's ``SearchParams``), else a dense
     (n, dim) array or tensor served by exact brute force under ``metric``
     / ``metric_arg`` in index tiles of ``batch_size_index`` rows, placed
     on ``device`` (default: the card).  ``max_batch`` bounds one
@@ -405,7 +628,11 @@ class ServeEngine:
     for the drain-all planner), and the supervisor's ``watchdog_s``,
     ``max_retries``, ``retry_backoff_s``, ``retry_backoff_cap_s`` and
     ``retry_seed``.  :meth:`search` and :meth:`submit` may be called from
-    several threads; dispatch is serialized under a lock."""
+    several threads; dispatch is serialized under a lock.
+
+    A distributed index is served by an engine made on every rank (see
+    the module doc); every wait of its control plane is bounded by the
+    index communicator's timeout (its session's)."""
 
     def __init__(self, index, k: int, params=None, *,
                  metric=DistanceType.L2SqrtExpanded, metric_arg: float = 2.0,
@@ -417,8 +644,23 @@ class ServeEngine:
                  retry_backoff_cap_s: float = 1.0, retry_seed: int = 0,
                  scheduler=None):
         expects(max_batch >= 8, "max_batch must be >= 8")
+        self._engine_id = str(next(_ENGINE_IDS))
+        #: the control plane of a distributed index (None otherwise)
+        self._wire = self._make_wire(index)
         self._backend = _make_backend(index, k, params, engine, metric,
-                                      metric_arg, batch_size_index, device)
+                                      metric_arg, batch_size_index, device,
+                                      self._wire)
+        #: generation of the serving backend (the control plane's key);
+        #: a follower keeps every generation the leader has not retired
+        self._gen = 0
+        self._gens: Dict[int, Any] = {0: self._backend}
+        self._follow_refresh: Optional[Tuple[int, Any]] = None
+        #: the replica-lane router (replica backends only), and the
+        #: warm-up's seconds per (type, bucket), the least a routed batch
+        #: books on its lane: the cost rows start from the host's
+        #: dispatch time, which says nothing of how long a lane is busy
+        self._router = self._make_router(self._backend)
+        self._warm_cost: Dict[Tuple[str, int], float] = {}
         self._index = index
         # refresh() rebuilds a backend with the same serving knobs, and
         # re-derives the batch cap from the new index
@@ -444,7 +686,6 @@ class ServeEngine:
         self._shadow_ring: List[Optional[np.ndarray]] = [None] * _SHADOW_RING
         self._shadow_pos = 0
         self._tuner = None         # attached AutoTuner (/healthz autotune)
-        self._engine_id = str(next(_ENGINE_IDS))
         #: Serving statistics: a counter view over the registry
         #: (``raft_tpu_serve_engine_stats{engine,key}``) — reads like a
         #: dict (``dict(stats)`` for a plain one), increments are atomic.
@@ -506,6 +747,27 @@ class ServeEngine:
         """The served index, as last constructed or refreshed."""
         return self._index
 
+    @property
+    def is_leader(self) -> bool:
+        """True unless this is a follower rank of a distributed index."""
+        return self._wire is None or self._wire.is_leader
+
+    def _make_wire(self, index) -> Optional[spmd.LaneWire]:
+        lanes = _lanes(index)
+        if lanes is None:
+            return None
+        comms = (index.layout.parent if isinstance(index, ann_mnmg.ReplicaSet)
+                 else index.comms)
+        return spmd.LaneWire(comms, lanes, self._engine_id)
+
+    def _make_router(self, backend) -> Optional[ReplicaRouter]:
+        n = getattr(backend, "n_replicas", 0)
+        return ReplicaRouter(n, self._engine_id) if n > 1 else None
+
+    def _leader_only(self, what: str) -> None:
+        expects(self.is_leader, f"{what}: rank 0 leads a distributed "
+                "engine; the other ranks call follow()")
+
     def _capped_max_batch(self, backend) -> int:
         cap = getattr(backend, "batch_cap", lambda: None)()
         if cap is None:
@@ -538,14 +800,18 @@ class ServeEngine:
                 for q in qs]
 
     # -- warmup -------------------------------------------------------------
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> int:
-        """Run one search at every bucket — every power of two from 8 up to
-        ``max_batch`` by default — so the kernels are built and the
-        allocator has seen each shape before traffic arrives.  Explicit
-        *buckets* narrow the range: requests too large for the largest
-        warmed bucket are served solo.  Returns the number of buckets
-        warmed."""
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               dtypes: Sequence[Any] = (torch.float32,)) -> int:
+        """Run one search at every (bucket, type) signature — every power
+        of two from 8 up to ``max_batch`` by default, in each of *dtypes*
+        (torch, numpy or JAX types, or their names) — so the kernels are
+        built and the allocator has seen each shape before traffic
+        arrives; a distributed engine warms every signature on every lane.
+        Explicit *buckets* narrow the range: requests too large for the
+        largest warmed bucket of their type are served solo.  Returns the
+        number of signatures warmed."""
         expects(not self._closed, "warmup() on a closed engine")
+        self._leader_only("warmup()")
         if buckets is None:
             buckets, b = [], 8
             while b < self.max_batch:
@@ -553,23 +819,29 @@ class ServeEngine:
                 b <<= 1
             buckets.append(self.max_batch)
         buckets = sorted(set(int(b) for b in buckets))
+        names = [dtype_name(dt) for dt in dtypes]
+        for name in names:
+            expects(name in DTYPES, f"warmup: unsupported type {name!r}")
         with self._lock:
             for b in buckets:
                 expects(8 <= b <= self.max_batch,
                         f"bucket {b} outside [8, max_batch={self.max_batch}]")
-            _warm(self._backend, buckets)
-            with self._warmed_mut:
-                self._warmed.setdefault(_DTYPE, set()).update(buckets)
-        return len(buckets)
+            for name in names:
+                secs = _warm(self._backend, buckets, DTYPES[name])
+                if self._backend.distributed:
+                    self._warm_cost.update({(name, b): s
+                                            for b, s in secs.items()})
+                with self._warmed_mut:
+                    self._warmed.setdefault(name, set()).update(buckets)
+        return len(buckets) * len(names)
 
-    def warmed_buckets(self, dtype=_DTYPE) -> List[int]:
-        name = (str(dtype).replace("torch.", "")
-                if isinstance(dtype, torch.dtype) else np.dtype(dtype).name)
+    def warmed_buckets(self, dtype="float32") -> List[int]:
+        name = dtype_name(dtype)
         with self._warmed_mut:
             return sorted(self._warmed.get(name, ()))
 
     def warmed_signatures(self) -> Dict[str, List[int]]:
-        """The warmed buckets as a plain mapping (dtype → sorted
+        """The warmed buckets as a plain mapping (type name → sorted
         buckets)."""
         with self._warmed_mut:
             return {dt: sorted(bs) for dt, bs in self._warmed.items()}
@@ -647,8 +919,16 @@ class ServeEngine:
         the swap itself is atomic under the lock.  ``max_batch`` re-derives
         from the requested bound and the new index's cap; warmed buckets
         above it are dropped.  Both indexes are on the device until the
-        old one's last reference goes."""
+        old one's last reference goes.
+
+        A distributed engine's leader tells every follower first; a new
+        index must span the same lanes, and a replica engine gets a fresh
+        router.  On a follower, ``refresh(index)`` is the answer to
+        ``follow()`` returning ``"refresh"``: *index* is this rank's part
+        of the leader's new index, and the params are the leader's."""
         expects(not self._closed, "refresh() on a closed engine")
+        if not self.is_leader:
+            return self._follower_refresh(index)
         self._refreshing = True   # /healthz reports the swap in flight
         try:
             with telemetry.span("serve.refresh"):
@@ -664,32 +944,109 @@ class ServeEngine:
             snapshot = {dt: set(bs) for dt, bs in self._warmed.items()}
         if params is KEEP_PARAMS:
             params = c["params"]
+        gen = self._gen + 1
+        if self._wire is not None:
+            expects(_lanes(index) == self._wire.lanes,
+                    "refresh: a distributed index must span the served "
+                    "index's lanes")
+            self._wire.refresh(gen, params, index is self._index)
         backend = _make_backend(index, c["k"], params, c["engine"],
                                 c["metric"], c["metric_arg"],
-                                c["batch_size_index"], c["device"])
+                                c["batch_size_index"], c["device"],
+                                self._wire)
+        backend.gen = gen
         max_batch = self._capped_max_batch(backend)
         warmed = {dt: {b for b in bs if b <= max_batch}
                   for dt, bs in snapshot.items()}
-        _warm(backend, warmed.get(_DTYPE, ()))
+        warm_cost = {}
+        for dt, bs in warmed.items():
+            secs = _warm(backend, bs, DTYPES[dt])
+            if backend.distributed:
+                warm_cost.update({(dt, b): v for b, v in secs.items()})
         # crash window 2: BETWEEN warm and swap — a crash here discards
         # the warmed replacement and the OLD backend keeps serving
         _faults.check("refresh", stage="pre_swap")
         with self._lock:
-            # buckets a concurrent warmup() added since the snapshot are
-            # warmed here, under the lock (rare; blocks briefly)
-            late = ({b for b in self._warmed.get(_DTYPE, ()) if b <= max_batch}
-                    - warmed.get(_DTYPE, set()))
-            if late:
-                _warm(backend, late)
-                warmed.setdefault(_DTYPE, set()).update(late)
+            # signatures a concurrent warmup() added since the snapshot
+            # are warmed here, under the lock (rare; blocks briefly)
+            for dt, bs in self._warmed.items():
+                late = {b for b in bs if b <= max_batch} - warmed.get(
+                    dt, set())
+                if late:
+                    _warm(backend, late, DTYPES[dt])
+                    warmed.setdefault(dt, set()).update(late)
             self._backend = backend
+            self._gen = gen
             self._index = index
             self._ctor = dict(c, params=params)
             self.max_batch = max_batch
             with self._warmed_mut:
                 self._warmed = warmed
             self._cost.bind_fn(self._backend_fn())
+            # a new replica set's lanes are new replicas: drained state
+            # does not carry over the swap
+            self._router = self._make_router(backend)
+            self._warm_cost = warm_cost
+            if self._wire is not None:
+                self._wire.retire(gen)
             self.stats.inc("refreshes")
+
+    # -- a follower rank ------------------------------------------------------
+    def follow(self) -> str:
+        """A follower rank's one call: run the leader's ops on this rank's
+        shard until the leader closes the engine (returns ``"close"``) or
+        refreshes it to a new index (returns ``"refresh"``; pass this
+        rank's part of that index to :meth:`refresh`, then call
+        ``follow()`` again).  A params-only refresh is handled inside."""
+        expects(self._wire is not None and not self._wire.is_leader,
+                "follow() is for the ranks other than the leader of a "
+                "distributed engine")
+        expects(not self._closed, "follow() on a closed engine")
+        why = self._wire.serve(self._on_dispatch, self._on_refresh,
+                               self._on_retire)
+        if why == "close":
+            self._closed = True
+        return why
+
+    def _on_dispatch(self, gen: int, block: torch.Tensor):
+        return self._gens[gen].run_follower(block)
+
+    def _follower_backend(self, index, params, gen: int):
+        c = self._ctor
+        backend = _make_backend(index, c["k"], params, c["engine"],
+                                c["metric"], c["metric_arg"],
+                                c["batch_size_index"], c["device"],
+                                self._wire)
+        backend.gen = gen
+        self._gens[gen] = backend
+        self._ctor = dict(c, params=params)
+        return backend
+
+    def _on_refresh(self, gen: int, params, same_index: bool) -> bool:
+        if same_index:
+            self._follower_backend(self._index, params, gen)
+            return True
+        self._follow_refresh = (gen, params)
+        return False
+
+    def _on_retire(self, gen: int) -> None:
+        for g in [g for g in self._gens if g < gen]:
+            del self._gens[g]
+        if gen in self._gens:
+            self._backend, self._gen = self._gens[gen], gen
+
+    def _follower_refresh(self, index) -> None:
+        expects(self._follow_refresh is not None,
+                "refresh() on a follower answers follow() returning "
+                "'refresh'")
+        gen, params = self._follow_refresh
+        self._follow_refresh = None
+        expects(_lanes(index) == self._wire.lanes,
+                "refresh: a distributed index must span the served "
+                "index's lanes")
+        self._follower_backend(index, params, gen)
+        self._index = index
+        self.stats.inc("refreshes")
 
     # -- live scrape surface ------------------------------------------------
     def _health(self) -> Dict[str, Any]:
@@ -712,6 +1069,14 @@ class ServeEngine:
                             if adm is not None else False)
         if adm is not None:
             body["admission"] = adm.health(telemetry.now())
+        # replica routing: a drained lane marks the body degraded — the
+        # engine still serves on the survivors
+        router = self._router
+        if router is not None:
+            rh = router.health()
+            body["replicas"] = rh
+            if rh["degraded"]:
+                body["degraded"] = True
         if self._sched_cfg is not None:
             body["scheduler"] = {"quantum_s": self._sched_cfg.quantum_s,
                                  "pending": len(self._pending)}
@@ -756,7 +1121,8 @@ class ServeEngine:
         ``RejectedError(reason="closed")``; requests queued by
         :meth:`submit` reject the same way; an in-flight ``search()``
         drains (close waits up to *timeout_s* for the engine lock); the
-        scrape server stops.  ``/healthz`` reports ``ready: false``."""
+        scrape server stops.  ``/healthz`` reports ``ready: false``.  A
+        distributed engine's leader then releases every follower."""
         if self._closed:
             return
         self._closed = True
@@ -777,6 +1143,8 @@ class ServeEngine:
         acquired = self._lock.acquire(timeout=timeout_s)   # drain in-flight
         try:
             http, self._http, self._recorder = self._http, None, None
+            if self._wire is not None and self._wire.is_leader:
+                self._wire.close()
         finally:
             if acquired:
                 self._lock.release()
@@ -833,6 +1201,7 @@ class ServeEngine:
         if self._closed:
             raise RejectedError("closed", "ServeEngine is closed — new "
                                 "requests reject; see close()")
+        self._leader_only("search()")
         rec = self._recorder
         if rec is None or not telemetry.enabled():
             with self._lock:
@@ -848,9 +1217,8 @@ class ServeEngine:
                 rec.record(col.events, dur_s=round(dur, 6),
                            requests=len(requests),
                            queries=sum(
-                               int(np.shape(q.q if isinstance(
-                                   q, ServeRequest) else q)[0])
-                               for q in requests))
+                               _rows(q.q if isinstance(q, ServeRequest)
+                                     else q) for q in requests))
             return out
 
     # -- streaming continuous batching (submit/flush) -----------------------
@@ -871,6 +1239,7 @@ class ServeEngine:
         expects(self._sched_cfg is not None,
                 "submit() requires the continuous-batching scheduler "
                 "(engine constructed with scheduler=False)")
+        self._leader_only("submit()")
         if self._closed:
             raise RejectedError("closed", "ServeEngine is closed — new "
                                 "requests reject; see close()")
@@ -939,8 +1308,8 @@ class ServeEngine:
                     rows = 0
                     dls: List[float] = []
                     for r, _f, _t in self._pending:
-                        q = r.q if isinstance(r, ServeRequest) else r
-                        rows += int(np.shape(q)[0])
+                        rows += _rows(r.q if isinstance(r, ServeRequest)
+                                      else r)
                         if isinstance(r, ServeRequest):
                             dl = r.resolve_deadline(now)
                             if dl is not None:
@@ -950,7 +1319,9 @@ class ServeEngine:
                         largest = max((max(bs) for bs in
                                        self._warmed.values() if bs),
                                       default=self.max_batch)
-                    est = self._cost.batch_cost_s(_DTYPE, largest)
+                        types = list(self._warmed) or ["float32"]
+                    est = max(self._cost.batch_cost_s(dt, largest)
+                              for dt in types)
                     if self._closed or should_dispatch(
                             rows, largest, oldest, cfg.quantum_s, dls, now,
                             est):
@@ -967,48 +1338,58 @@ class ServeEngine:
                 pending, self._pending = list(self._pending), []
             self._fail_futures(batch + pending, e)
 
-    def _dispatch(self, block: np.ndarray, lane: int, bucket: int,
-                  cold: bool):
-        """Dispatch one padded block on stream lane *lane*; never raises.
-        Returns ``(out, start)``: *out* is ``(distances, indices, done)``
-        — host tensors the lane copies into and its end-of-work event — or
-        the exception the dispatch raised (collection raises it, so it is
-        retried or isolated like a failure on the card); *start* is the
-        timing event of a device-time sample, else None."""
+    def _dispatch(self, block: torch.Tensor, lane: int, bucket: int,
+                  cold: bool, replica: Optional[int] = None):
+        """Dispatch one padded host block on stream lane *lane* (a replica
+        engine: on replica lane *replica*); never raises.  Returns ``(out,
+        start)``: *out* is ``(distances, indices, done)`` — host tensors
+        the lane copies into and its end-of-work mark — or the exception
+        the dispatch raised (collection raises it, so it is retried or
+        isolated like a failure on the card); *start* is the timing event
+        of a device-time sample, else None."""
         be = self._backend
         fn = self._backend_fn() or be.name
         timed = not cold and telemetry.device_sample_due(fn)
         stream = self._handle.get_next_usable_stream(lane)
         start = None
+        remote = False
         t0 = telemetry.now()
         try:
             with stream.context():
                 if timed and self._device.type == "cuda":
                     start = torch.cuda.Event(enable_timing=True)
                     start.record()
-                qb = torch.from_numpy(block).to(self._device,
-                                                non_blocking=True)
-                d, i = be.dispatch(qb)
-                out = (d.to("cpu", non_blocking=True),
-                       i.to("cpu", non_blocking=True),
-                       stream.record(timing=start is not None))
+                if be.distributed:
+                    r = be.dispatch(block, replica or 0)
+                else:
+                    r = be.dispatch(block.to(self._device, non_blocking=True))
+                if isinstance(r, spmd.Pending):
+                    out, start, remote = r.out(), None, True
+                else:
+                    d, i = r
+                    out = (d.to("cpu", non_blocking=True),
+                           i.to("cpu", non_blocking=True),
+                           stream.record(timing=start is not None))
         except Exception as e:
             return e, None
         host_s = telemetry.now() - t0
-        telemetry.record_dispatch(fn, f"{_DTYPE}[{bucket},{be.dim}]", cold,
-                                  host_s)
-        if timed and self._device.type != "cuda":
+        telemetry.record_dispatch(
+            fn, f"{dtype_name(block.dtype)}[{bucket},{be.dim}]", cold, host_s)
+        if timed and self._device.type != "cuda" and not remote:
             # the CPU runs the dispatch to its end before it returns
             telemetry.record_device_sample(fn, host_s)
         return out, start
 
-    def _dispatch_solo(self, q, lane: int):
+    def _dispatch_solo(self, q, lane: int, replica: Optional[int] = None):
         """The backend's solo entry on lane *lane* (same contract as
         :meth:`_dispatch`, never timed)."""
         stream = self._handle.get_next_usable_stream(lane)
         try:
             with stream.context():
-                d, i = self._backend.solo(q)
+                if replica is None:
+                    d, i = self._backend.solo(q)
+                else:
+                    d, i = self._backend.solo(q, replica)
                 return (d.to("cpu", non_blocking=True),
                         i.to("cpu", non_blocking=True), stream.record())
         except Exception as e:
@@ -1034,7 +1415,7 @@ class ServeEngine:
         raw = [r.q if isinstance(r, ServeRequest) else r for r in requests]
         results: List[Any] = [None] * len(raw)
         latencies = [0.0] * len(raw)
-        ingested: List[Optional[np.ndarray]] = [None] * len(raw)
+        ingested: List[Optional[torch.Tensor]] = [None] * len(raw)
         with telemetry.span("serve.ingest"):
             for j, q in enumerate(raw):
                 try:
@@ -1075,8 +1456,9 @@ class ServeEngine:
                         self.stats.inc("admitted")
                         queued += n
 
+        # group by type: a super-batch has ONE type, its ladder's
         with telemetry.span("serve.coalesce"):
-            idxs = []
+            by_dtype: Dict[str, List[int]] = {}
             for j, q in enumerate(ingested):
                 if results[j] is not None or q is None:
                     continue
@@ -1084,84 +1466,127 @@ class ServeEngine:
                     results[j] = (np.zeros((0, be.k), np.float32),
                                   np.full((0, be.k), -1, np.int32))
                     continue
-                idxs.append(j)
-            warmed = self._warmed.get(_DTYPE, set())
-            max_bucket = (min(max(warmed), self.max_batch) if warmed
-                          else self.max_batch)
-            sizes = [int(ingested[j].shape[0]) for j in idxs]
-            if self._sched_cfg is not None:
-                # the continuous-batching chooser: buckets come ONLY from
-                # the _bucket_for ladder, so it stays on warmed shapes
-                batches, solo = choose_batches(
-                    sizes, [deadlines[j] for j in idxs],
-                    lambda total: self._bucket_for(total, warmed),
-                    max_bucket, self._cost, _DTYPE, telemetry.now())
-            else:
-                batches, solo = self._plan(sizes, max_bucket)
+                by_dtype.setdefault(dtype_name(q.dtype), []).append(j)
+            plans = []
+            for dt, idxs in by_dtype.items():
+                warmed = self._warmed.get(dt, set())
+                max_bucket = (min(max(warmed), self.max_batch) if warmed
+                              else self.max_batch)
+                sizes = [int(ingested[j].shape[0]) for j in idxs]
+                if self._sched_cfg is not None:
+                    # the continuous-batching chooser: buckets come ONLY
+                    # from the _bucket_for ladder, so it stays on warmed
+                    # shapes
+                    batches, solo = choose_batches(
+                        sizes, [deadlines[j] for j in idxs],
+                        lambda total, w=warmed: self._bucket_for(total, w),
+                        max_bucket, self._cost, dt, telemetry.now())
+                else:
+                    batches, solo = self._plan(sizes, max_bucket)
+                plans.append((dt, idxs, warmed, batches, solo))
 
-        # (kind, members, out, start, redo, t0, bucket)
+        # (kind, members, out, start, redo, t0, bucket, dt, warmed, block,
+        #  replica)
         inflight = []
         lane = 0
-        for batch in batches:
-            members = [(idxs[jj], start, n) for jj, start, n in batch]
-            members = self._drop_expired(members, deadlines, results)
-            if not members:
-                continue
-            total = members[-1][1] + members[-1][2]
-            bucket = self._bucket_for(total, warmed)
-            with telemetry.span("serve.assemble"):
-                block = np.zeros((bucket, be.dim), np.float32)
-                for j, start, n in members:
-                    block[start:start + n] = ingested[j]
-            t0 = telemetry.now()
-            with telemetry.span("serve.dispatch"):
-                out, start = self._dispatch(block, lane, bucket,
-                                            bucket not in warmed)
-            # a retry goes to the OTHER lane: a stalled kernel cannot be
-            # cancelled, and the same lane would queue behind it
-            redo = (lambda blk=block, ln=lane + 1, b=bucket:
-                    self._dispatch(blk, ln, b, False)[0])
-            lane += 1
-            inflight.append(("coalesced", members, out, start, redo, t0,
-                             bucket))
-            self.stats.inc("super_batches")
-            self.stats.inc("coalesced_requests", len(members))
-        for jj in solo:
-            j = idxs[jj]
-            if not self._drop_expired([(j, 0, 0)], deadlines, results):
-                continue
-            # the RAW request: the solo entry applies its own ingest
-            with telemetry.span("serve.dispatch"):
-                out = self._dispatch_solo(raw[j], lane)
-            redo = (lambda q=raw[j], ln=lane + 1: self._dispatch_solo(q, ln))
-            lane += 1
-            inflight.append(("solo", [(j, 0, int(ingested[j].shape[0]))],
-                             out, None, redo, telemetry.now(), None))
-            self.stats.inc("solo_fallbacks")
+        for dt, idxs, warmed, batches, solo in plans:
+            for batch in batches:
+                members = [(idxs[jj], start, n) for jj, start, n in batch]
+                members = self._drop_expired(members, deadlines, results)
+                if not members:
+                    continue
+                total = members[-1][1] + members[-1][2]
+                bucket = self._bucket_for(total, warmed)
+                with telemetry.span("serve.assemble"):
+                    block = torch.zeros((bucket, be.dim),
+                                        dtype=ingested[members[0][0]].dtype)
+                    for j, start, n in members:
+                        block[start:start + n] = ingested[j]
+                t0 = telemetry.now()
+                cold = bucket not in warmed
+                with telemetry.span("serve.dispatch"):
+                    if self._router is None:
+                        out, start = self._dispatch(block, lane, bucket, cold)
+                        replica = None
+                        # a retry goes to the OTHER stream lane: a stalled
+                        # kernel cannot be cancelled
+                        redo = (lambda blk=block, ln=lane + 1, b=bucket:
+                                self._dispatch(blk, ln, b, False)[0])
+                    else:
+                        # replica routing: the least-loaded live lane; a
+                        # dispatch-time lane fault drains the lane and
+                        # re-routes the block
+                        out, start, replica = self._dispatch_routed(
+                            block, lane, bucket, cold,
+                            max(self._cost.batch_cost_s(dt, bucket),
+                                self._warm_cost.get((dt, bucket), 0.0)))
+                        if replica is None:
+                            done = telemetry.now() - t_entry
+                            self.stats.inc("dispatch_errors")
+                            for j, _s, _n in members:
+                                results[j] = out
+                                latencies[j] = done
+                            continue
+                        redo = (lambda blk=block, ln=lane + 1, b=bucket,
+                                r=replica:
+                                self._dispatch(blk, ln, b, False, r)[0])
+                lane += 1
+                inflight.append(("coalesced", members, out, start, redo, t0,
+                                 bucket, dt, warmed, block, replica))
+                self.stats.inc("super_batches")
+                self.stats.inc("coalesced_requests", len(members))
+            for jj in solo:
+                j = idxs[jj]
+                if not self._drop_expired([(j, 0, 0)], deadlines, results):
+                    continue
+                # the request as it came, on the host: the solo entry
+                # applies its own ingest
+                q = _request_tensor(raw[j])
+                replica = (None if self._router is None
+                           else (self._router.alive_lanes() or [0])[0])
+                with telemetry.span("serve.dispatch"):
+                    out = self._dispatch_solo(q, lane, replica)
+                redo = (lambda q=q, ln=lane + 1, r=replica:
+                        self._dispatch_solo(q, ln, r))
+                lane += 1
+                inflight.append(("solo", [(j, 0, int(ingested[j].shape[0]))],
+                                 out, None, redo, telemetry.now(), None, dt,
+                                 warmed, None, None))
+                self.stats.inc("solo_fallbacks")
 
         # collect in dispatch order; later batches keep running meanwhile
         with telemetry.span("serve.deliver"):
-            for kind, members, out, start, redo, t0, bucket in inflight:
+            for (kind, members, out, start, redo, t0, bucket, dt, warmed,
+                 block, replica) in inflight:
                 try:
                     d, i = sup.collect(out, redo=redo, label=kind)
                 except Exception as e:
-                    self.stats.inc("dispatch_errors")
-                    if kind == "coalesced" and len(members) > 1:
-                        self.stats.inc("isolation_splits")
-                        self._isolate(members, ingested, warmed, results,
-                                      latencies, t_entry)
-                    else:
-                        done = telemetry.now() - t_entry
-                        for j, _start, _n in members:
-                            results[j] = e
-                            latencies[j] = done
-                    continue
+                    collected = None
+                    if replica is not None:
+                        # a replica lane's failure drains the lane and
+                        # re-routes the SAME block to a live lane
+                        collected = self._reroute(block, bucket, replica, e)
+                    if collected is None:
+                        self.stats.inc("dispatch_errors")
+                        if kind == "coalesced" and len(members) > 1:
+                            self.stats.inc("isolation_splits")
+                            self._isolate(members, ingested, warmed,
+                                          results, latencies, t_entry)
+                        else:
+                            done = telemetry.now() - t_entry
+                            for j, _start, _n in members:
+                                results[j] = e
+                                latencies[j] = done
+                        continue
+                    d, i = collected
                 self._record_device_time(out, start)
                 now = telemetry.now()
                 if kind == "coalesced":
-                    # per-(dtype, bucket) service time → the chooser's
-                    # cost model
-                    self._cost.observe(_DTYPE, bucket, now - t0)
+                    # per-(type, bucket) service time → the chooser's cost
+                    # model; per-lane → the router's
+                    self._cost.observe(dt, bucket, now - t0)
+                    if replica is not None:
+                        self._router.note_done(replica, now, now - t0)
                 for j, start_row, n in members:
                     results[j] = (d[start_row:start_row + n],
                                   i[start_row:start_row + n])
@@ -1198,19 +1623,80 @@ class ServeEngine:
             start += n
         return live
 
+    def _dispatch_routed(self, block, lane: int, bucket: int, cold: bool,
+                         est_s: float):
+        """Replica-lane dispatch with dispatch-time fault draining: pick
+        the least-loaded live replica lane and dispatch; a retryable
+        failure (the comms fault site, a transient error) DRAINS that
+        lane and the same block goes to the next live lane — no failed
+        request while a lane lives.  Returns ``(out, start, replica)``;
+        ``replica`` is None when no lane took the block (``out`` is then
+        the error)."""
+        tried: List[int] = []
+        last: Optional[BaseException] = None
+        while True:
+            r = self._router.pick(telemetry.now(), est_s, exclude=tried)
+            if r is None:
+                return (last if last is not None else RejectedError(
+                    "overload", "no live replica lane to dispatch to"),
+                    None, None)
+            out, start = self._dispatch(block, lane, bucket, cold, r)
+            if isinstance(out, BaseException):
+                if not retryable(out):
+                    return out, None, None
+                self._router.fault(r)
+                self.stats.inc("replica_faults")
+                tried.append(r)
+                last = out
+                continue
+            if tried:   # a drained lane's traffic landed elsewhere
+                self.stats.inc("replica_reroutes")
+            return out, start, r
+
+    def _reroute(self, block, bucket: int, replica: int, exc):
+        """Collect-time replica failure: drain *replica* and re-dispatch
+        the SAME block on a surviving lane (every lane warmed every
+        signature).  Returns the collected (d, i), or None when no lane
+        can serve it (the caller isolates or fails the members)."""
+        if not retryable(exc):
+            return None
+        self._router.fault(replica)
+        self.stats.inc("replica_faults")
+        tried = [replica]
+        while True:
+            alt = self._router.pick(telemetry.now(), 0.0, exclude=tried)
+            if alt is None:
+                return None
+            try:
+                out, _ = self._dispatch(block, 0, bucket, False, alt)
+                d, i = self._supervisor.collect(
+                    out, redo=lambda a=alt: self._dispatch(
+                        block, 1, bucket, False, a)[0],
+                    label="rerouted")
+                self.stats.inc("replica_reroutes")
+                return d, i
+            except Exception:
+                self._router.fault(alt)
+                self.stats.inc("replica_faults")
+                tried.append(alt)
+
     def _isolate(self, members, ingested, warmed, results, latencies,
                  t_entry):
         """Per-request isolation: re-dispatch each member of a failed
-        super-batch ALONE through the warmed bucket ladder.  Members that
-        fail alone get their error; the rest are served."""
+        super-batch ALONE through the warmed bucket ladder (a replica
+        engine: on its first live lane).  Members that fail alone get
+        their error; the rest are served."""
         sup = self._supervisor
         for lane, (j, _start, n) in enumerate(members):
             bucket = self._bucket_for(n, warmed)
-            block = np.zeros((bucket, self._backend.dim), np.float32)
+            block = torch.zeros((bucket, self._backend.dim),
+                                dtype=ingested[j].dtype)
             block[:n] = ingested[j]
-            out, _ = self._dispatch(block, lane, bucket, False)
+            extra = (() if self._router is None
+                     else ((self._router.alive_lanes() or [0])[0],))
+            out, _ = self._dispatch(block, lane, bucket, False, *extra)
             redo = (lambda blk=block, ln=lane + 1, b=bucket:
-                    self._dispatch(blk, ln, b, False)[0])
+                    self._dispatch(blk, ln, b, False, *extra)[0])
             try:
                 d, i = sup.collect(out, redo=redo, label="isolated")
                 results[j] = (d[:n], i[:n])

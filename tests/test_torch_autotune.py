@@ -284,9 +284,11 @@ class TestCandidateSpace:
             eng.close()
 
     def test_shadow_lane_not_ported_yet(self, corpus):
+        """Ported since (the test keeps its name): the shadow lane is a
+        replica engine's lane, so a brute-force engine refuses one."""
         eng = _bf_engine(corpus)
         try:
-            with pytest.raises(LogicError, match="not ported yet"):
+            with pytest.raises(LogicError, match="replica engine"):
                 AutoTuner(eng, shadow_lane=1)
         finally:
             eng.close()

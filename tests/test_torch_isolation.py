@@ -32,7 +32,8 @@ DISTRIBUTED = ("comms/__init__.py", "comms/comms.py", "comms/comms_types.py",
                "comms/hostcomm.py", "comms/self_tests.py",
                "comms/session.py", "cluster/kmeans_mnmg.py",
                "neighbors/knn_mnmg.py", "neighbors/ann_mnmg.py",
-               "telemetry/aggregate.py", "testing/world.py")
+               "serve/spmd.py", "telemetry/aggregate.py",
+               "testing/world.py")
 
 
 def test_import_leaves_jax_and_raft_tpu_out():
@@ -106,18 +107,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CommsSession().init()
     assert not torch.distributed.is_initialized()
-    # kmeans_mnmg.fit and knn_mnmg over a gloo world of one (a process of
-    # its own: the process group is process-global)
+    # kmeans_mnmg.fit, knn_mnmg and the sharded ANN entry points over a
+    # gloo world of one (a process of its own: the process group is
+    # process-global)
     out = subprocess.run([sys.executable, "-c", _MNMG_PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.split()[-1] == "RAISED:fit,knn_mnmg,predict", out.stdout
+    assert out.stdout.split()[-1] == ("RAISED:fit,knn_mnmg,predict,"
+                                      "shard_brute_force,build_sharded"), \
+        out.stdout
 
 
 _MNMG_PROBE = """
 import numpy as np, torch
 from raft_tpu_torch.cluster import KMeansParams, kmeans_mnmg
 from raft_tpu_torch.comms import CommsSession
+from raft_tpu_torch.neighbors import ann_mnmg, ivf_flat
 from raft_tpu_torch.neighbors.knn_mnmg import knn_mnmg
 
 session = CommsSession(device="cpu").init()
@@ -129,7 +134,12 @@ for name, call in (
                                         session.comms, x, centroids=x[:2])),
         ("knn_mnmg", lambda: knn_mnmg(session.comms, x, x, 3)),
         ("predict", lambda: kmeans_mnmg.predict(KMeansParams(n_clusters=2),
-                                                session.comms, x, x[:2]))):
+                                                session.comms, x, x[:2])),
+        ("shard_brute_force",
+         lambda: ann_mnmg.shard_brute_force(x, session.comms)),
+        ("build_sharded",
+         lambda: ivf_flat.build_sharded(ivf_flat.IndexParams(n_lists=2), x,
+                                        session.comms))):
     try:
         call()
     except RuntimeError as e:

@@ -285,7 +285,9 @@ def test_empty_batch_and_not_ported_errors(jax_index):
     # extend into a non-empty index is ported: it refuses live ids
     with pytest.raises(ValueError, match="already live"):
         tpq.extend(tidx, x[:10], np.arange(10, dtype=np.int32))
-    with pytest.raises(Exception, match="not ported"):
+    # build_sharded is ported (tests/test_torch_ann_mnmg.py); it needs a
+    # communicator
+    with pytest.raises(Exception, match="needs a Comms"):
         tpq.build_sharded(tpq.IndexParams(n_lists=4), x[:200], None)
     # PER_CLUSTER, the float16 sum and the legacy search are ported
     # (tests/test_torch_ivf_pq_variants.py); what stays refused is an

@@ -519,11 +519,15 @@ def test_autotuning_hooks_not_ported_yet(call):
 
 
 def test_autotuner_shadow_lane_not_ported_yet():
+    """The shadow lane, which raised "not ported yet" until the replica
+    backend was ported (the test keeps its name), is a lane of a replica
+    engine: a single-device engine has none, and the tuner refuses it
+    (tests/test_torch_serve_sharded.py drives a real one)."""
     from raft_tpu_torch.serve import AutoTuner
 
     eng = _engine(max_batch=16)
     try:
-        with pytest.raises(LogicError, match="not ported yet"):
+        with pytest.raises(LogicError, match="replica engine"):
             AutoTuner(eng, shadow_lane=0)
     finally:
         eng.close()

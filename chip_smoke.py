@@ -3,8 +3,9 @@
 PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
 paths (each request type on its own ladder), the serving autotuner,
 random ball cover, the ε-neighbourhood, the distributed layer (MNMG
-k-means and kNN at world 1 over NCCL and world 2 over gloo) and sharded
-and replicated serving on one NVIDIA card.
+k-means and kNN at world 1 over NCCL and world 2 over gloo), sharded and
+replicated serving and the mutable index over a sharded main on one
+NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -170,7 +171,17 @@ Phases, one JSON line each:
    engine, in turns with lane 1 drained; ``AutoTuner(shadow_lane=1)``
    under Poisson live traffic with no live request failed; the fault
    plan ``comms:op=replica_dispatch:rank=1:raise`` draining lane 1 with
-   no failed request.  Each prints its kernels' launches and fails if a
+   no failed request.  ``sharded_mutable`` (world 1 over NCCL, IVF-Flat
+   and IVF-PQ): ``build_sharded`` wrapped in a ``MutableIndex`` and
+   ``mutable_path``'s churn at full width through it and a single-device
+   ``MutableIndex`` in turns, every search and both engines bit for bit,
+   an archive round trip, a ``Compactor`` under closed-loop traffic with
+   no failed request; write rows/s, qps, compaction seconds.
+   ``sharded_mutable_w2`` (IVF-PQ, two gloo workers, a native
+   ``MailboxServer`` as coordinator): the churn through the leader
+   (WRITE), equal books on both ranks, distances bit for bit world 1's, a
+   compaction under traffic, each compacted shard a fresh
+   ``build_sharded``'s.  Each prints its kernels' launches and fails if a
    kernel of its path (``PATH_KERNELS``) never launched.
 8. ``pairwise_distance`` — every name of ``SUPPORTED_DISTANCES`` at
    1,024 × 16,384 × 128 against ``engine="torch"`` (rtol 1e-5, atol
@@ -336,6 +347,13 @@ PATH_KERNELS = {
     "sharded_w2": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
                    "lut_scan", "pairwise_accumulate"),
     "replica_w2": ("select_k", "lut_scan"),
+    # the sharded mutable paths: build_sharded's training and the delta's
+    # list assignment (B1, B3), every select (B2) and, for IVF-PQ, the
+    # masked shard scans (B4 with the bitmap)
+    "sharded_mutable": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
+                        "lut_scan_tombstones"),
+    "sharded_mutable_w2": ("fused_l2_nn", "fused_l2_nn_partials",
+                           "select_k", "lut_scan_tombstones"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -4321,7 +4339,7 @@ def _payload(seed, x, queries, n_lists, n_probes, k, archives):
             "archives": archives}
 
 
-def _world(target, payload, device):
+def _world(target, payload, device, coordinator=None):
     import tempfile
 
     from raft_tpu_torch.testing.world import run_world
@@ -4337,7 +4355,8 @@ def _world(target, payload, device):
         t0 = time.perf_counter()
         outs = run_world(target, 2, payload, workdir=tmp, backend="gloo",
                          device=device.type, threads=4,
-                         timeout=SERVE_W2_TIMEOUT_S)
+                         timeout=SERVE_W2_TIMEOUT_S,
+                         coordinator=coordinator)
         return outs, time.perf_counter() - t0
 
 
@@ -4580,6 +4599,403 @@ def replica_w2_phase(device, seed, x, queries, n_lists, n_probes, k,
     return launches
 
 
+#: the sharded mutable phases: the IVF kinds of the world-1 phase (the
+#: world-2 phase runs IVF-PQ, whose shards scan with B4's bitmap mode)
+SH_MUT_KINDS = ("ivf_flat", "ivf_pq")
+
+
+def _churn_plan(n: int, seed: int):
+    """``mutable_path``'s churn at full width as a list of write batches
+    (``("upsert" | "delete", ids)``, MUT_BATCH rows each): upserts of
+    live ids with fresh vectors, upserts of new ids, deletes of live ids,
+    re-upserts of deleted ids.  Returns (ops, the live mask after)."""
+    rng = np.random.default_rng(seed)
+    alive = np.zeros(n + MUT_UPSERT_NEW, bool)
+    alive[:n] = True
+
+    def batches(kind, ids):
+        return [(kind, ids[b:b + MUT_BATCH])
+                for b in range(0, ids.size, MUT_BATCH)]
+
+    ops = batches("upsert", rng.choice(n, MUT_UPSERT_LIVE, replace=False))
+    ops += batches("upsert", np.arange(n, n + MUT_UPSERT_NEW))
+    alive[n:] = True
+    gone = rng.choice(np.nonzero(alive)[0], MUT_DELETE, replace=False)
+    ops += batches("delete", gone)
+    alive[gone] = False
+    back = rng.choice(gone, MUT_REUPSERT, replace=False)
+    ops += batches("upsert", back)
+    alive[back] = True
+    return ops, alive
+
+
+def _churn_rows(x, seed: int, ops):
+    """The upserts' fresh vectors, made from *seed* on *x*'s device: a
+    mixture around rows of *x* (so every process that holds the smoke's
+    data makes the same ones)."""
+    import torch
+
+    n, dim = x.shape
+    comps = x[torch.arange(0, 4096, device=x.device) * 241 % n]
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return [mixture(gen, ids.size, dim, comps, 0.7, x.device)
+            if kind == "upsert" else None for kind, ids in ops]
+
+
+def _apply_churn(muts, ops, rows, device, spans=None):
+    """Apply the churn to each index of *muts*, batch by batch, the order
+    of the indexes reversed every other batch (so each is measured in
+    turns with the others), each write inside its index's entry of
+    *spans* (context-manager factories; default none); returns each
+    one's {upsert, delete} rows/s."""
+    t = [{"upsert": [0.0, 0], "delete": [0.0, 0]} for _ in muts]
+    spans = spans or [contextlib.nullcontext] * len(muts)
+    for j, ((kind, ids), v) in enumerate(zip(ops, rows)):
+        order = range(len(muts)) if j % 2 == 0 else reversed(
+            range(len(muts)))
+        for m in order:
+            t0 = time.perf_counter()
+            with spans[m]():
+                if kind == "upsert":
+                    muts[m].upsert(v, ids)
+                else:
+                    check(muts[m].delete(ids) == ids.size,
+                          "a churn delete missed ids")
+                t[m][kind][0] += _synced_seconds(device, t0)
+            t[m][kind][1] += ids.size
+    return [{f"{kind}_rows_per_s": n / s for kind, (s, n) in tm.items()}
+            for tm in t]
+
+
+def _compact_under_traffic(mut, eng, calls):
+    """A ``Compactor`` tick while a reader thread serves *calls* closed
+    loop through *eng*: (promoted, seconds, reader passes, failures)."""
+    from raft_tpu_torch.neighbors import mutable
+
+    stop = threading.Event()
+    failed, passes = [], [0]
+
+    def reader():
+        try:
+            while not stop.is_set():
+                for call in calls[:2]:
+                    failed.extend(repr(o) for o in eng.search(call)
+                                  if not isinstance(o, tuple))
+                passes[0] += 1
+        except Exception as e:   # noqa: BLE001 — checked by the caller
+            failed.append(repr(e))
+
+    rt = threading.Thread(target=reader)
+    rt.start()
+    comp = mutable.Compactor(mut, eng, delta_fraction=1e-4,
+                             tomb_fraction=1e-4)
+    t0 = time.perf_counter()
+    try:
+        promoted = comp.tick()
+    finally:
+        stop.set()
+        rt.join(STREAM_WAIT_S)
+    check(not rt.is_alive(), "the reader under compaction hung")
+    return (promoted and comp.errors == 0, time.perf_counter() - t0,
+            passes[0], failed)
+
+
+def sharded_mutable_phase(device, seed, x, queries, calls, n_queries,
+                          n_lists, n_probes, k, resident, smi):
+    """The ``sharded_mutable`` line: a world of one over NCCL in this
+    process, for IVF-Flat and IVF-PQ.  The main is built with
+    ``build_sharded`` and wrapped in a ``MutableIndex``; a single-device
+    ``MutableIndex`` over the single-device index (*resident*) takes the
+    same churn (``_churn_plan``, ``mutable_path``'s at full width).  Every
+    search through the direct API and the engine is bit for bit the
+    single-device index's, and no deleted id comes back; the two engines
+    run closed loop over every query in turns (single, sharded, sharded,
+    single); a ``save_mutable`` / ``load_mutable`` round trip returns the
+    same bits; a ``Compactor`` compacts the sharded index under
+    closed-loop traffic through its engine with no failed request, and
+    after it (and the single-device index's own compaction) the two
+    still answer with the same bits.  Launch counts are the sharded
+    index's work only (its build, writes, searches, engine and
+    compaction).  Returns (launches, {kind: engine results}, {kind:
+    closed-loop qps})."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.comms import CommsSession
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, mutable, serialize
+    from raft_tpu_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    row = {"phase": "sharded_mutable", "world": 1, "card": smi,
+           "churn": {"upsert_live": MUT_UPSERT_LIVE,
+                     "upsert_new": MUT_UPSERT_NEW, "delete": MUT_DELETE,
+                     "reupsert": MUT_REUPSERT, "batch": MUT_BATCH}}
+    store = tempfile.mkdtemp(prefix="raft_smoke_store_")
+    session = CommsSession(multihost=dict(
+        init_method=f"file://{store}/store", world_size=1, rank=0),
+        device=device).init()
+    n = x.shape[0]
+    ops, alive = _churn_plan(n, seed)
+    rows = _churn_rows(x, seed, ops)
+    live_t = torch.as_tensor(alive, device=device)
+    qr = queries[:1024]
+    got, qps = {}, {}
+    try:
+        comms = session.comms
+        row["backend"] = comms.backend
+        _reset(device)
+        counted = _PathLaunches()
+        mods = {"ivf_flat": ivf_flat, "ivf_pq": ivf_pq}
+        for kind in SH_MUT_KINDS:
+            mod = mods[kind]
+            bp = mod.IndexParams(n_lists=n_lists)
+            sp = mod.SearchParams(n_probes=n_probes)
+            res = {}
+            t0 = time.perf_counter()
+            with counted.span():
+                sh = mod.build_sharded(bp, x, comms, device=device)
+                res["build_s"] = _synced_seconds(device, t0)
+                mut = mutable.MutableIndex(sh, x, build_params=bp)
+            one = mutable.MutableIndex(resident[kind][1], x,
+                                       build_params=bp)
+            # the churn through both, in turns (the sharded index's
+            # writes counted)
+            res["writes"], res["single_device_writes"] = _apply_churn(
+                (mut, one), ops, rows, device,
+                spans=(counted.span, contextlib.nullcontext))
+            check(mut.size == one.size == int(alive.sum())
+                  and mut.delta_rows == one.delta_rows
+                  and mut.tombstone_count == one.tombstone_count,
+                  f"sharded_mutable {kind}: books differ after the churn")
+            with counted.span():
+                d0, i0 = mutable.search(mut, qr, k, sp)
+            d1, i1 = mutable.search(one, qr, k, sp)
+            check(torch.equal(d0, d1) and torch.equal(i0, i1),
+                  f"sharded_mutable {kind}: the direct search differs "
+                  "from the single-device index's")
+            it = i0.long()
+            check(bool((it >= 0).all()) and bool(live_t[it].all()),
+                  f"sharded_mutable {kind}: a deleted id came back")
+            # the archive of the churned index: the same bits
+            path = ARCHIVE_DIR / f"sharded_mutable_{kind}"
+            ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            serialize.save_mutable(path, mut)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = serialize.load_mutable(path, device=device, comms=comms)
+            load_s = _synced_seconds(device, t0)
+            d2, i2 = mutable.search(back, qr, k, sp)
+            check(back.sharded and torch.equal(d0, d2)
+                  and torch.equal(i0, i2),
+                  f"sharded_mutable {kind}: the loaded archive differs")
+            res["archive"] = {
+                "save_s": save_s, "load_s": load_s,
+                "bytes": path.with_suffix(".npz").stat().st_size,
+                "round_trip_equal": True}
+            path.with_suffix(".npz").unlink()
+            del back
+            # the two engines over every query, in turns
+            eng = ServeEngine(mut, k, sp, max_batch=1024)
+            eng_one = ServeEngine(one, k, sp, max_batch=1024)
+            with counted.span():
+                eng.warmup()
+            eng_one.warmup()
+            passes = {"single": [], "sharded": []}
+            first = None
+            for who in ("single", "sharded", "sharded", "single"):
+                with (counted.span() if who == "sharded"
+                      else contextlib.nullcontext()):
+                    results, _, serve_s = _closed_loop(
+                        eng_one if who == "single" else eng, calls,
+                        warm=False)
+                passes[who].append(n_queries / serve_s)
+                arr = _results_arrays(results)
+                first = arr if first is None else first
+                check(np.array_equal(arr[0], first[0])
+                      and np.array_equal(arr[1], first[1]),
+                      f"sharded_mutable {kind}: the {who} engine's results "
+                      "differ")
+                if who == "sharded":
+                    got[kind] = results
+            qps[kind] = float(np.mean(passes["sharded"]))
+            res.update(qps=qps[kind],
+                       single_device_qps=float(np.mean(passes["single"])),
+                       qps_passes=passes, equals_single_device=True)
+            eng_one.close()
+            # compaction under closed-loop traffic through the engine
+            with counted.span():
+                ok, compact_s, reader_passes, failed = \
+                    _compact_under_traffic(mut, eng, calls)
+            check(ok and not failed and eng.stats["dispatch_errors"] == 0,
+                  f"sharded_mutable {kind}: the compaction failed or failed "
+                  f"requests ({failed[:3]})")
+            res.update(compact_s=compact_s, reader_passes=reader_passes,
+                       failed_requests=0, stats=dict(eng.stats),
+                       wire=dict(eng._wire.calls))
+            eng.close()
+            t0 = time.perf_counter()
+            one.compact()
+            res["single_device_compact_s"] = time.perf_counter() - t0
+            check(mut.delta_rows == 0 and mut.tombstone_count == 0
+                  and mut.size == one.size,
+                  f"sharded_mutable {kind}: books after the compaction")
+            with counted.span():
+                d0, i0 = mutable.search(mut, qr, k, sp)
+            d1, i1 = mutable.search(one, qr, k, sp)
+            check(torch.equal(d0, d1) and torch.equal(i0, i1),
+                  f"sharded_mutable {kind}: after compaction the results "
+                  "differ from the single-device compaction's")
+            res["compacted_equals_single_device"] = True
+            row[kind] = res
+            del eng, mut, one, sh
+        launches = counted.total
+        row["collective_calls"] = dict(comms.collective_calls)
+    finally:
+        session.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    for name in PATH_KERNELS["sharded_mutable"]:
+        check(launches[name] > 0, f"sharded_mutable never launched {name}")
+    return launches, got, qps
+
+
+def _sharded_mutable_w2_worker(comms, p):
+    """One rank of ``sharded_mutable_w2``: the smoke's data from the seed,
+    the world-1 IVF-PQ index from its archive sharded over the world and
+    wrapped in a ``MutableIndex``; rank 0 leads a ``ServeEngine`` over
+    it: the churn through the leader (WRITE to rank 1), every call closed
+    loop, a compaction under closed-loop traffic; rank 1 follows.  After
+    the engine closes, each rank's compacted shard against a fresh
+    ``build_sharded`` of the rows it compacted, and the host plane
+    (``host_barrier`` over the session's mailbox)."""
+    import torch
+
+    from raft_tpu_torch.comms import hostcomm
+    from raft_tpu_torch.neighbors import ivf_pq, mutable, serialize
+    from raft_tpu_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = comms.device
+    x, queries = _serve_data(p, device)
+    q_host = queries.cpu().numpy()
+    _, calls = ragged_calls(q_host, q_host.shape[0])
+    ops, _ = _churn_plan(x.shape[0], p["seed"])
+    rows = _churn_rows(x, p["seed"], ops)
+    bp = ivf_pq.IndexParams(n_lists=p["n_lists"])
+    sp = ivf_pq.SearchParams(n_probes=p["n_probes"])
+    index = serialize.load_ivf_pq(p["archives"]["ivf_pq"], device=device)
+    sh = index.shard(comms)
+    del index
+    mut = mutable.MutableIndex(sh, x, build_params=bp)
+    t0 = time.perf_counter()
+    hostcomm.host_barrier(comms._mailbox, comms.get_rank(),
+                          comms.get_size(), timeout=60)
+    out = {"rank": comms.get_rank(),
+           "barrier_s": time.perf_counter() - t0}
+    _reset(device)
+    counted = _PathLaunches()
+    comms.barrier()
+    eng = ServeEngine(mut, p["k"], sp, max_batch=1024)
+    if eng.is_leader:
+        with counted.span():
+            eng.warmup()
+            (out["writes"],) = _apply_churn((mut,), ops, rows, device)
+            results, _, serve_s = _closed_loop(eng, calls, warm=False)
+            out["results"] = _results_arrays(results)
+            out["qps"] = q_host.shape[0] / serve_s
+            out["compaction"] = _compact_under_traffic(mut, eng, calls)
+            out["stats"] = dict(eng.stats)
+            eng.close()
+    else:
+        with counted.span():
+            out["follow"] = eng.follow()
+    out["wire"] = dict(eng._wire.calls)
+    out["books"] = (mut.size, mut.delta_rows, mut.tombstone_count)
+    # the rows the compaction built from, in its order (the new core's
+    # rows, ids by row)
+    core = mut._mut_core
+    ids = core.main_ids[np.argsort(core.main_row)]
+    ref = ivf_pq.build_sharded(bp, core.main_x, comms,
+                               ids=torch.as_tensor(ids), device=device)
+    out["compacted_equals_build"] = all(
+        torch.equal(a, b) for a, b in zip(core.main.stacked, ref.stacked))
+    out["launches"] = counted.total
+    return out
+
+
+def sharded_mutable_w2_phase(device, seed, x, queries, n_lists, n_probes,
+                             k, resident, world1, qps1, smi):
+    """The ``sharded_mutable_w2`` line: two gloo worker processes on the
+    one card, rank 0 leading a ``ServeEngine`` over a ``MutableIndex``
+    whose main is the world-1 IVF-PQ index sharded over both ranks, rank
+    1 following; the session's coordinator is a native
+    ``MailboxServer``.  The leader's writes reach the follower (equal
+    size, tombstones and delta rows on both ranks); distances bit for bit
+    the world-1 sharded mutable engine's, ids equal except at exact
+    ties; a compaction under traffic fails no request and each rank's
+    compacted shard equals a fresh world-2 ``build_sharded`` of the rows
+    it compacted.  Returns the launches summed over both workers."""
+    from raft_tpu_torch.comms.hostcomm import MailboxServer
+    from raft_tpu_torch.neighbors import serialize
+
+    t_phase = time.perf_counter()
+    ARCHIVE_DIR.mkdir(parents=True, exist_ok=True)
+    path = ARCHIVE_DIR / "w1_ivf_pq.npz"
+    serialize.save_ivf_pq(path, resident["ivf_pq"][1])
+    with MailboxServer() as server:
+        outs, wall = _world("chip_smoke:_sharded_mutable_w2_worker",
+                            _payload(seed, x, queries, n_lists, n_probes, k,
+                                     {"ivf_pq": str(path)}), device,
+                            coordinator=f"{server.address[0]}:"
+                                        f"{server.address[1]}")
+        mailbox = server.backend
+    path.unlink()
+    lead, follower = outs
+    check(follower["follow"] == "close",
+          "sharded_mutable_w2: the follower was not released")
+    check(lead["books"] == follower["books"],
+          f"sharded_mutable_w2: the books differ ({lead['books']} vs "
+          f"{follower['books']})")
+    check(mailbox == "native", f"sharded_mutable_w2: mailbox {mailbox}")
+    ties = _exact_ties_only("sharded_mutable_w2 vs world 1",
+                            lead["results"],
+                            _results_arrays(world1["ivf_pq"]))
+    promoted, compact_s, passes, failed = lead["compaction"]
+    check(promoted and not failed
+          and lead["stats"]["dispatch_errors"] == 0,
+          f"sharded_mutable_w2: the compaction failed or failed requests "
+          f"({failed[:3]})")
+    same = [o["compacted_equals_build"] for o in outs]
+    check(all(same), f"sharded_mutable_w2: a compacted shard differs from "
+          f"build_sharded of its rows ({same})")
+    row = {"phase": "sharded_mutable_w2", "world": 2, "backend": "gloo",
+           "kind": "ivf_pq", "card": smi, "workers_wall_s": wall,
+           "mailbox": {"backend": mailbox,
+                       "barrier_s": [o["barrier_s"] for o in outs]},
+           "writes": lead["writes"], "qps": lead["qps"],
+           "world1_qps": qps1["ivf_pq"], "id_diffs_at_exact_ties": ties,
+           "distances_equal_world1": True, "compact_s": compact_s,
+           "reader_passes": passes, "failed_requests": 0,
+           "books": lead["books"], "books_equal": True,
+           "compacted_equals_build": same, "stats": lead["stats"],
+           "wire_rank0": lead["wire"], "wire_rank1": follower["wire"]}
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in lead["launches"]}
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    for name in PATH_KERNELS["sharded_mutable_w2"]:
+        check(launches[name] > 0,
+              f"sharded_mutable_w2 never launched {name}")
+    return launches
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -4687,7 +5103,13 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     del world1_sh
     launches_rep = replica_w2_phase(device, seed, x, queries, n_lists,
                                     n_probes, k, resident, smi)
-    del resident
+    launches_sh_mut, world1_mut, qps_mut = sharded_mutable_phase(
+        device, seed, x, queries, calls, n_queries, n_lists, n_probes, k,
+        resident, smi)
+    launches_sh_mut_w2 = sharded_mutable_w2_phase(
+        device, seed, x, queries, n_lists, n_probes, k, resident,
+        world1_mut, qps_mut, smi)
+    del resident, world1_mut
     pairwise_distance_phase(device, rep)
     rows["pairwise_accumulate"] = pairwise_kernel_phase(device, x, queries,
                                                         rep)
@@ -4705,7 +5127,9 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "mnmg_km_w2": mnmg_km_w2, "mnmg_knn": mnmg_knn,
                "mnmg_knn_w2": mnmg_knn_w2, "serve_dtypes": launches_dt,
                "sharded": launches_sh, "sharded_w2": launches_sh_w2,
-               "replica_w2": launches_rep, **launches_km}
+               "replica_w2": launches_rep,
+               "sharded_mutable": launches_sh_mut,
+               "sharded_mutable_w2": launches_sh_mut_w2, **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():

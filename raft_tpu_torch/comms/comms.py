@@ -42,6 +42,7 @@ Usage (every rank runs the same program)::
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import itertools
 import queue
 import threading
@@ -226,6 +227,29 @@ class Comms:
         sub._control = self._control
         sub._split_pgs = made
         return sub
+
+    def dup(self) -> "Comms":
+        """A communicator over the same ranks on a process group of its own
+        (MPI's ``Comm_dup``): its collectives never interleave with this
+        one's, so another thread may issue them while this one serves (a
+        sharded mutable index compacts on one).  A collective: every
+        member makes it, in the same order.  It has its own
+        ``collective_calls`` rows, waits as long as this one and is
+        released by ``CommsSession.destroy``."""
+        members = sorted(self.ranks)
+        pg = dist.new_group(
+            ranks=members, backend=self.backend,
+            timeout=datetime.timedelta(seconds=self.timeout_s),
+            use_local_synchronization=len(members) < dist.get_world_size())
+        self._made.append(pg)
+        twin = Comms(pg, ranks=self.ranks, device=self.device,
+                     groups=self.groups, session_id=self.session_id,
+                     host_rank=self._host_rank, host_world=self._host_world,
+                     timeout_s=self.timeout_s)
+        twin._mailbox = self._mailbox
+        twin._made = self._made
+        twin._control = self._control
+        return twin
 
     def replica_split(self, n_replicas: int) -> "ReplicaLayout":
         """Carve the world into a 2D (shard × replica) layout:

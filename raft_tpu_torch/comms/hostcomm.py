@@ -10,9 +10,10 @@ framework: one process (conventionally host rank 0) runs
 :class:`MailboxServer`; every process — including rank 0 — talks to it
 with :class:`TcpMailbox`.
 
-The server here is the threaded stdlib one (``backend == "python"``).
-The JAX package also has a native poll-loop server; the port gains it
-with its own loader of the native runtime (ROADMAP).
+The server is the native poll loop of ``native/hostcomm_server.cpp``
+(``backend == "native"``, built by the port's own loader,
+:mod:`raft_tpu_torch.native`), or the threaded stdlib one when
+``backend="python"`` is asked for.
 
 Wire protocol (the JAX package's, byte for byte, so each package's client
 talks to the other's server; all integers big-endian)::
@@ -71,7 +72,7 @@ def _recv_reply(sock: socket.socket) -> Tuple[bool, bytes]:
 
 
 class _PyMailboxServer:
-    """Threaded stdlib fallback server speaking the binary protocol."""
+    """The threaded stdlib server speaking the binary protocol."""
 
     def __init__(self, host: str, port: int):
         # key → [Queue, waiter_count].  Puts happen under the lock (Queue.put
@@ -149,16 +150,38 @@ class MailboxServer:
     until a message for the key arrives (or times out).
 
     ``address`` reports the bound (host, port) so callers can pass it to
-    workers (port 0 → ephemeral).  ``backend`` is "python" (the threaded
-    stdlib server).
+    workers (port 0 → ephemeral).  ``backend`` is "native" (the default:
+    the C++ poll loop, one thread, no interpreter lock) or "python" (the
+    threaded stdlib server), as asked.  Unlike the JAX package, which
+    falls back to the Python server without a word when the native
+    runtime is not there, the native backend raises when its build fails
+    (:class:`raft_tpu_torch.native.NativeBuildError`): a coordinator is
+    never quietly the slower one.
     """
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
-        self.backend = "python"
-        self._py: Optional[_PyMailboxServer] = _PyMailboxServer(host, port)
-        self.address = self._py.address
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 backend: str = "native"):
+        if backend not in ("native", "python"):
+            raise LogicError(f"MailboxServer: unknown backend {backend!r}")
+        self.backend = backend
+        self._native_handle: Optional[int] = None
+        self._py: Optional[_PyMailboxServer] = None
+        if backend == "native":
+            from raft_tpu_torch import native
+
+            self._native_handle, bound = native.mailbox_server_start(host,
+                                                                     port)
+            self.address: Tuple[str, int] = (host, bound)
+        else:
+            self._py = _PyMailboxServer(host, port)
+            self.address = self._py.address
 
     def close(self) -> None:
+        if self._native_handle is not None:
+            from raft_tpu_torch import native
+
+            native.mailbox_server_stop(self._native_handle)
+            self._native_handle = None
         if self._py is not None:
             self._py.close()
             self._py = None

@@ -3,8 +3,8 @@ the ranks of one communicator (port of ``raft_tpu/neighbors/ann_mnmg.py``:
 ``ShardedIndex`` :101, ``_partition`` :147, the aux builders :207/:217,
 ``shard_ivf_flat`` :238, ``shard_ivf_pq`` :267, ``shard_brute_force``
 :298, ``ReplicaSet`` :350, ``replicate`` :393, ``_merge_one_allgather``
-:436, the shard programs :465/:494/:519, ``ShardedSearcher`` :565,
-``_ingest`` :674 and ``search`` :692).
+:436, the shard programs :465/:494/:519 with their masked variants,
+``ShardedSearcher`` :565, ``_ingest`` :674 and ``search`` :692).
 
 The port runs one process per rank.  A rank's :class:`ShardedIndex`
 holds its OWN shard's blocks (``stacked``), the ``replicated`` tables
@@ -26,7 +26,10 @@ included):
   ONE allgather of the packed (nq, 2k) distances and ids and the part
   merge, earlier ranks winning ties.  The L2Sqrt root is taken after the
   merge.  At world 1 the collective is an identity and the bits are the
-  single-device bits.
+  single-device bits.  The masked variant (``ShardedSearcher(masked=
+  True)``, what ``neighbors.mutable`` serves a sharded main through)
+  threads a tombstone bitmap into each rank's scan and leaves the root
+  to its caller.
 * **Replicas** — :func:`replicate` carves the world into R groups
   (``Comms.replica_split``); a rank shards a full copy into its own
   group only and keeps every group's aux and ranks, so the serving
@@ -107,6 +110,10 @@ class ShardedIndex:
     @property
     def dim(self) -> int:
         return int(self.aux["dim"])
+
+    @property
+    def n_lists(self) -> int:
+        return int(self.aux.get("n_lists", 0))
 
     @property
     def metric(self) -> DistanceType:
@@ -479,33 +486,38 @@ def _root(d: torch.Tensor, metric: DistanceType) -> torch.Tensor:
 
 
 def _ivf_flat_program(sh: ShardedIndex, q: torch.Tensor, k: int,
-                      n_probes: int, engine: str):
+                      n_probes: int, engine: str,
+                      tombstones: Optional[torch.Tensor] = None,
+                      root: bool = True):
     local = sh.local_index()
     q = q.float()
     cd = ivf_flat._coarse_distances(q, local.centers, local.metric)
     _, probes = select_k(cd, n_probes, select_min=True, engine=engine)
     d, i = ivf_flat._probe_search_impl(q, probes, local, k, False, engine,
+                                       tombstones,
                                        extra=sh.aux["probe_extra"])
     d, i = _merge_one_allgather(
         sh.comms, d, i, k,
         select_min=sh.metric != DistanceType.InnerProduct)
-    return _root(d, sh.metric), i
+    return (_root(d, sh.metric) if root else d), i
 
 
 def _ivf_pq_program(sh: ShardedIndex, q: torch.Tensor, k: int,
                     n_probes: int, lut_dtype: str, int_dtype: str,
-                    hoisted: bool, engines: Tuple[str, str]):
+                    hoisted: bool, engines: Tuple[str, str],
+                    tombstones: Optional[torch.Tensor] = None,
+                    root: bool = True):
     local = sh.local_index()
     q = q.float()
     probes = ivf_pq.coarse_probes(q, local, n_probes, engines[0])
     d, i = ivf_pq._search_batch_impl(q, probes, local, k, lut_dtype,
-                                     engines, None, False,
+                                     engines, tombstones, False,
                                      int_dtype=int_dtype, hoisted=hoisted,
                                      extra=sh.aux["probe_extra"])
     d, i = _merge_one_allgather(
         sh.comms, d, i, k,
         select_min=sh.metric != DistanceType.InnerProduct)
-    return _root(d, sh.metric), i
+    return (_root(d, sh.metric) if root else d), i
 
 
 def _brute_force_program(sh: ShardedIndex, q: torch.Tensor, k: int,
@@ -534,13 +546,22 @@ class ShardedSearcher:
     k)) on every rank; ``warm(bucket, dtype)`` runs it once on zeros, so
     the kernels are built and the allocator has seen the shape.
     ``engine`` picks the kernels or their plain versions (default: by
-    device)."""
+    device).
+
+    ``masked=True`` is the variant ``neighbors.mutable`` serves a sharded
+    main through: ``dispatch(qb, tombstones)`` threads a tombstone bitmap
+    into each rank's scan (IVF-Flat: the probe scan's mask; IVF-PQ: kernel
+    B4's scan mode with the bitmap), keyed by global row id, so the one
+    copy every rank holds serves every shard; and it returns SQUARED
+    L2Sqrt distances, because the mutable search merges main ∪ delta
+    before it takes the root.  Brute force has no masked variant."""
 
     def __init__(self, sharded: ShardedIndex, k: int, params=None, *,
-                 engine: Optional[str] = None):
+                 engine: Optional[str] = None, masked: bool = False):
         expects(k >= 1, "k must be >= 1")
         self.sharded = sharded
         self.k = int(k)
+        self.masked = bool(masked)
         aux = sharded.aux
         dev = sharded.device
         from raft_tpu_torch.kernels.engine import resolve_engine
@@ -565,6 +586,8 @@ class ShardedSearcher:
         else:
             expects(sharded.kind == "brute_force",
                     f"unknown sharded kind {sharded.kind!r}")
+            expects(not self.masked, "tombstone masking needs an IVF kind "
+                    "(brute force has no id-carrying probe scan)")
             expects(params is None, "brute_force sharded search takes no "
                     "SearchParams (the metric rides the ShardedIndex)")
             expects(self.k <= aux["n_rows"],
@@ -584,8 +607,15 @@ class ShardedSearcher:
         self.dispatch(torch.zeros((int(bucket), self.dim), dtype=dtype,
                                   device=self.device))
 
-    def dispatch(self, qb: torch.Tensor):
-        return self.fn(self.sharded, qb.to(self.device), self.k, *self._args)
+    def dispatch(self, qb: torch.Tensor,
+                 tombstones: Optional[torch.Tensor] = None):
+        """One pre-bucketed batch on every rank; a masked searcher takes
+        the replicated bitmap and returns squared L2Sqrt distances."""
+        if not self.masked:
+            return self.fn(self.sharded, qb.to(self.device), self.k,
+                           *self._args)
+        return self.fn(self.sharded, qb.to(self.device), self.k, *self._args,
+                       tombstones=tombstones, root=False)
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,33 @@ The rows are kept on the main's device: the dataset the main was built
 from, and each upserted row (compaction re-encodes the live rows, exact
 for IVF-PQ's lossy codes too).
 
-Not ported yet: a sharded main (``comms``), and re-lowering of serve
-signatures (eager PyTorch compiles nothing, so the reference's
-``rewarms`` event never occurs here).
+**A sharded main.**  *main* may be an ``ann_mnmg.ShardedIndex`` of an
+IVF kind (reference ``MutableIndex`` :262-300).  The port runs one
+process per rank, so every rank holds its own shard of the main and the
+same host books, the same delta (a single-device index of the family on
+the sharded main's trained model) and the same bitmap, keyed by global
+row id.  The direct API is a collective, like ``build_sharded`` and
+``ann_mnmg.search``: every rank calls ``upsert``, ``delete``, ``search``,
+``to_index`` and ``compact`` with the same arguments and gets the same
+bits back.  A search runs the masked sharded main
+(``ann_mnmg.ShardedSearcher(masked=True)``: one allgather, squared
+distances) and the delta's scan, folds them with ``merge_sorted_parts``
+(main as part 0) and takes the root once — the single-device rule, so at
+world 1 the bits are the single-device index's.  ``to_index`` and
+``compact`` go through the family ``build_sharded``.  Compaction issues
+its collectives on a communicator of its own (``Comms.dup``, made by
+every rank when the index is made), so a compaction under traffic never
+interleaves its broadcasts with the serving allgathers.  Served by a
+``serve.ServeEngine`` (rank 0 leads, the others follow), the leader's
+writes and compactions reach every rank through the engine's control
+plane (``serve.spmd``: WRITE and COMPACT), in one order with its
+dispatches, and the compacted core is swapped at one point of that order
+on every rank.  Closing that engine waits for a compaction in flight;
+stop a started ``Compactor`` before it (after the close a compaction is
+a collective of the direct API again).
+
+Eager PyTorch compiles nothing, so the reference's re-lowering of serve
+signatures (its ``rewarms`` event) has no counterpart.
 """
 
 from __future__ import annotations
@@ -87,6 +111,11 @@ compaction_seconds = telemetry.histogram(
 
 #: rows per query batch of the eager :func:`search`
 _BATCH = 1024
+
+#: what the leader's WRITE carries (``serve.spmd``, the header's
+#: argument), and the phases of its COMPACT
+WRITE_DELETE, WRITE_UPSERT = 0, 1
+COMPACT_START, COMPACT_SWAP, COMPACT_ABORT = 0, 1, 2
 
 
 def _tomb_words(max_id: int) -> int:
@@ -135,10 +164,29 @@ def _merged_search_impl(q, main, delta, tomb_main, tomb_delta, k: int,
     """main ∪ delta for one batch: two masked family scans folded by
     ``merge_sorted_parts`` (main is part 0 and wins ties); the L2Sqrt
     root is taken after the fold, which compares squared distances."""
-    metric = main.metric
     pq_kw = pq_kw or {}
     d, i = _family_scan(q, main, k, n_probes, lut_dtype, engines, tomb_main,
                         pq_kw)
+    return _fold_delta(q, d, i, main.metric, delta, tomb_delta, k, n_probes,
+                       lut_dtype, engines, pq_kw)
+
+
+def _sharded_merged_search_impl(q, main_searcher, delta, tomb_main,
+                                tomb_delta, k: int, n_probes: int,
+                                lut_dtype: str, engines: Tuple[str, str],
+                                pq_kw=None):
+    """main ∪ delta for one batch over a sharded main (a collective): the
+    masked ``ShardedSearcher`` (every rank's scan, one allgather, squared
+    distances), then the delta's scan and the fold of
+    :func:`_merged_search_impl`."""
+    d, i = main_searcher.dispatch(q, tomb_main)
+    return _fold_delta(q, d, i, main_searcher.sharded.metric, delta,
+                       tomb_delta, k, n_probes, lut_dtype, engines,
+                       pq_kw or {})
+
+
+def _fold_delta(q, d, i, metric, delta, tomb_delta, k: int, n_probes: int,
+                lut_dtype: str, engines: Tuple[str, str], pq_kw):
     if delta is not None:
         dd, di = _family_scan(q, delta, k, n_probes, lut_dtype, engines,
                               tomb_delta, pq_kw)
@@ -164,7 +212,7 @@ class _Core:
     __slots__ = ("kind", "main", "delta", "main_ids", "main_row", "main_x",
                  "main_dead", "delta_live", "delta_dead", "delta_x",
                  "n_words", "words_main", "words_delta", "tomb_main_bits",
-                 "tomb_delta_bits", "ready")
+                 "tomb_delta_bits", "ready", "searchers")
 
     def __init__(self, kind, main, main_ids, main_row, main_x, n_words):
         self.kind = kind
@@ -183,6 +231,9 @@ class _Core:
         self.tomb_main_bits = None
         self.tomb_delta_bits = None
         self.ready = None            # event of the last write (the card)
+        #: a sharded main's masked searchers by serving key (each reads
+        #: this core's shard blocks)
+        self.searchers: Dict[tuple, object] = {}
 
     @property
     def live_count(self) -> int:
@@ -212,24 +263,40 @@ class _Core:
 class MutableIndex:
     """(main index, delta segment, tombstones) with writes while serving.
 
-    *main* is an ``ivf_flat.Index`` or ``ivf_pq.Index``; *dataset* /
-    *ids* are the rows it was built from (kept on the main's device:
-    compaction re-encodes the live rows from them); *build_params* is the
-    family ``IndexParams`` compaction rebuilds with.  State changes only
-    through :meth:`upsert`, :meth:`delete` and :meth:`compact`; reads go
-    through :func:`search` or a :meth:`searcher` (what
-    ``serve.ServeEngine``'s mutable backend dispatches)."""
+    *main* is an ``ivf_flat.Index`` or ``ivf_pq.Index``, or this rank's
+    ``ann_mnmg.ShardedIndex`` of one of them (then the communicator is the
+    main's; *comms*, if passed, must be it); *dataset* / *ids* are the
+    rows it was built from (kept on the main's device: compaction
+    re-encodes the live rows from them; every rank of a sharded main
+    passes all of them); *build_params* is the family ``IndexParams``
+    compaction rebuilds with.  State changes only through :meth:`upsert`,
+    :meth:`delete` and :meth:`compact`; reads go through :func:`search`
+    or a :meth:`searcher` (what ``serve.ServeEngine``'s mutable backends
+    dispatch).  Over a sharded main every one of these is a collective
+    (module doc)."""
 
     def __init__(self, main, dataset, ids=None, *, build_params=None,
                  comms=None):
-        expects(comms is None, "MutableIndex over a sharded main is not "
-                "ported yet")
-        if isinstance(main, ivf_flat.Index):
-            kind = "ivf_flat"
+        from raft_tpu_torch.neighbors import ann_mnmg
+
+        self._comms = self._compact_comms = None
+        if isinstance(main, ann_mnmg.ShardedIndex):
+            kind = main.kind
+            expects(kind in ("ivf_flat", "ivf_pq"),
+                    "MutableIndex needs an IVF kind (brute force has no "
+                    "id-carrying probe scan to mask)")
+            expects(comms is None or comms is main.comms,
+                    "MutableIndex: a sharded main brings its communicator")
+            self._comms = main.comms
         else:
-            expects(isinstance(main, ivf_pq.Index),
-                    f"unsupported main index type {type(main)!r}")
-            kind = "ivf_pq"
+            expects(comms is None, "MutableIndex: comms= goes with a "
+                    "sharded main (an ann_mnmg.ShardedIndex)")
+            if isinstance(main, ivf_flat.Index):
+                kind = "ivf_flat"
+            else:
+                expects(isinstance(main, ivf_pq.Index),
+                        f"unsupported main index type {type(main)!r}")
+                kind = "ivf_pq"
         x = torch.as_tensor(dataset, device=main.device)
         expects(x.ndim == 2 and x.shape[1] == main.dim,
                 "dataset must be (n, dim) with the index's dim")
@@ -249,7 +316,14 @@ class MutableIndex:
         self._compact_stream = None
         self._journal = None
         self._searchers: Dict[tuple, MutableSearcher] = {}
+        #: the control plane of the engine that leads this (sharded)
+        #: index, on its leader: writes and compactions reach every rank
+        #: through it; and a follower's compaction in flight
+        self._wire = None
+        self._follower_compaction = None
         self._push_tombstones(self._mut_core)
+        if self._comms is not None:
+            self._compact_comms = self._comms.dup()
 
     # -- read side ----------------------------------------------------------
 
@@ -268,6 +342,27 @@ class MutableIndex:
     @property
     def metric(self) -> DistanceType:
         return self._mut_core.main.metric
+
+    @property
+    def sharded(self) -> bool:
+        """True when the main is an ``ann_mnmg.ShardedIndex``."""
+        return self._comms is not None
+
+    @property
+    def comms(self):
+        """The communicator of a sharded main (None otherwise)."""
+        return self._comms
+
+    @property
+    def dataset_dtype(self) -> str:
+        main = self._mut_core.main
+        return (main.aux["dataset_dtype"] if self.sharded
+                else main.dataset_dtype)
+
+    def _model(self, core: "_Core"):
+        """A single-device index holding the main's trained model (a
+        sharded main: this rank's shard as ``local_index``)."""
+        return core.main.local_index() if self.sharded else core.main
 
     @property
     def size(self) -> int:
@@ -301,13 +396,23 @@ class MutableIndex:
     def to_index(self, engine: Optional[str] = None):
         """A rebuild of the live rows from scratch with *build_params* (it
         retrains the coarse model, so below full probe coverage it probes
-        other lists)."""
+        other lists); over a sharded main, ``build_sharded`` over its
+        communicator (a collective)."""
         expects(self.build_params is not None,
                 "to_index()/compact() need build_params")
         x, ids = self.live_rows()
-        return _family(self.kind).build(
-            self.build_params, x, ids=torch.as_tensor(ids, dtype=torch.int32),
-            device=self.device, engine=engine)
+        return self._build(x, ids, self._comms, engine)
+
+    def _build(self, x: torch.Tensor, ids: np.ndarray, comms,
+               engine: Optional[str] = None):
+        family = _family(self.kind)
+        ids_t = torch.as_tensor(ids, dtype=torch.int32, device=x.device)
+        if comms is not None:
+            return family.build_sharded(self.build_params, x, comms,
+                                        ids=ids_t, device=self.device,
+                                        engine=engine)
+        return family.build(self.build_params, x, ids=ids_t,
+                            device=self.device, engine=engine)
 
     def searcher(self, k: int, params=None,
                  engine: Optional[str] = None) -> "MutableSearcher":
@@ -320,41 +425,51 @@ class MutableIndex:
                 self._searchers[key] = s
             return s
 
-    def _snapshot(self):
-        """(main, delta, main bitmap, delta bitmap) of the current core,
-        the current stream made to wait for the last write and marked on
-        every tensor of the snapshot."""
+    def _capture(self):
+        """(core, delta, main bitmap, delta bitmap, event of the last
+        write) of the current core, taken under the lock: every write
+        makes new tensors, so these stay one consistent state."""
         with self._lock:
             core = self._mut_core
-            snap = (core.main, core.delta, core.tomb_main_bits,
-                    None if core.delta is None else core.tomb_delta_bits)
-            ready = core.ready
+            return (core, core.delta, core.tomb_main_bits,
+                    None if core.delta is None else core.tomb_delta_bits,
+                    core.ready)
+
+    def _snapshot(self, captured=None):
+        """(core, delta, main bitmap, delta bitmap) of *captured* (default:
+        the current core), the current stream made to wait for its last
+        write and marked on every tensor of the snapshot."""
+        core, delta, tm, td, ready = (self._capture() if captured is None
+                                      else captured)
         if ready is not None:
             torch.cuda.current_stream(self.device).wait_event(ready)
         if self.device.type == "cuda":
-            _mark_used(_tensors(snap[0]) + [snap[2], snap[3]]
-                       + (_tensors(snap[1]) if snap[1] is not None else []))
-        return snap
+            main = core.main
+            tensors = (list(main.replicated) + list(main.stacked)
+                       if self.sharded else _tensors(main))
+            _mark_used(tensors + [tm, td]
+                       + (_tensors(delta) if delta is not None else []))
+        return core, delta, tm, td
 
     # -- write side ---------------------------------------------------------
 
     def delete(self, ids) -> int:
         """Tombstone *ids*; unknown or already-dead ids are a no-op.
-        Returns the rows newly tombstoned."""
+        Returns the rows newly tombstoned.  On the leader of an engine
+        over a sharded main the delete reaches every rank."""
         ids = np.atleast_1d(np.asarray(ids, np.int64))
-        with self._lock:
-            if self._journal is not None:
-                self._journal.append(("delete", ids.copy()))
-            n = self._delete_core(self._mut_core, ids)
-            self._record_state(self._mut_core)
-            return n
+        with self._fanned("write") as post:
+            n = self._apply_delete(ids)
+            post(WRITE_DELETE, ids, None)
+        return n
 
     def upsert(self, x, ids) -> None:
         """Insert or replace rows: tombstone any old row of these ids (in
         main or delta) and append the new rows into the delta.  Upserting
         an id still packed in the delta first repacks the delta without
         it (an append-only segment cannot mask one of two rows of one
-        id)."""
+        id).  On the leader of an engine over a sharded main the upsert
+        reaches every rank."""
         x = torch.as_tensor(x, device=self.device)
         expects(x.ndim == 2 and x.shape[1] == self.dim,
                 "upsert rows must be (n, dim)")
@@ -365,6 +480,19 @@ class MutableIndex:
         expects(ids.size == 0 or int(ids.min()) >= 0,
                 "ids must be non-negative")
         x = x.to(self._mut_core.main_x.dtype)
+        with self._fanned("write") as post:
+            self._apply_upsert(x, ids)
+            post(WRITE_UPSERT, ids, x)
+
+    def _apply_delete(self, ids: np.ndarray) -> int:
+        with self._lock:
+            if self._journal is not None:
+                self._journal.append(("delete", ids.copy()))
+            n = self._delete_core(self._mut_core, ids)
+            self._record_state(self._mut_core)
+            return n
+
+    def _apply_upsert(self, x: torch.Tensor, ids: np.ndarray) -> None:
         with self._lock:
             if self._journal is not None:
                 # compaction replays it on its own stream after the clone
@@ -372,6 +500,54 @@ class MutableIndex:
                                       _record_event(self.device)))
             self._upsert_core(self._mut_core, x, ids)
             self._record_state(self._mut_core)
+
+    # -- the leader/follower fan-out of a served sharded main ---------------
+
+    def _attach(self, wire) -> None:
+        """Route this rank's writes and compactions through *wire* (the
+        control plane of the engine it leads)."""
+        expects(self.sharded, "only a sharded main fans its writes out")
+        with self._lock:
+            expects(self._wire in (None, wire), "a sharded MutableIndex "
+                    "is served by one engine at a time")
+            self._wire = wire
+
+    def _detach(self, wire) -> None:
+        """Stop routing through *wire*; a compaction in flight finishes
+        first, so its swap reaches the followers before the engine
+        releases them."""
+        with self._compact_lock, self._lock:
+            if self._wire is wire:
+                self._wire = None
+
+    @contextlib.contextmanager
+    def _fanned(self, op: str):
+        """Hold the wire's lane lock (when an engine leads this index)
+        around one write or compaction step, so it takes its place in the
+        order of the dispatches; yields ``post(...)``, which sends the
+        step to the followers (``op`` "write": ``LaneWire.post_write``,
+        "compact": ``post_compact``).  The sends are waited on after the
+        lock is released."""
+        wire = self._wire
+        if wire is None:
+            yield lambda *a: None
+            return
+        send = wire.post_write if op == "write" else wire.post_compact
+        works = []
+        with wire.locks[wire.lane]:
+            yield lambda *a: works.extend(send(*a))
+        for w, _ in works:
+            w.wait()
+
+    def _apply_remote_write(self, op_arg: int, ids: np.ndarray,
+                            rows: Optional[torch.Tensor]) -> None:
+        """A follower's share of the leader's write (``serve.spmd``
+        WRITE)."""
+        ids = np.asarray(ids, np.int64)
+        if op_arg == WRITE_DELETE:
+            self._apply_delete(ids)
+        elif ids.size:
+            self._apply_upsert(rows.to(self.device), ids)
 
     def _restore_roster(self, main_ids: np.ndarray, max_id: int) -> None:
         """After a load: the main's full id roster (dead ids included,
@@ -487,7 +663,7 @@ class MutableIndex:
     def _empty_delta(self, core: _Core):
         """A zero-row index of the main's family sharing its trained model,
         so delta rows land in the lists a rebuild would put them in."""
-        m = core.main
+        m = self._model(core)
         dev = m.device
         common = dict(
             list_indices=torch.full((1, 1), -1, dtype=torch.int32,
@@ -539,64 +715,142 @@ class MutableIndex:
     def compact(self, engine=None) -> None:
         """Rebuild main ∪ delta minus tombstones off the request path and
         swap it in: the live rows are taken under the lock, the family
-        ``build`` runs outside it (on its own stream on the card) while
-        the old core serves, the writes that came meanwhile are replayed
-        from a journal, the core is swapped under the lock, and — with
-        *engine* — promoted through ``ServeEngine.refresh`` (its only
-        door for a swap)."""
+        ``build`` (``build_sharded`` over the index's compaction
+        communicator, for a sharded main) runs outside it (on its own
+        stream on the card) while the old core serves, the writes that
+        came meanwhile are replayed from a journal, the core is swapped
+        under the lock, and — with *engine* — promoted through
+        ``ServeEngine.refresh`` (its only door for a swap).  On the leader
+        of an engine over a sharded main every rank compacts with it:
+        COMPACT starts each follower's share at the leader's snapshot,
+        and the swap lands at one point of the write and dispatch order
+        on every rank."""
         expects(self.build_params is not None, "compact() needs build_params")
-        family = _family(self.kind)
-        dev = self.device
         with self._compact_lock:
             t0 = time.perf_counter()
-            with self._lock:
-                self._journal = []
-                core = self._mut_core
-                x, ids = self._live_rows_locked(core)
-            stream = None
-            if dev.type == "cuda":
-                if self._compact_stream is None:
-                    self._compact_stream = torch.cuda.Stream(dev)
-                stream = self._compact_stream
-                stream.wait_stream(torch.cuda.current_stream(dev))
-                _mark_used([x])
+            with self._fanned("compact") as post:
+                begun = self._compact_begin()
+                post(COMPACT_START)
             try:
-                with _on(stream):
-                    main = family.build(
-                        self.build_params, x,
-                        ids=torch.as_tensor(ids, dtype=torch.int32,
-                                            device=dev), device=dev)
-                    order = np.argsort(ids, kind="stable")
-                    new_core = _Core(core.kind, main, ids[order], order, x,
-                                     _tomb_words(int(ids.max())
-                                                 if ids.size else 0))
-                    self._push_tombstones(new_core)
-                    applied = 0
-                    while True:   # chase the journal until its tail is short
-                        with self._lock:
-                            pending = list(self._journal[applied:])
-                        if len(pending) <= 4:
-                            break
-                        for op in pending:
-                            self._apply_op(new_core, op)
-                        applied += len(pending)
-                with self._lock:
-                    with _on(stream):
-                        for op in self._journal[applied:]:
-                            self._apply_op(new_core, op)
-                    if stream is not None:
-                        stream.synchronize()
-                    self._journal = None
-                    self._mut_core = new_core
-                    self._record_state(new_core)
+                built = self._compact_build(*begun)
+                with self._fanned("compact") as post:
+                    self._compact_swap(built)
+                    post(COMPACT_SWAP)
             except BaseException:
-                with self._lock:
-                    self._journal = None
+                with self._fanned("compact") as post:
+                    with self._lock:
+                        self._journal = None
+                    post(COMPACT_ABORT)
                 raise
             _compactions_counter.inc(1)
             compaction_seconds.observe(time.perf_counter() - t0)
         if engine is not None:
             engine.refresh(self)
+
+    def _compact_begin(self):
+        """Start the journal and take the live rows: (core, rows, ids)."""
+        with self._lock:
+            self._journal = []
+            core = self._mut_core
+            x, ids = self._live_rows_locked(core)
+        return core, x, ids
+
+    def _compact_build(self, core: _Core, x: torch.Tensor, ids: np.ndarray):
+        """The new core of the live rows, on the compaction stream, with
+        the journal chased until its tail is short."""
+        stream = self._compaction_stream()
+        if stream is not None:
+            _mark_used([x])
+        try:
+            with _on(stream):
+                main = self._build(x, ids, self._compact_comms)
+                if self.sharded:
+                    # built over the compaction communicator, served over
+                    # the index's own
+                    main = type(main)(main.kind, self._comms, main.replicated,
+                                      main.stacked, main.aux)
+                order = np.argsort(ids, kind="stable")
+                new_core = _Core(core.kind, main, ids[order], order, x,
+                                 _tomb_words(int(ids.max())
+                                             if ids.size else 0))
+                self._push_tombstones(new_core)
+                applied = 0
+                while True:
+                    with self._lock:
+                        pending = list(self._journal[applied:])
+                    if len(pending) <= 4:
+                        break
+                    for op in pending:
+                        self._apply_op(new_core, op)
+                    applied += len(pending)
+        except BaseException:
+            with self._lock:
+                self._journal = None
+            raise
+        return new_core, applied, stream
+
+    def _compaction_stream(self):
+        dev = self.device
+        if dev.type != "cuda":
+            return None
+        if self._compact_stream is None:
+            self._compact_stream = torch.cuda.Stream(dev)
+        stream = self._compact_stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        return stream
+
+    def _compact_swap(self, built) -> None:
+        """Replay the journal's tail into the new core and swap it in."""
+        new_core, applied, stream = built
+        with self._lock:
+            with _on(stream):
+                for op in self._journal[applied:]:
+                    self._apply_op(new_core, op)
+            if stream is not None:
+                stream.synchronize()
+            self._journal = None
+            self._mut_core = new_core
+            self._record_state(new_core)
+
+    def _follow_compact(self, phase: int) -> None:
+        """A follower's share of the leader's compaction (``serve.spmd``
+        COMPACT): START takes the live rows at this point of the write
+        order and builds on a thread of its own, so the follower keeps
+        serving the old core; SWAP waits for the build (bounded by the
+        communicator's timeout) and swaps at the leader's point; ABORT
+        drops it."""
+        if phase == COMPACT_START:
+            expects(self._follower_compaction is None,
+                    "COMPACT: a compaction is already in flight")
+            begun = self._compact_begin()
+            box: Dict[str, object] = {}
+
+            def build():
+                try:
+                    box["built"] = self._compact_build(*begun)
+                except BaseException as e:   # raised at SWAP
+                    box["error"] = e
+
+            t = threading.Thread(target=build, daemon=True,
+                                 name="raft-tpu-torch-compaction")
+            t.start()
+            self._follower_compaction = (t, box)
+            return
+        expects(self._follower_compaction is not None,
+                "COMPACT: no compaction in flight")
+        t, box = self._follower_compaction
+        self._follower_compaction = None
+        t.join(self._comms.timeout_s)
+        expects(not t.is_alive(), "COMPACT: this rank's share of the "
+                "compaction did not finish within the communicator's "
+                "timeout")
+        if phase == COMPACT_ABORT:
+            with self._lock:
+                self._journal = None
+            return
+        if "error" in box:
+            raise box["error"]
+        self._compact_swap(box["built"])
 
     def _apply_op(self, core: _Core, op) -> None:
         if op[0] == "delete":
@@ -630,8 +884,10 @@ def _record_event(device: torch.device):
 
 class MutableSearcher:
     """The serving entry of one (MutableIndex, k, params) key — what
-    ``serve.ServeEngine``'s mutable backend dispatches: one pre-bucketed
-    batch against a snapshot of the core (:func:`_merged_search_impl`)."""
+    ``serve.ServeEngine``'s mutable backends dispatch: one pre-bucketed
+    batch against a snapshot of the core (:func:`_merged_search_impl`,
+    or :func:`_sharded_merged_search_impl` over a sharded main, a
+    collective)."""
 
     def __init__(self, mutable: MutableIndex, k: int, params=None,
                  engine: Optional[str] = None):
@@ -660,17 +916,42 @@ class MutableSearcher:
         self.engine = engine
         self.n_probes = int(min(self.params.n_probes, main.n_lists))
 
+    def _main_searcher(self, core: _Core):
+        """The masked ``ShardedSearcher`` over *core*'s main, made once per
+        core (it reads that core's shard blocks)."""
+        from raft_tpu_torch.neighbors import ann_mnmg
+
+        key = (self.k, repr(self.params), self.engine)
+        s = core.searchers.get(key)
+        if s is None:
+            s = ann_mnmg.ShardedSearcher(core.main, self.k, self.params,
+                                         engine=self.engine, masked=True)
+            core.searchers[key] = s
+        return s
+
     def batch_cap(self) -> Optional[int]:
-        """The compressed-LUT batch cap of IVF-PQ, sized by the main."""
+        """The compressed-LUT batch cap of IVF-PQ, sized by the main (a
+        sharded main: by its shard's scan budget)."""
         if self.kind != "ivf_pq":
             return None
-        return ivf_pq.hoisted_batch_cap(self.mutable._mut_core.main,
-                                        self.n_probes, self.lut_dtype,
+        core = self.mutable._mut_core
+        if self.mutable.sharded:
+            from raft_tpu_torch.neighbors import ann_mnmg
+
+            return ann_mnmg.batch_cap(core.main, self._main_searcher(core))
+        return ivf_pq.hoisted_batch_cap(core.main, self.n_probes,
+                                        self.lut_dtype,
                                         self.pq_kw["hoisted"])
 
-    def dispatch(self, qb: torch.Tensor):
-        main, delta, tm, td = self.mutable._snapshot()
-        return _merged_search_impl(qb, main, delta, tm, td, self.k,
+    def dispatch(self, qb: torch.Tensor, captured=None):
+        """One batch against *captured* (``MutableIndex._capture``; default
+        the core as it is now)."""
+        core, delta, tm, td = self.mutable._snapshot(captured)
+        if self.mutable.sharded:
+            return _sharded_merged_search_impl(
+                qb, self._main_searcher(core), delta, tm, td, self.k,
+                self.n_probes, self.lut_dtype, self.engines, self.pq_kw)
+        return _merged_search_impl(qb, core.main, delta, tm, td, self.k,
                                    self.n_probes, self.lut_dtype,
                                    self.engines, self.pq_kw)
 
@@ -682,15 +963,14 @@ class MutableSearcher:
 def _ingest(mutable: MutableIndex, queries) -> torch.Tensor:
     """Float32 queries on the index's device, as the family ``search``
     converts them (cosine rows normalized)."""
-    main = mutable._mut_core.main
     if mutable.kind == "ivf_pq":
-        q, q_dtype = ivf_pq._ingest_dataset(queries, main.device)
-        expects(q_dtype in (main.dataset_dtype, "float32"),
+        q, q_dtype = ivf_pq._ingest_dataset(queries, mutable.device)
+        expects(q_dtype in (mutable.dataset_dtype, "float32"),
                 f"query dtype {q_dtype} != index dataset dtype "
-                f"{main.dataset_dtype}")
+                f"{mutable.dataset_dtype}")
     else:
-        q = ivf_flat._ingest(queries, main.device).float()
-        if main.metric == DistanceType.CosineExpanded:
+        q = ivf_flat._ingest(queries, mutable.device).float()
+        if mutable.metric == DistanceType.CosineExpanded:
             q = ivf_flat._normalize_rows(q)
     expects(q.ndim == 2 and q.shape[1] == mutable.dim, "query dim mismatch")
     return q
@@ -702,7 +982,10 @@ def search(mutable: MutableIndex, queries, k: int, params=None,
     """Search main ∪ delta minus tombstones: (distances (nq, k) f32,
     indices (nq, k) int32) on the index's device.  Batches of 1,024
     queries, the tail padded to the power-of-two bucket ladder, as the
-    family searches."""
+    family searches.  Over a sharded main a collective; a sharded index
+    that an engine leads is searched through that engine."""
+    expects(mutable._wire is None, "mutable.search: an engine leads this "
+            "sharded index — search through the engine")
     s = mutable.searcher(int(k), params, engine)
     q = _ingest(mutable, queries)
     nq = q.shape[0]

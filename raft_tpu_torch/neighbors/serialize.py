@@ -2,11 +2,16 @@
 ``raft_tpu/neighbors/serialize.py``: ``_finish`` :67, ``_atomic_savez``
 :89, ``_unpack`` :108, ``save_ivf_flat`` :144, ``load_ivf_flat`` :152,
 ``save_ivf_pq`` :160, ``save_sharded`` :170, ``load_sharded`` :200,
-``save_mutable`` :265, ``load_mutable`` :337, ``save_tiered`` :417,
-``load_tiered`` :445, ``load_ivf_pq`` :471), with numpy only.  A sharded
+``_peek_kind`` :224, ``save_mutable`` :265, ``load_mutable`` :337,
+``save_tiered`` :417, ``load_tiered`` :445, ``load_ivf_pq`` :471), with
+numpy only.  A sharded
 archive holds the replicated tables and every rank's blocks stacked as
 (world, …); the port's ``save_sharded`` gathers them to the first rank,
-which writes, and ``load_sharded`` gives each rank its own row.
+which writes, and ``load_sharded`` gives each rank its own row.  A
+mutable archive of a sharded main stores the main the same way
+(``main_rep{j}`` / ``main_st{j}``) beside the books, and
+``load_sharded`` / ``load_mutable`` restore it onto a communicator of
+the archived world.
 
 An archive is one ``.npz``: every array leaf plus ``__header__``, a JSON
 header (magic, per-kind version, kind, aux, per-array CRC32 manifest).
@@ -170,50 +175,92 @@ def _gather_leaf(comms, leaf: torch.Tensor) -> np.ndarray:
     return tensor_to_array(parts.view(torch.bfloat16) if bf16 else parts)
 
 
+def _sharded_arrays(sharded, prefix: str = ""):
+    """The archive arrays of a ``ShardedIndex`` (``rep{j}``, ``st{j}``
+    after *prefix*) on the communicator's first rank, None on the others
+    — a collective: the stacked blocks are gathered to the first rank."""
+    comms = sharded.comms
+    stacked = [_gather_leaf(comms, leaf) for leaf in sharded.stacked]
+    if comms.get_rank() != 0:
+        return None
+    arrays = {f"{prefix}rep{j}": tensor_to_array(leaf)
+              for j, leaf in enumerate(sharded.replicated)}
+    arrays.update({f"{prefix}st{j}": a for j, a in enumerate(stacked)})
+    return arrays
+
+
+def _sharded_from_arrays(kind: str, sh_aux: dict, a: dict, comms, dev,
+                         prefix: str = ""):
+    """This rank's ``ShardedIndex`` of an archive's arrays: the replicated
+    tables and this rank's row of each stacked leaf.  The archive's world
+    must be the communicator's size — a partition is laid out for one
+    world; re-shard the base index to change it."""
+    from raft_tpu_torch.comms.comms import as_comms
+    from raft_tpu_torch.neighbors import ann_mnmg
+
+    comms = ann_mnmg._full_axis_comms(as_comms(comms))
+    world = int(sh_aux["world"])
+    expects(world == comms.get_size(),
+            f"archive was sharded for world={world}, communicator has "
+            f"{comms.get_size()} — re-shard the base index instead")
+    rank = comms.get_rank()
+    n_rep = sum(1 for name in a if name.startswith(f"{prefix}rep"))
+    n_st = sum(1 for name in a if name.startswith(f"{prefix}st"))
+    replicated = tuple(array_to_tensor(a[f"{prefix}rep{j}"], dev)
+                       for j in range(n_rep))
+    stacked = tuple(array_to_tensor(a[f"{prefix}st{j}"][rank], dev)
+                    for j in range(n_st))
+    return ann_mnmg.ShardedIndex(kind, comms, replicated, stacked,
+                                 dict(sh_aux))
+
+
 def save_sharded(path, sharded) -> None:
     """Write an ``ann_mnmg.ShardedIndex`` to *path* (``.npz``; atomic and
     checksummed) in the JAX package's layout: ``rep{j}`` the replicated
     tables, ``st{j}`` each stacked leaf as (world, …), the aux (world
     included) in the header.  A collective: every rank calls it, the
     blocks are gathered to the first rank, which writes, and every rank
-    returns once the archive is in place."""
-    comms = sharded.comms
-    stacked = [_gather_leaf(comms, leaf) for leaf in sharded.stacked]
-    if comms.get_rank() == 0:
-        arrays = {f"rep{j}": tensor_to_array(leaf)
-                  for j, leaf in enumerate(sharded.replicated)}
-        arrays.update({f"st{j}": a for j, a in enumerate(stacked)})
+    returns once the archive is in place.  A ``MutableIndex`` (over a
+    sharded main or not) goes to :func:`save_mutable`, as in the JAX
+    package."""
+    from raft_tpu_torch.neighbors import mutable as _mutable
+
+    if isinstance(sharded, _mutable.MutableIndex):
+        return save_mutable(path, sharded)
+    arrays = _sharded_arrays(sharded)
+    if arrays is not None:
         _atomic_savez(path, _finish("sharded", arrays,
                                     {"kind": sharded.kind,
                                      "aux": dict(sharded.aux)}))
-    comms.barrier()
+    sharded.comms.barrier()
 
 
 def load_sharded(path, comms, device=None):
     """An ``ann_mnmg.ShardedIndex`` from an archive either package's
     ``save_sharded`` wrote: every rank reads the replicated tables and its
-    own row of each stacked leaf onto *device* (``None``: the card).  The
-    archive's world must be the communicator's size — a partition is laid
-    out for one world; re-shard the base index to change it."""
-    from raft_tpu_torch.comms.comms import as_comms
-    from raft_tpu_torch.neighbors import ann_mnmg
-
-    comms = ann_mnmg._full_axis_comms(as_comms(comms))
-    dev = resolve_device(device)
+    own row of each stacked leaf onto *device* (``None``: the card).  A
+    mutable archive goes to :func:`load_mutable`, as in the JAX package
+    (*comms* is then needed only when its main is sharded)."""
+    if _peek_kind(path) == "mutable":
+        return load_mutable(path, device, comms)
     aux, a = _unpack(path, "sharded")
-    world = int(aux["aux"]["world"])
-    expects(world == comms.get_size(),
-            f"archive was sharded for world={world}, communicator has "
-            f"{comms.get_size()} — re-shard the base index instead")
-    rank = comms.get_rank()
-    n_rep = sum(1 for name in a if name.startswith("rep"))
-    n_st = sum(1 for name in a if name.startswith("st"))
-    replicated = tuple(array_to_tensor(a[f"rep{j}"], dev)
-                       for j in range(n_rep))
-    stacked = tuple(array_to_tensor(a[f"st{j}"][rank], dev)
-                    for j in range(n_st))
-    return ann_mnmg.ShardedIndex(aux["kind"], comms, replicated, stacked,
-                                 dict(aux["aux"]))
+    return _sharded_from_arrays(aux["kind"], aux["aux"], a, comms,
+                                resolve_device(device))
+
+
+def _peek_kind(path) -> str:
+    """The kind in an archive's header, read without its arrays."""
+    path = _normalize(path)
+    try:
+        with np.load(path) as z:
+            expects("__header__" in z.files,
+                    f"{path}: not a raft-tpu index file (no header)")
+            header = json.loads(bytes(z["__header__"]).decode())
+    except (zipfile.BadZipFile, zlib.error, EOFError, ValueError,
+            json.JSONDecodeError, UnicodeDecodeError, KeyError, OSError) as e:
+        raise CorruptionError(
+            f"{path}: corrupt or truncated index archive ({e})") from e
+    return header.get("kind", "")
 
 
 def load_ivf_pq(path, device=None) -> ivf_pq.Index:
@@ -263,11 +310,14 @@ def save_mutable(path, mut) -> None:
     """Write a :class:`~raft_tpu_torch.neighbors.mutable.MutableIndex` to
     *path* (``.npz``; atomic and checksummed): one snapshot of the (main,
     delta, tombstones) triple taken under the write lock.  The main is
-    stored as it is; the delta and the tombstones as their host books
-    (live delta rows with their ids in insertion order, the dead main
-    ids, the live main rows), which :func:`load_mutable` replays through
-    ``upsert`` / ``delete`` — the JAX package's layout, so either package
-    reads the other's.  Single device only."""
+    stored as it is (a sharded main as ``main_rep{j}`` / ``main_st{j}``,
+    the :func:`save_sharded` layout); the delta and the tombstones as
+    their host books (live delta rows with their ids in insertion order,
+    the dead main ids, the live main rows), which :func:`load_mutable`
+    replays through ``upsert`` / ``delete`` — the JAX package's layout,
+    so either package reads the other's.  Over a sharded main a
+    collective: every rank calls it, the first rank writes, every rank
+    returns once the archive is in place."""
     from raft_tpu_torch.neighbors import mutable as _mutable
 
     expects(isinstance(mut, _mutable.MutableIndex),
@@ -275,24 +325,41 @@ def save_mutable(path, mut) -> None:
     with mut._lock:
         core = mut._mut_core
         index = core.main
-        fam = _flat_aux(index) if core.kind == "ivf_flat" else _pq_aux(index)
-        arrays = {f"main_{name}": a for name, a in _leaves(index).items()}
-        arrays["mut_main_ids"] = core.main_ids.astype(np.int64)
-        arrays["mut_main_dead"] = np.asarray(sorted(core.main_dead),
-                                             np.int64)
-        live = core.main_live_mask()
-        arrays["mut_main_live_ids"] = core.main_ids[live].astype(np.int64)
-        if live.any():
-            arrays["mut_main_live_rows"] = tensor_to_array(
-                core.main_x[torch.as_tensor(live, device=core.main_x.device)])
-        delta_ids = np.asarray(list(core.delta_live), np.int64)
-        arrays["mut_delta_ids"] = delta_ids
-        if delta_ids.size:
-            arrays["mut_delta_rows"] = tensor_to_array(torch.stack(
-                [core.delta_x[int(j)] for j in delta_ids]))
-        aux = {"kind": core.kind, "sharded": False, "family": fam,
-               "build_params": _params_to_aux(mut.build_params)}
-    _atomic_savez(path, _finish("mutable", arrays, aux))
+        if mut.sharded:
+            arrays = _sharded_arrays(index, "main_")
+            fam = {"aux": dict(index.aux)}
+        else:
+            arrays = {f"main_{name}": a
+                      for name, a in _leaves(index).items()}
+            fam = (_flat_aux(index) if core.kind == "ivf_flat"
+                   else _pq_aux(index))
+        if arrays is not None:
+            arrays.update(_mutable_books(core))
+            aux = {"kind": core.kind, "sharded": mut.sharded,
+                   "family": fam,
+                   "build_params": _params_to_aux(mut.build_params)}
+            _atomic_savez(path, _finish("mutable", arrays, aux))
+    if mut.sharded:
+        mut.comms.barrier()
+
+
+def _mutable_books(core) -> dict:
+    """A mutable core's host books as archive arrays."""
+    arrays = {"mut_main_ids": core.main_ids.astype(np.int64),
+              "mut_main_dead": np.asarray(sorted(core.main_dead), np.int64)}
+    live = core.main_live_mask()
+    arrays["mut_main_live_ids"] = core.main_ids[live].astype(np.int64)
+    if live.any():
+        # main_x holds the rows in the order they came (only the live
+        # ones after a load): each id's row is main_row's
+        rows = torch.as_tensor(core.main_row[live], device=core.main_x.device)
+        arrays["mut_main_live_rows"] = tensor_to_array(core.main_x[rows])
+    delta_ids = np.asarray(list(core.delta_live), np.int64)
+    arrays["mut_delta_ids"] = delta_ids
+    if delta_ids.size:
+        arrays["mut_delta_rows"] = tensor_to_array(torch.stack(
+            [core.delta_x[int(j)] for j in delta_ids]))
+    return arrays
 
 
 def load_mutable(path, device=None, comms=None):
@@ -300,28 +367,32 @@ def load_mutable(path, device=None, comms=None):
     *device* (``None``: the card) from an archive either package's
     ``save_mutable`` wrote: the main restored as stored, then the archived
     delta rows upserted and the dead main ids deleted — the same live rows
-    through the same programs.  A sharded archive (or *comms*) is not
-    ported yet and raises."""
+    through the same programs.  An archive of a sharded main is restored
+    onto *comms*, a communicator of the archived world (every rank calls
+    it, and gets its own shard and the same books)."""
     from raft_tpu_torch.neighbors import mutable as _mutable
-    from raft_tpu_torch.neighbors._common import array_to_tensor
 
-    expects(comms is None, "load_mutable: a sharded main is not ported yet")
     dev = resolve_device(device)
     aux, a = _unpack(path, "mutable")
-    expects(not aux["sharded"],
-            "load_mutable: the archive holds a sharded main, which is not "
-            "ported yet")
     fam_kind, fam = aux["kind"], aux["family"]
-    arrays = {k[len("main_"):]: v for k, v in a.items()
-              if k.startswith("main_")}
-    if fam_kind == "ivf_flat":
-        main = ivf_flat.index_from_arrays(arrays, fam["metric"],
-                                          fam["adaptive_centers"],
-                                          device=dev)
+    if aux["sharded"]:
+        expects(comms is not None,
+                "load_mutable: the archive holds a sharded main — pass comms")
+        main = _sharded_from_arrays(fam_kind, fam["aux"], a, comms, dev,
+                                    "main_")
     else:
-        main = ivf_pq.index_from_arrays(
-            arrays, fam["metric"], fam["codebook_kind"], fam["pq_bits"],
-            fam.get("dataset_dtype", "float32"), device=dev)
+        expects(comms is None, "load_mutable: the archive holds a "
+                "single-device main — comms= goes with a sharded one")
+        arrays = {k[len("main_"):]: v for k, v in a.items()
+                  if k.startswith("main_")}
+        if fam_kind == "ivf_flat":
+            main = ivf_flat.index_from_arrays(arrays, fam["metric"],
+                                              fam["adaptive_centers"],
+                                              device=dev)
+        else:
+            main = ivf_pq.index_from_arrays(
+                arrays, fam["metric"], fam["codebook_kind"], fam["pq_bits"],
+                fam.get("dataset_dtype", "float32"), device=dev)
     main_ids = a["mut_main_ids"].astype(np.int64)
     delta_ids = a["mut_delta_ids"].astype(np.int64)
     live_main = a["mut_main_live_ids"].astype(np.int64)

@@ -4,7 +4,8 @@ index, the tiered index and the sharded and replicated indexes of
 :110-291, ``_ShardedBackend`` :294 and ``_ReplicaBackend`` :392 with
 ``_sharded_ingest`` :341 and ``_sharded_batch_cap`` :376 as their shared
 ``ingest`` / ``batch_cap``, ``_TieredBackend`` :442 and
-``_MutableBackend`` :474, ``_make_backend`` :527,
+``_MutableBackend`` :474 (over a sharded main: ``_ShardedMutableBackend``
+here), ``_make_backend`` :527,
 ``ServeEngine`` :544-1633, with the autotuner's hooks :823-892, replica
 routing :1539-1615).
 
@@ -65,7 +66,12 @@ routing :1539-1615).
 
 A ``mutable.MutableIndex`` is served by the mutable backend (main ∪
 delta, tombstones masked in the scan) while ``upsert`` / ``delete`` run
-on it; its compaction promotes the new core through :meth:`refresh`.  A
+on it; its compaction promotes the new core through :meth:`refresh`.
+Over a sharded main it is a distributed index (below): the leader's
+``upsert`` / ``delete`` and its compactions (a ``Compactor`` driving
+``compact(engine=...)``) reach every rank as the control plane's WRITE
+and COMPACT ops, and every dispatch sees the index as it stands at its
+place in the order of those ops.  A
 ``tiering.TieredIndex`` is served by the tiered backend (hot block on
 the device, cold tiles staged per batch, optional exact re-rank);
 ``refresh(tiering.retier(t, searcher.hotness()))`` re-tiers it, and
@@ -458,18 +464,28 @@ class _DistributedBackend:
     def batch_cap(self) -> Optional[int]:
         return ann_mnmg.batch_cap(self._local, self.searcher)
 
+    def _capture(self):
+        """What a dispatch must see of the served state, taken in the
+        order of the lane's ops (under its lock, when the op is posted);
+        none here: a sharded index does not change."""
+        return None
+
+    def _search(self, block: torch.Tensor, captured):
+        return self.searcher.dispatch(block)
+
     def _run(self, lane: int, block: torch.Tensor):
         wire = self.wire
         with wire.locks[lane]:
             posted = wire.post(lane, self.gen, block, self.k)
             if lane != wire.lane:
                 return posted
+            captured = self._capture()
 
             def search():
                 # as the single-device path copies: a blocking copy from
                 # pageable memory would wait for the lane's earlier work
-                d, i = self.searcher.dispatch(
-                    block.to(self.device, non_blocking=True))
+                d, i = self._search(block.to(self.device, non_blocking=True),
+                                    captured)
                 for w, _ in posted:
                     w.wait()
                 return d, i
@@ -500,8 +516,8 @@ class _DistributedBackend:
 
     def run_follower(self, block: torch.Tensor):
         """A follower's share of one dispatch: its shard's search."""
-        return self.searcher.dispatch(block.to(self.device,
-                                               non_blocking=True))
+        return self._search(block.to(self.device, non_blocking=True),
+                            self._capture())
 
     def solo(self, q, replica: int = 0):
         """The request as ``ann_mnmg.search`` batches it — bucketed
@@ -552,11 +568,59 @@ class _ReplicaBackend(_DistributedBackend):
         return self._run(int(replica), block)
 
 
+class _ShardedMutableBackend(_DistributedBackend):
+    """Adapter: a ``mutable.MutableIndex`` over an ``ann_mnmg.ShardedIndex``
+    → its searcher on every rank of the main's communicator (one lane):
+    the masked sharded main and the delta, folded.  A dispatch sees the
+    index as it stands at the dispatch's place in the lane's order: the
+    leader captures the core when it posts the dispatch, under the lane's
+    lock, where it also applies and posts its writes (WRITE) and its
+    compaction's phases (COMPACT), so every rank searches the same
+    state.  The leader's backend routes the index's writes through the
+    engine's control plane until the engine closes."""
+
+    def __init__(self, mut, k: int, params, engine: Optional[str],
+                 wire: spmd.LaneWire):
+        self.mutable = mut
+        self.name = f"sharded_mutable_{mut.kind}"
+        self.params = params
+        self.searcher = mut.searcher(int(k), params, engine)
+        self.fn = mutable._sharded_merged_search_impl
+        self.k = int(k)
+        self.dim = mut.dim
+        self.device = mut.device
+        self.wire = wire
+        self.gen = 0
+        if wire.is_leader:
+            mut._attach(wire)
+
+    def ingest(self, q) -> torch.Tensor:
+        if self.mutable.kind == "ivf_pq":
+            return _pq_ingest(q, self.dim, self.mutable.dataset_dtype)
+        return _flat_ingest(q, self.dim, self.mutable.metric, self.device)
+
+    def batch_cap(self) -> Optional[int]:
+        return self.searcher.batch_cap()
+
+    def _capture(self):
+        return self.mutable._capture()
+
+    def _search(self, block: torch.Tensor, captured):
+        return self.searcher.dispatch(block.float(), captured)
+
+    def dispatch(self, block: torch.Tensor, replica: int = 0):
+        return self._run(0, block)
+
+
+def _sharded_mutable(index) -> bool:
+    return isinstance(index, mutable.MutableIndex) and index.sharded
+
+
 def _lanes(index) -> Optional[List[List[int]]]:
     """The lanes of a distributed index (None for a single-device one)."""
     if isinstance(index, ann_mnmg.ReplicaSet):
         return [list(index.ranks(r)) for r in range(index.n_replicas)]
-    if isinstance(index, ann_mnmg.ShardedIndex):
+    if isinstance(index, ann_mnmg.ShardedIndex) or _sharded_mutable(index):
         return [list(index.comms.ranks)]
     return None
 
@@ -567,6 +631,8 @@ def _make_backend(index, k, params, engine, metric, metric_arg,
         return _ReplicaBackend(index, k, params, engine, wire)
     if isinstance(index, ann_mnmg.ShardedIndex):
         return _ShardedBackend(index, k, params, engine, wire)
+    if _sharded_mutable(index):
+        return _ShardedMutableBackend(index, k, params, engine, wire)
     if isinstance(index, tiering.TieredIndex):
         return _TieredBackend(index, k, params, engine)
     if isinstance(index, ivf_flat.Index):
@@ -975,6 +1041,8 @@ class ServeEngine:
                 if late:
                     _warm(backend, late, DTYPES[dt])
                     warmed.setdefault(dt, set()).update(late)
+            if self._index is not index and _sharded_mutable(self._index):
+                self._index._detach(self._wire)
             self._backend = backend
             self._gen = gen
             self._index = index
@@ -1003,7 +1071,8 @@ class ServeEngine:
                 "distributed engine")
         expects(not self._closed, "follow() on a closed engine")
         why = self._wire.serve(self._on_dispatch, self._on_refresh,
-                               self._on_retire)
+                               self._on_retire, self._on_write,
+                               self._on_compact)
         if why == "close":
             self._closed = True
         return why
@@ -1028,6 +1097,18 @@ class ServeEngine:
             return True
         self._follow_refresh = (gen, params)
         return False
+
+    def _served_mutable(self, op: str):
+        expects(_sharded_mutable(self._index),
+                f"{op}: this engine serves no sharded MutableIndex")
+        return self._index
+
+    def _on_write(self, arg: int, ids: torch.Tensor, rows) -> None:
+        self._served_mutable("WRITE")._apply_remote_write(
+            arg, ids.numpy(), rows)
+
+    def _on_compact(self, phase: int) -> None:
+        self._served_mutable("COMPACT")._follow_compact(phase)
 
     def _on_retire(self, gen: int) -> None:
         for g in [g for g in self._gens if g < gen]:
@@ -1144,6 +1225,8 @@ class ServeEngine:
         try:
             http, self._http, self._recorder = self._http, None, None
             if self._wire is not None and self._wire.is_leader:
+                if _sharded_mutable(self._index):
+                    self._index._detach(self._wire)
                 self._wire.close()
         finally:
             if acquired:

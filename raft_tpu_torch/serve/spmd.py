@@ -38,6 +38,18 @@ argument — then the payload:
   generation, so the old one serves while the new one warms.
 * ``RETIRE`` — backends older than the generation are dropped.
 * ``CLOSE`` — ``follow()`` returns ``"close"``.
+* ``WRITE`` — a write to a served ``mutable.MutableIndex`` over a sharded
+  main: the argument says upsert or delete, the bucket field the rows,
+  the type code their type; the payload is the ids (int64) and, for an
+  upsert, the rows, as host bytes.  Every follower applies the leader's
+  writes in the order they stand between its dispatches.
+* ``COMPACT`` — a phase of the leader's compaction of that index (the
+  argument): start (each follower takes its live rows at this point of
+  the write order and builds its share of ``build_sharded`` on a thread
+  of its own, serving the old core meanwhile), swap (the follower waits
+  for its build, bounded by the communicator's timeout, and swaps at this
+  point) or abort.  The engine's refresh that promotes the compacted
+  index follows, with its REFRESH / RETIRE generation.
 
 **Staging.**  The control plane carries host tensors only (gloo's
 point-to-point of CUDA tensors broke the world; its collectives take
@@ -83,7 +95,8 @@ _log = logging.getLogger(__name__)
 #: the rank that owns the engine's public API
 LEADER = 0
 
-OP_DISPATCH, OP_REFRESH, OP_RETIRE, OP_CLOSE = 1, 2, 3, 4
+OP_DISPATCH, OP_REFRESH, OP_RETIRE, OP_CLOSE, OP_WRITE, OP_COMPACT = (
+    1, 2, 3, 4, 5, 6)
 _HEADER = 8
 
 #: the block types the wire carries, by code (the engine's ladder types)
@@ -252,6 +265,38 @@ class LaneWire:
 
         return _Local(self._local.submit(run), d, i)
 
+    def post_write(self, arg: int, ids, rows: Optional[torch.Tensor]):
+        """Send one write to the followers of the leader's lane (the
+        caller holds the lane's lock): the ids and, with *rows*, the rows,
+        staged through the host.  Returns the posted work to wait on once
+        the lock is released."""
+        lane = self.lane
+        if self.groups[lane] is None:
+            return []
+        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1)
+        parts = [ids.view(torch.uint8)]
+        dtype = torch.float32
+        if rows is not None:
+            rows = rows.detach().cpu().contiguous()
+            expects(rows.dtype in _CODE, f"WRITE: rows of type {rows.dtype} "
+                    "do not travel on the control plane")
+            dtype = rows.dtype
+            parts.append(rows.view(torch.uint8).reshape(-1))
+        raw = torch.cat(parts)
+        return [self._header(lane, OP_WRITE, bucket=ids.numel(), dtype=dtype,
+                             nbytes=raw.numel(), arg=arg),
+                self._payload(lane, raw, "write")]
+
+    def post_compact(self, phase: int):
+        """Send one phase of a compaction to the followers of the leader's
+        lane (the caller holds the lane's lock); returns the posted
+        work."""
+        lane = self.lane
+        if self.groups[lane] is None:
+            return []
+        self.calls.inc("compact")
+        return [self._header(lane, OP_COMPACT, arg=phase)]
+
     def _to_all(self, op: int, gen: int = 0, payload: bytes = b"",
                 arg: int = 0) -> None:
         for lane in range(self.n_lanes):
@@ -285,12 +330,17 @@ class LaneWire:
     # -- a follower's side ---------------------------------------------------
     def serve(self, dispatch: Callable[[int, torch.Tensor], Tuple],
               refresh: Callable[[int, object, bool], bool],
-              retire: Callable[[int], None]) -> str:
+              retire: Callable[[int], None],
+              write: Callable[[int, torch.Tensor, Optional[torch.Tensor]],
+                              None],
+              compact: Callable[[int], None]) -> str:
         """Run the leader's ops until it closes (``"close"``) or sends a
         new index (``"refresh"``, after ``refresh(gen, params, False)``
         recorded it).  ``dispatch(gen, block)`` runs one block, ``refresh
         (gen, params, same_index)`` returns True when it rebuilt the
-        backend itself, ``retire(gen)`` drops older backends."""
+        backend itself, ``retire(gen)`` drops older backends, ``write(arg,
+        ids, rows)`` applies a write (rows None for a delete) and
+        ``compact(phase)`` a compaction phase."""
         expects(not self.is_leader, "follow() is for the ranks other than "
                 "the leader (rank 0)")
         g = self.groups[self.lane]
@@ -306,8 +356,20 @@ class LaneWire:
             if op == OP_RETIRE:
                 retire(gen)
                 continue
+            if op == OP_COMPACT:
+                self.calls.inc("compact")
+                compact(arg)
+                continue
             buf = torch.empty(nbytes, dtype=torch.uint8)
             dist.broadcast(buf, src=LEADER, group=g)
+            if op == OP_WRITE:
+                self.calls.inc("write")
+                self.calls.inc("write_bytes", nbytes)
+                ids = buf[:8 * bucket].view(torch.int64)
+                rows = (buf[8 * bucket:].view(DTYPES[code]).reshape(
+                    bucket, -1) if nbytes > 8 * bucket else None)
+                write(arg, ids, rows)
+                continue
             if op == OP_REFRESH:
                 self.calls.inc("params")
                 if not refresh(gen, pickle.loads(buf.numpy().tobytes()),

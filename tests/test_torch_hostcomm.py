@@ -1,6 +1,7 @@
-"""The port's host p2p plane: its mailbox client against the JAX package's
-server and the JAX client against the port's (the wire protocol byte for
-byte), FIFO per tag, tags that do not cross, a large payload, and
+"""The port's host p2p plane over its threaded Python server (the native
+one: ``test_torch_native.py``): its mailbox client against the JAX
+package's server and the JAX client against the port's (the wire protocol
+byte for byte), FIFO per tag, tags that do not cross, a large payload, and
 ``host_barrier`` and tagged ``isend`` / ``waitall`` across a gloo world of
 two processes."""
 
@@ -26,7 +27,7 @@ def jax_python_server(monkeypatch):
 
 @pytest.fixture
 def port_server():
-    with hostcomm.MailboxServer() as server:
+    with hostcomm.MailboxServer(backend="python") as server:
         assert server.backend == "python"
         yield f"{server.address[0]}:{server.address[1]}"
 

@@ -2,7 +2,9 @@
 any raft_tpu module, no file of the port (or chip_smoke.py) imports them
 or the JAX package's ``bench`` folder,
 and entry points asked for no device raise when CUDA is absent — the
-distributed ones included, none of which drops to gloo on the CPU."""
+distributed ones included, none of which drops to gloo on the CPU.  The
+native runtime's loader reads ``native/`` and builds under ``build/``
+only, never into the JAX package's library path."""
 
 import ast
 import pathlib
@@ -33,7 +35,8 @@ DISTRIBUTED = ("comms/__init__.py", "comms/comms.py", "comms/comms_types.py",
                "comms/session.py", "cluster/kmeans_mnmg.py",
                "neighbors/knn_mnmg.py", "neighbors/ann_mnmg.py",
                "serve/spmd.py", "telemetry/aggregate.py",
-               "testing/world.py")
+               "testing/world.py", "native.py", "neighbors/mutable.py",
+               "neighbors/serialize.py")
 
 
 def test_import_leaves_jax_and_raft_tpu_out():
@@ -114,7 +117,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == ("RAISED:fit,knn_mnmg,predict,"
-                                      "shard_brute_force,build_sharded"), \
+                                      "shard_brute_force,build_sharded,"
+                                      "load_mutable"), \
         out.stdout
 
 
@@ -122,7 +126,7 @@ _MNMG_PROBE = """
 import numpy as np, torch
 from raft_tpu_torch.cluster import KMeansParams, kmeans_mnmg
 from raft_tpu_torch.comms import CommsSession
-from raft_tpu_torch.neighbors import ann_mnmg, ivf_flat
+from raft_tpu_torch.neighbors import ann_mnmg, ivf_flat, serialize
 from raft_tpu_torch.neighbors.knn_mnmg import knn_mnmg
 
 session = CommsSession(device="cpu").init()
@@ -139,7 +143,9 @@ for name, call in (
          lambda: ann_mnmg.shard_brute_force(x, session.comms)),
         ("build_sharded",
          lambda: ivf_flat.build_sharded(ivf_flat.IndexParams(n_lists=2), x,
-                                        session.comms))):
+                                        session.comms)),
+        ("load_mutable",
+         lambda: serialize.load_mutable("no_archive", comms=session.comms))):
     try:
         call()
     except RuntimeError as e:
@@ -245,3 +251,17 @@ def test_tiering_and_ann_modules_stand_alone(monkeypatch):
         ann.approx_knn_build_index(ann.IVFFlatParam(nlist=4), x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tiering.tier(ivf_flat.build(ivf_flat.IndexParams(n_lists=4), x))
+
+
+def test_native_loader_stands_alone():
+    """The port's native loader is its own: it imports nothing of the JAX
+    package, reads the checkout's ``native/`` sources and builds under
+    ``build/``, never into ``native/libraft_tpu_runtime.so``."""
+    from raft_tpu_torch import native
+
+    for name in _imports(PORT / "native.py"):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "raft_tpu")
+    assert native.SOURCE_DIR == ROOT / "native"
+    assert native.BUILD_DIR.is_relative_to(ROOT / "build")
+    assert native.library_path().parent == native.BUILD_DIR
+    assert "libraft_tpu_runtime.so" not in native.library_path().name

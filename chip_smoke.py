@@ -4,8 +4,9 @@ PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
 paths (each request type on its own ladder), the serving autotuner,
 random ball cover, the ε-neighbourhood, the distributed layer (MNMG
 k-means and kNN at world 1 over NCCL and world 2 over gloo), sharded and
-replicated serving and the mutable index over a sharded main on one
-NVIDIA card.
+replicated serving, the mutable index over a sharded main and the
+sparse graph path (single linkage, spectral partitioning with
+BASELINE.json configs[3], sparse kNN) on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -247,7 +248,39 @@ Phases, one JSON line each:
    the 1M × 128 dataset in one batch (ε the median squared 10-NN
    distance) against ``torch.cdist`` (except within 1e-5 × ε of ε), its
    seconds and peak device memory.
-12. the ``{"kernels": [...]}`` line, then the last line
+12. the sparse graph path: ``single_linkage`` on the k-means path's
+   blobs (100,000 × 128, 1,024 clusters): KNN_GRAPH with c = 15 (cuML
+   ``AgglomerativeClustering``'s n_neighbors), n − 1 edges in one
+   component, ARI against the blobs, the native dendrogram and cut bit
+   for bit their numpy twins, seconds by stage and the fix-up rounds;
+   PAIRWISE on the first 20,000 rows, its MST weight against scipy's
+   ``minimum_spanning_tree`` of the same matrix on the host (in a process
+   of its own, started after the next two phases so that none of their
+   timings shares the host with it) and not above KNN_GRAPH's; B2 at the
+   kNN graph's first tile (4,096 × 100,000, k = 31) bit for bit its plain
+   version and against ``torch.topk``.
+   ``spectral``: BASELINE.json configs[3] (a ``scipy.sparse.random``
+   20,000 × 20,000 graph at density 2e-3, symmetrised, its Laplacian,
+   ``lanczos_smallest`` of 8 at tol 1e-6 from a seeded start; solves/s
+   over 5 solves), then a planted-partition graph of 1,000,000 vertices
+   in 16 communities (12 partners inside, 4 outside a vertex, through
+   ``from_triplets`` and ``symmetrize``: ~32M nnz) through
+   ``spectral.partition`` and ``modularity_maximization`` (16
+   eigenvectors, 16 clusters): every eigenpair's residual within 1e-3 ×
+   ‖A‖₁, VᵀV within 1e-4 of I, ARI against the plants at least 0.9,
+   ``analyze_partition`` / ``analyze_modularity``, solve and k-means
+   seconds, restarts and SpMVs; B1 and B3 at each pipeline's (1M, 16)
+   embedding and its labels' centroids against their plain versions (the
+   kernels line's ``spectral_shapes``).  ``sparse_knn``: 100,000
+   TF-IDF-shaped rows (131,072 Zipf-like features, 32–128 draws a row,
+   L2-normalised through ``row_normalize``), the first 1,000 as queries,
+   k = 10:
+   ``brute_force_knn`` under cosine and inner product (the compressed
+   engine) against a ``torch.sparse`` CSR product and ``torch.topk``, and
+   under L1 on 1,024 features (the densify engine, B5) against
+   ``torch.cdist(p=1)``; ids equal except at near ties.  Each prints its
+   kernels' launches and fails if a kernel of its path never launched.
+13. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -354,6 +387,12 @@ PATH_KERNELS = {
                         "lut_scan_tombstones"),
     "sharded_mutable_w2": ("fused_l2_nn", "fused_l2_nn_partials",
                            "select_k", "lut_scan_tombstones"),
+    # the k-means that clusters each spectral embedding (B1 and B3 at
+    # d = 16); the kNN graph's selects; the sparse kNN's selects and, in
+    # its densify engine under L1, B5
+    "spectral": ("fused_l2_nn", "fused_l2_nn_partials"),
+    "single_linkage": ("select_k",),
+    "sparse_knn": ("pairwise_accumulate", "select_k"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -2940,6 +2979,100 @@ def kmeans_ties(device, x, k: int, l: int, n_rounds: int, seed: int):
     return out, buf
 
 
+def b1_row(name, device, x, y, rep: int):
+    """B1 on (x, y) against its plain version: labels equal except at near
+    ties, values within 1e-5 of ‖x‖² + ‖y‖²; with its time, the plain
+    version's, the product's alone and the bound."""
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.kernels import fused_l2nn
+
+    n, d = x.shape
+    ky = y.shape[0]
+    val, idx = fused_l2nn.fused_l2_nn(x, y)
+    pv, pi = plain_nn.fused_l2_nn_plain(x, y)
+    n_diff = kmeans_labels(f"fused_l2_nn {name}", idx, pi, x, y,
+                           DistanceType.L2Expanded)
+    scale = (x * x).sum(1) + (y * y).sum(1)[idx.long()]
+    err = (val - pv).abs()
+    check(bool((err <= 1e-5 * scale).all()),
+          f"fused_l2_nn {name}: values beyond 1e-5 of the norms")
+    bound, by = bound_ms(4.0 * (n * d + ky * d + 2 * n),
+                         6.0 * n * ky * d, TF32_FLOP_PER_S)
+    return dict(
+        shape=[n, ky, d], max_abs_err=float(err.max()),
+        label_diffs_near_ties=n_diff,
+        ms=timed(lambda: fused_l2nn.fused_l2_nn(x, y), device, rep),
+        plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(x, y), device, 3),
+        product_only_ms=timed(lambda: x @ y.T, device, 3),
+        bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def b3_row(name, device, x, c, rep: int):
+    """B3's EM step on (x, c) against the plain version's: its E-step's
+    labels equal except at near ties, values within 1e-5 of ‖x‖² + ‖c‖²,
+    the inertia within the sum of those bounds (and of B3's own values);
+    then its M-step partials keyed by its labels, which are the plain
+    labels but at the near ties just checked: a cluster's n_c float32
+    terms summed in any order lie within γ(n_c)·Σ|x| of their float64 sum
+    (γ(n) = n·u / (1 − n·u), u = 2⁻²⁴), so B3's must, and the plain
+    version's within twice that of B3's.  With its time, the plain
+    version's and the bound."""
+    import torch
+
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.kernels import fused_l2nn
+    from raft_tpu_torch.linalg.reduce import segment_sum
+
+    n, d = x.shape
+    k = c.shape[0]
+    tag = f"fused_l2_nn_partials {name}"
+    out = fused_l2nn.fused_l2_nn_partials(x, c)
+    ref = plain_nn.fused_l2_nn_partials_plain(x, c)
+    n_diff = kmeans_labels(tag, out[1], ref[1], x, c,
+                           DistanceType.L2Expanded)
+    scale = (x * x).sum(1) + (c * c).sum(1)[out[1].long()]
+    check(bool(((out[0] - ref[0]).abs() <= 1e-5 * scale).all()),
+          f"{tag}: values beyond 1e-5 of the norms")
+    own = float(out[0].double().sum())
+    inertia_gap = abs(float(out[4]) - float(ref[4]))
+    check(inertia_gap <= 1e-5 * float(scale.double().sum()) + 1e-5 * own
+          and abs(float(out[4]) - own) <= 1e-5 * own,
+          f"{tag}: inertia {float(out[4])} against the plain version's "
+          f"{float(ref[4])} and its values' sum {own}")
+    sums, wsum = plain_nn.cluster_partials_plain(x, out[1], k)
+    exact = segment_sum(x.double(), out[1], k)
+    mag = segment_sum(x.double().abs(), out[1], k)
+    nc = segment_sum(torch.ones_like(x[:, 0], dtype=torch.float64), out[1],
+                     k)
+    u = 2.0 ** -24
+    gamma_mag = (nc * u / (1 - nc * u))[:, None] * mag
+    err = (out[2] - exact).abs()
+    plain_err = (sums - exact).abs()
+    check(torch.equal(out[3].double(), nc) and torch.equal(wsum.double(), nc)
+          and bool((err <= gamma_mag).all())
+          and bool(((out[2] - sums).abs() <= 2 * gamma_mag).all()),
+          f"{tag}: partials beyond γ(n_c)·Σ|x| of their float64 sums "
+          f"(B3 {float(err.max())}, plain {float(plain_err.max())})")
+    del ref, scale
+    t_bytes = 4.0 * (n * d + 2 * k * d + 2 * n + k) / HBM_BYTES_PER_S
+    t_ops = 6.0 * n * k * d / TF32_FLOP_PER_S + 1.0 * n * d / F32_FLOP_PER_S
+    share = (err / gamma_mag.clamp_min(1e-300))
+    return dict(
+        shape=[n, k, d], max_abs_err=float((out[2] - sums).abs().max()),
+        partials_err_vs_f64=float(err.max()),
+        plain_partials_err_vs_f64=float(plain_err.max()),
+        partials_err_share_of_bound=float(share.max()),
+        label_diffs_near_ties=n_diff, inertia_gap=inertia_gap,
+        ms=timed(lambda: fused_l2nn.fused_l2_nn_partials(x, c), device, rep),
+        plain_ms=timed(lambda: plain_nn.fused_l2_nn_partials_plain(x, c),
+                       device, 3),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+
+
 def kmeans_kernel_rows(device, x, c, buf, rep: int):
     """B1 at the k-means E-step (n × k × d) and at the k-means‖ width
     (n × (1 + 5·2k) × d), B3 at the EM step (n × k × d) and B5 L1 at one
@@ -2948,72 +3081,17 @@ def kmeans_kernel_rows(device, x, c, buf, rep: int):
     same function, and the bound."""
     import torch
 
-    from raft_tpu_torch.distance import DistanceType
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
-    from raft_tpu_torch.kernels import fused_l2nn, pairwise as pk
+    from raft_tpu_torch.kernels import pairwise as pk
 
-    n, d = x.shape
+    d = x.shape[1]
     k = c.shape[0]
     rows = {"fused_l2_nn": {}}
     for name, y in (("kmeans_e_step", c), ("kmeans_pp_width", buf)):
-        ky = y.shape[0]
-        val, idx = fused_l2nn.fused_l2_nn(x, y)
-        pv, pi = plain_nn.fused_l2_nn_plain(x, y)
-        n_diff = kmeans_labels(f"fused_l2_nn {name}", idx, pi, x, y,
-                               DistanceType.L2Expanded)
-        scale = (x * x).sum(1) + (y * y).sum(1)[idx.long()]
-        err = (val - pv).abs()
-        check(bool((err <= 1e-5 * scale).all()),
-              f"fused_l2_nn {name}: values beyond 1e-5 of the norms")
-        bound, by = bound_ms(4.0 * (n * d + ky * d + 2 * n),
-                             6.0 * n * ky * d, TF32_FLOP_PER_S)
-        rows["fused_l2_nn"][name] = dict(
-            shape=[n, ky, d], max_abs_err=float(err.max()),
-            label_diffs_near_ties=n_diff,
-            ms=timed(lambda: fused_l2nn.fused_l2_nn(x, y), device, rep),
-            plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(x, y), device,
-                           3),
-            product_only_ms=timed(lambda: x @ y.T, device, 3),
-            bound_ms=bound, bound_by=by, library_ms=None)
+        rows["fused_l2_nn"][name] = b1_row(name, device, x, y, rep)
         emit({"phase": "kernel", "name": f"fused_l2_nn@{name}",
               **rows["fused_l2_nn"][name]})
-        del val, idx, pv, pi, err, scale
-
-    # B3's E-step against the plain version's: labels equal except at
-    # near ties, values within 1e-5 of ‖x‖² + ‖c‖², the inertia within
-    # the sum of those bounds (and of B3's own values); then its M-step
-    # partials keyed by its labels, which are the plain labels but at the
-    # near ties just checked
-    out = fused_l2nn.fused_l2_nn_partials(x, c)
-    ref = plain_nn.fused_l2_nn_partials_plain(x, c)
-    n_diff3 = kmeans_labels("fused_l2_nn_partials kmeans", out[1], ref[1], x,
-                            c, DistanceType.L2Expanded)
-    scale = (x * x).sum(1) + (c * c).sum(1)[out[1].long()]
-    check(bool(((out[0] - ref[0]).abs() <= 1e-5 * scale).all()),
-          "fused_l2_nn_partials kmeans: values beyond 1e-5 of the norms")
-    own = float(out[0].double().sum())
-    inertia_gap = abs(float(out[4]) - float(ref[4]))
-    check(inertia_gap <= 1e-5 * float(scale.double().sum()) + 1e-5 * own
-          and abs(float(out[4]) - own) <= 1e-5 * own,
-          f"fused_l2_nn_partials kmeans: inertia {float(out[4])} against "
-          f"the plain version's {float(ref[4])} and its values' sum {own}")
-    sums, wsum = plain_nn.cluster_partials_plain(x, out[1], k)
-    mag, _ = plain_nn.cluster_partials_plain(x.abs(), out[1], k)
-    check(bool(((out[2] - sums).abs() <= 1e-4 * mag + 1e-6).all())
-          and torch.allclose(out[3], wsum, rtol=1e-4),
-          "fused_l2_nn_partials kmeans: partials beyond tolerance")
-    del ref, scale
-    t_bytes = 4.0 * (n * d + 2 * k * d + 2 * n + k) / HBM_BYTES_PER_S
-    t_ops = 6.0 * n * k * d / TF32_FLOP_PER_S + 1.0 * n * d / F32_FLOP_PER_S
-    rows["fused_l2_nn_partials"] = {"kmeans_em_step": dict(
-        shape=[n, k, d], max_abs_err=float((out[2] - sums).abs().max()),
-        label_diffs_near_ties=n_diff3, inertia_gap=inertia_gap,
-        ms=timed(lambda: fused_l2nn.fused_l2_nn_partials(x, c), device, rep),
-        plain_ms=timed(lambda: plain_nn.fused_l2_nn_partials_plain(x, c),
-                       device, 3),
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None)}
+    rows["fused_l2_nn_partials"] = {
+        "kmeans_em_step": b3_row("kmeans", device, x, c, rep)}
     emit({"phase": "kernel", "name": "fused_l2_nn_partials@kmeans_em_step",
           **rows["fused_l2_nn_partials"]["kmeans_em_step"]})
 
@@ -4996,6 +5074,558 @@ def sharded_mutable_w2_phase(device, seed, x, queries, n_lists, n_probes,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sparse graph path: BASELINE.json configs[3] and spectral partitioning
+# of a planted graph (``spectral``), single-linkage HAC on the k-means
+# path's blobs (``single_linkage``), sparse kNN on TF-IDF-shaped rows
+# (``sparse_knn``)
+
+#: BASELINE.json configs[3] as bench.py:1555-1591 defines it: a
+#: scipy.sparse.random graph, symmetrised, its Laplacian, the 8 smallest
+#: eigenpairs at tol 1e-6 from a seeded start, solves/s over 5 solves
+SPEC_CFG3 = {"n": 20_000, "density": 2e-3, "k": 8, "tol": 1e-6,
+             "solves": 5}
+#: the planted-partition graph: communities of equal size, each vertex
+#: drawing partners inside its own and outside it, uniformly
+SPEC_PLANTED = {"n": 1_000_000, "communities": 16, "inside": 12,
+                "outside": 4}
+#: every returned eigenpair's ‖Av − λv‖ at most this × ‖A‖₁; VᵀV within
+#: this of I; the planted labels' ARI at least this (a sanity floor)
+SPEC_RESID = 1e-3
+SPEC_ORTH = 1e-4
+SPEC_ARI_FLOOR = 0.9
+#: single linkage: cuML AgglomerativeClustering's defaults (kNN
+#: connectivity, n_neighbors 15 → c), on the k-means path's blobs; the
+#: PAIRWISE run on the first rows
+SL_C = 15
+SL_PAIRWISE_ROWS = 20_000
+SL_ARI_FLOOR = 0.999
+SL_MST_RTOL = 1e-5
+#: how long the host reference MST (scipy, in its own process) may take
+SL_SCIPY_TIMEOUT_S = 600
+#: sparse kNN: TF-IDF-shaped rows (Zipf-like features, positive values,
+#: L2-normalised), queries the first rows, k
+SPKNN = {"rows": 100_000, "features": 131_072, "nnz": (32, 128),
+         "queries": 1_000, "k": 10, "zipf": 1.1,
+         "l1_features": 1_024, "l1_nnz": 32}
+
+_SCIPY_MST = """
+import sys
+import numpy as np
+import scipy.sparse as sp
+from scipy.sparse.csgraph import minimum_spanning_tree
+
+d = np.load(sys.argv[1], mmap_mode="r")
+# the upper triangle: scipy takes an edge's weight from either half
+tree = minimum_spanning_tree(sp.csr_matrix(np.triu(d)))
+print(repr(float(tree.astype(np.float64).sum())), tree.nnz)
+"""
+
+
+def _eigpair_checks(name, apply, norm1, vals, vecs):
+    """Residuals ‖A v − λ v‖ of every returned pair against SPEC_RESID ×
+    ‖A‖₁ and VᵀV against I; returns (max residual, max |VᵀV − I|)."""
+    import torch
+
+    check(vecs.shape[1] == vals.shape[0]
+          and bool(torch.isfinite(vecs).all())
+          and bool(torch.isfinite(vals).all()),
+          f"{name}: eigenpairs not finite or of the wrong shape")
+    resid = max(float(torch.linalg.vector_norm(apply(vecs[:, i].contiguous())
+                                               - vals[i] * vecs[:, i]))
+                for i in range(vals.shape[0]))
+    eye = torch.eye(vecs.shape[1], dtype=vecs.dtype, device=vecs.device)
+    orth = float((vecs.T @ vecs - eye).abs().max())
+    check(resid <= SPEC_RESID * norm1, f"{name}: residual {resid} above "
+          f"{SPEC_RESID} × ‖A‖₁ = {SPEC_RESID * norm1}")
+    check(orth <= SPEC_ORTH, f"{name}: |VᵀV − I| {orth} above {SPEC_ORTH}")
+    return resid, orth
+
+
+def _lanczos_counts():
+    from raft_tpu_torch import telemetry
+
+    return {k: telemetry.counter(f"raft_tpu_lanczos_{k}_total").get()
+            for k in ("matvecs", "restarts", "solves")}
+
+
+def _planted_graph(seed, device):
+    """SPEC_PLANTED's triplets (numpy, seeded), through ``from_triplets``
+    and ``symmetrize``; returns (adjacency, planted labels, build s)."""
+    import torch
+
+    from raft_tpu_torch import sparse
+
+    p = SPEC_PLANTED
+    n, parts = p["n"], p["communities"]
+    size = n // parts
+    deg = p["inside"] + p["outside"]
+    rng = np.random.default_rng(seed)
+    comm = np.arange(n) // size
+    src = np.repeat(np.arange(n, dtype=np.int32), deg)
+    own = np.tile(np.arange(deg) < p["inside"], n)
+    other = (comm[src] + rng.integers(1, parts, src.shape[0])) % parts
+    dst = (np.where(own, comm[src], other) * size
+           + rng.integers(0, size, src.shape[0])).astype(np.int32)
+    keep = src != dst
+    t0 = time.perf_counter()
+    adj = sparse.symmetrize(sparse.from_triplets(
+        src[keep], dst[keep], np.ones(int(keep.sum()), np.float32), (n, n),
+        device=device))
+    build_s = _synced_seconds(device, t0)
+    return adj, torch.as_tensor(comm, device=device), build_s
+
+
+def spectral_phase(device, seed, smi):
+    """``spectral``: BASELINE.json configs[3] (solves/s over
+    SPEC_CFG3["solves"] solves; no kernel runs there), then
+    ``spectral.partition`` and ``modularity_maximization`` on
+    SPEC_PLANTED's graph with 16 eigenvectors and 16 clusters, each with
+    its launch counts reset: eigenpair residuals and orthogonality, ARI
+    against the plants, ``analyze_partition`` / ``analyze_modularity``,
+    solve and k-means seconds, restarts and SpMVs; B1 and B3 at each
+    pipeline's (n, 16) embedding and its labels' centroids against their
+    plain versions.  Returns (the launch counts of both pipelines
+    together, those kernels' rows by shape)."""
+    import scipy.sparse as sp
+    import torch
+
+    from raft_tpu_torch import sparse, spectral, stats, telemetry
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.sparse.op import segment_reduce
+    from raft_tpu_torch.spectral.partition import _transform_eigen_matrix
+
+    # (a) configs[3]
+    c = SPEC_CFG3
+    n = c["n"]
+    g = sp.random(n, n, density=c["density"], format="csr",
+                  dtype=np.float32, random_state=1)
+    g = (g + g.T).tocsr()
+    adj = sparse.CSR(g.indptr, g.indices, g.data, g.shape, device=device)
+    lap = sparse.laplacian(adj)
+    v0 = torch.as_tensor(np.random.default_rng(0).normal(0, 1, n),
+                         dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    vals, vecs = sparse.lanczos_smallest(lap, c["k"], tol=c["tol"], v0=v0)
+    first_s = _synced_seconds(device, t0)
+    _reset(device)
+    before = _lanczos_counts()
+    times = []
+    for _ in range(c["solves"]):
+        t0 = time.perf_counter()
+        vals, vecs = sparse.lanczos_smallest(lap, c["k"], tol=c["tol"],
+                                             v0=v0)
+        times.append(_synced_seconds(device, t0))
+    counts = {k: (v - before[k]) / c["solves"]
+              for k, v in _lanczos_counts().items()}
+    launches_cfg3 = dict(native.LAUNCHES)
+    norm1 = float(segment_reduce(lap.data.abs(), lap.row_ids(),
+                                 n).max())
+    resid, orth = _eigpair_checks("spectral configs[3]",
+                                  lambda v: sparse.spmv(lap, v), norm1,
+                                  vals, vecs)
+    emit({"phase": "spectral", "part": "configs[3]", "config":
+          "BASELINE.json configs[3]: raft::sparse Lanczos eigensolver "
+          "(bench.py bench_lanczos)", "n": n, "nnz": int(lap.nnz),
+          "k": c["k"], "tol": c["tol"], "card": smi,
+          "first_solve_s": first_s, "solve_s": times,
+          "solves_per_s": c["solves"] / sum(times),
+          "restarts_per_solve": counts["restarts"],
+          "matvecs_per_solve": counts["matvecs"],
+          "eigenvalues": vals.tolist(),
+          "max_residual": resid, "norm1": norm1, "max_orth_err": orth,
+          "launches": launches_cfg3})
+    del adj, lap, vecs
+
+    # (b) the planted graph through both pipelines
+    adj, comm, build_s = _planted_graph(seed, device)
+    k = SPEC_PLANTED["communities"]
+    eig = spectral.LanczosEigenSolver(spectral.EigenSolverConfig(
+        n_eigVecs=k))
+    km = spectral.KMeansClusterSolver(spectral.ClusterSolverConfig(
+        n_clusters=k))
+    deg = spectral.degrees(adj)
+    two_m = float(deg.sum())
+    ones = sparse.CSR(adj.indptr, adj.indices, torch.ones_like(adj.data),
+                      adj.shape)
+    # exact column sums: L = D − A gives 2d; B = A − d dᵀ / 2m gives
+    # 2 d_j − d_j Σ_{i ∈ N(j)} d_i / m (every a_ij ≥ 1 > d_i d_j / 2m)
+    norms = {"partition": float(2 * deg.max()),
+             "modularity_maximization": float(
+                 (2 * deg - deg * sparse.spmv(ones, deg) / (two_m / 2))
+                 .max())}
+    lap_apply = spectral.laplacian_matvec(adj)[0]
+    mod_apply = spectral.modularity_matvec(adj)[0]
+    total = {name: 0 for name in native.LAUNCHES}
+    rows = {"fused_l2_nn": {}, "fused_l2_nn_partials": {}}
+    for name, apply in (("partition", lap_apply),
+                        ("modularity_maximization", mod_apply)):
+        _reset(device)
+        before = _lanczos_counts()
+        t0 = time.perf_counter()
+        with telemetry.collect_spans() as spans:
+            labels, vals, vecs, inertia = getattr(spectral, name)(adj, eig,
+                                                                   km)
+        secs = _synced_seconds(device, t0)
+        launches = dict(native.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+                else None)
+        for key, v in launches.items():
+            total[key] += v
+        counts = {key: v - before[key] for key, v in _lanczos_counts().items()}
+        solve_s = sum(e["dur_s"] for e in spans.events
+                      if e["span"].startswith("raft_tpu.sparse.lanczos"))
+        resid, orth = _eigpair_checks(f"spectral {name}", apply,
+                                      norms[name], vals, vecs)
+        ari = float(stats.adjusted_rand_index(comm, labels))
+        check(labels.shape == (SPEC_PLANTED["n"],)
+              and math.isfinite(float(inertia)),
+              f"spectral {name}: labels (n,) and a finite inertia")
+        check(ari >= SPEC_ARI_FLOOR, f"spectral {name}: ARI {ari} against "
+              f"the planted communities (at least {SPEC_ARI_FLOOR})")
+        for kern in PATH_KERNELS["spectral"]:
+            check(launches[kern] > 0,
+                  f"spectral {name}: the k-means never launched {kern}")
+        # the k-means alone, warm, on the pipeline's embedding
+        emb = _transform_eigen_matrix(vecs)
+        if name == "modularity_maximization":
+            emb = emb / torch.linalg.vector_norm(emb, dim=1,
+                                                 keepdim=True).clamp_min(1e-30)
+        t0 = time.perf_counter()
+        km.solve(emb)
+        kmeans_s = _synced_seconds(device, t0)
+        # B1 and B3 at this new width against their plain versions, on the
+        # embedding and the centroids of the pipeline's labels
+        cnt = torch.bincount(labels.long(), minlength=k).clamp_min(1)
+        cent = torch.zeros(k, emb.shape[1], device=device).index_add_(
+            0, labels.long(), emb) / cnt[:, None]
+        shape = f"spectral_{name}"
+        rows["fused_l2_nn"][shape] = b1_row(shape, device, emb, cent, 5)
+        rows["fused_l2_nn_partials"][shape] = b3_row(shape, device, emb,
+                                                     cent, 5)
+        for kern in rows:
+            emit({"phase": "kernel", "name": f"{kern}@{shape}",
+                  **rows[kern][shape]})
+        edge_cut, cost = spectral.analyze_partition(adj, k, labels)
+        q = spectral.analyze_modularity(adj, k, labels)
+        p_cut, p_cost = spectral.analyze_partition(adj, k, comm)
+        p_q = spectral.analyze_modularity(adj, k, comm)
+        emit({"phase": "spectral", "part": name, "n": SPEC_PLANTED["n"],
+              "nnz": int(adj.nnz), "communities": k, "card": smi,
+              "graph_build_s": build_s, "seconds": secs,
+              "solve_s": solve_s, "kmeans_warm_s": kmeans_s,
+              "restarts": counts["restarts"], "matvecs": counts["matvecs"],
+              "eigenvalues": vals.tolist(), "max_residual": resid,
+              "norm1": norms[name], "max_orth_err": orth,
+              "ari_vs_planted": ari, "inertia": float(inertia),
+              "edge_cut": float(edge_cut), "cost": float(cost),
+              "modularity": float(q), "planted_edge_cut": float(p_cut),
+              "planted_cost": float(p_cost), "planted_modularity":
+              float(p_q), "launches": launches, "peak_mem_bytes": peak})
+        del labels, vecs, emb, cent
+    del adj, ones, lap_apply, mod_apply
+    return total, rows
+
+
+def _mst_weight(w) -> float:
+    return float(w.double().sum())
+
+
+def single_linkage_phase(device, seed, smi):
+    """``single_linkage`` on the k-means path's blobs (``KMEANS_SHAPE``,
+    the same ``make_blobs`` draw): (a) KNN_GRAPH (c = SL_C) into
+    n_clusters = the blob count, its launch counts reset: n − 1 edges in
+    one component, ARI against the blobs, the native dendrogram and cut
+    bit for bit their numpy twins, seconds by stage; (b) PAIRWISE on the
+    first SL_PAIRWISE_ROWS rows: its MST weight against scipy's
+    ``minimum_spanning_tree`` on the same distance matrix brought to the
+    host (by the returned :class:`_ScipyCheck`), and not above
+    KNN_GRAPH's on those rows; B2 at (a)'s first kNN-graph tile against
+    its plain version and ``torch.topk`` (:func:`knn_tile_row`).  Returns
+    (the launch counts of (a) and (b), the tile's row, the pending
+    :class:`_ScipyCheck`)."""
+    import importlib
+
+    import torch
+
+    from raft_tpu_torch import stats, telemetry
+    from raft_tpu_torch.distance import DistanceType, distance
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.random import RngState, make_blobs
+    from raft_tpu_torch.sparse import neighbors
+
+    sl = importlib.import_module("raft_tpu_torch.cluster.single_linkage")
+    n, dim, k = KMEANS_SHAPE
+    metric = DistanceType.L2SqrtExpanded
+    x, truth, _ = make_blobs(RngState(seed), n, dim, n_clusters=k,
+                             cluster_std=1.0, device=device)
+    rounds = telemetry.counter("raft_tpu_mst_fixup_rounds_total")
+
+    # (a) KNN_GRAPH, the main path
+    _reset(device)
+    r0 = rounds.get()
+    t0 = time.perf_counter()
+    out = sl.single_linkage(x, metric, sl.LinkageDistance.KNN_GRAPH,
+                            n_clusters=k, c=SL_C)
+    secs = _synced_seconds(device, t0)
+    launches = dict(native.LAUNCHES)
+    fixups = rounds.get() - r0
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    ari = float(stats.adjusted_rand_index(truth, out.labels))
+    # n − 1 merges of a forest (the dendrogram's union-find refuses a
+    # cycle) whose last merge holds every point: one component
+    check(out.children.shape == (n - 1, 2) and int(out.sizes[-1]) == n,
+          "single_linkage: not n − 1 edges in one component")
+    check(ari >= SL_ARI_FLOOR, f"single_linkage: ARI {ari} against the "
+          f"blobs (at least {SL_ARI_FLOOR})")
+    for name in PATH_KERNELS["single_linkage"]:
+        check(launches[name] > 0, f"single_linkage never launched {name}")
+    # the stages again, timed apart
+    t0 = time.perf_counter()
+    g = neighbors.knn_graph(x, metric, SL_C)
+    knn_s = _synced_seconds(device, t0)
+    del g
+    t0 = time.perf_counter()
+    src, dst, w = neighbors.mst_from_knn_graph(x, metric, SL_C)
+    mst_s = _synced_seconds(device, t0) - knn_s
+    t0 = time.perf_counter()
+    children, deltas, sizes = sl.build_dendrogram_host(src, dst, w)
+    labels = sl.extract_flattened_clusters(children, k, n)
+    dendro_s = time.perf_counter() - t0
+    twin = sl.build_dendrogram_numpy(src.cpu().numpy(), dst.cpu().numpy(),
+                                     w.cpu().numpy())
+    same = all(np.array_equal(a, b) for a, b in
+               zip((children, deltas, sizes), twin))
+    same_cut = np.array_equal(
+        labels, sl.extract_flattened_clusters_numpy(children, k, n))
+    check(same and same_cut, "single_linkage: the native dendrogram or cut "
+          "differs from its numpy twin")
+    knn_weight = _mst_weight(w)
+    tile = knn_tile_row(device, x, metric, neighbors.build_k(n, SL_C))
+    emit({"phase": "kernel", "name": "select_k@single_linkage_knn_tile",
+          "library": "torch.topk", **tile})
+    emit({"phase": "single_linkage", "part": "knn_graph", "n": n,
+          "dim": dim, "n_clusters": k, "c": SL_C,
+          "k": neighbors.build_k(n, SL_C), "card": smi, "seconds": secs,
+          "knn_graph_s": knn_s, "mst_s": mst_s, "dendrogram_s": dendro_s,
+          "fixup_rounds": fixups, "ari_vs_make_blobs": ari,
+          "mst_weight": knn_weight, "native_equals_numpy": same and same_cut,
+          "launches": launches, "peak_mem_bytes": peak})
+    del src, dst, w, out
+
+    # (b) PAIRWISE on the first rows; its matrix goes to scipy
+    xs = x[:SL_PAIRWISE_ROWS].contiguous()
+    ns = xs.shape[0]
+    _reset(device)
+    t0 = time.perf_counter()
+    out = sl.single_linkage(xs, metric, sl.LinkageDistance.PAIRWISE,
+                            n_clusters=k, c=SL_C)
+    secs = _synced_seconds(device, t0)
+    launches_pw = dict(native.LAUNCHES)
+    pw_weight = float(np.asarray(out.deltas, np.float64).sum())
+    _, _, w_knn = neighbors.mst_from_knn_graph(xs, metric, SL_C)
+    knn_small = _mst_weight(w_knn)
+    check(pw_weight <= knn_small * (1 + SL_MST_RTOL),
+          f"single_linkage: PAIRWISE MST weight {pw_weight} above "
+          f"KNN_GRAPH's {knn_small} on the same rows")
+    d = distance(xs, xs, metric).fill_diagonal_(0).cpu().numpy()
+    path = ROOT / "build" / "smoke_sl" / "pairwise.npy"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, d)
+    del d
+    row = {"phase": "single_linkage", "part": "pairwise", "n": ns,
+           "dim": dim, "n_clusters": k, "card": smi, "seconds": secs,
+           "prim_steps": ns - 1, "mst_weight": pw_weight,
+           "knn_graph_mst_weight": knn_small,
+           "ari_vs_make_blobs": float(stats.adjusted_rand_index(
+               truth[:ns], out.labels)),
+           "launches": launches_pw}
+
+    return ({name: launches[name] + launches_pw[name] for name in launches},
+            tile, _ScipyCheck(path, pw_weight, ns, row))
+
+
+def knn_tile_row(device, x, metric, kk: int):
+    """B2 at the kNN graph's first tile (``knn_graph``'s batch of 4,096
+    rows against all n, self-distances at +inf, k = *kk*): positions and
+    values bit for bit the plain version's, and against ``torch.topk``
+    through :func:`check_knn`; with its time, the plain version's,
+    ``torch.topk``'s and the bound."""
+    import torch
+
+    from raft_tpu_torch.distance import distance
+    from raft_tpu_torch.kernels import select_k as ksel
+    from raft_tpu_torch.matrix.select_k import select_k_plain
+
+    rows = min(4096, x.shape[0])
+    d = distance(x[:rows], x, metric)
+    ar = torch.arange(rows, device=device)
+    d[ar, ar] = float("inf")
+    kv, kp = ksel.select_k_blockwise(d, kk)
+    pv, pp = select_k_plain(d, kk)
+    check(torch.equal(kp, pp) and torch.equal(kv, pv),
+          "select_k single_linkage knn tile: differs from the plain version")
+    ref_d, ref_i = torch.topk(d, kk + 1, dim=1, largest=False)
+    near = check_knn("select_k single_linkage knn tile vs torch.topk", kv,
+                     kp, ref_d[:, :kk], ref_i[:, :kk], ref_d)
+    nq, nl = d.shape
+    b, by = bound_ms(4.0 * nq * nl + 8.0 * nq * kk, float(nq * nl))
+    return dict(
+        shape=[nq, nl, kk], max_abs_err=float((kv - ref_d[:, :kk]).abs()
+                                              .max()),
+        positions_equal_plain=True, ids_apart_at_near_ties_vs_topk=near,
+        ms=timed(lambda: ksel.select_k_blockwise(d, kk), device, 5),
+        plain_ms=timed(lambda: select_k_plain(d, kk), device, 3),
+        library_ms=timed(lambda: torch.topk(d, kk, dim=1, largest=False),
+                         device, 5),
+        bound_ms=b, bound_by=by)
+
+
+class _ScipyCheck:
+    """The host reference MST of ``single_linkage`` (b): :meth:`finish`
+    runs it in a process of its own (after the card's timed phases, so no
+    timing shares the host with it), checks the weight and emits (b)'s
+    line; :meth:`close` stops the process if it still runs and removes
+    the matrix's file."""
+
+    def __init__(self, path, weight, n, row):
+        self.proc, self.path = None, path
+        self.weight, self.n, self.row = weight, n, row
+
+    def close(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.path.unlink(missing_ok=True)
+
+    def finish(self):
+        t0 = time.perf_counter()
+        try:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", _SCIPY_MST, str(self.path)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            out, err = self.proc.communicate(timeout=SL_SCIPY_TIMEOUT_S)
+        finally:
+            self.close()
+        check(self.proc.returncode == 0,
+              f"single_linkage: scipy's MST failed: {err[-2000:]}")
+        ref, nnz = out.split()
+        ref = float(ref)
+        rel = abs(self.weight - ref) / ref
+        self.row.update({"scipy_mst_weight": ref,
+                         "scipy_mst_edges": int(nnz),
+                         "scipy_s": time.perf_counter() - t0,
+                         "rel_err_vs_scipy": rel})
+        emit(self.row)
+        check(int(nnz) == self.n - 1 and rel <= SL_MST_RTOL,
+              f"single_linkage: PAIRWISE MST weight {self.weight} against "
+              f"scipy's {ref} (rel {rel}, edges {nnz})")
+
+
+def _tfidf_rows(rng, rows, features, nnz, zipf):
+    """TF-IDF-shaped CSR triplets: a row's nnz uniform in *nnz*, its
+    features Zipf-like (p ∝ 1/(rank + 1)^zipf), values a positive term
+    weight × the feature's idf."""
+    counts = rng.integers(nnz[0], nnz[1] + 1, rows)
+    p = 1.0 / np.arange(1, features + 1) ** zipf
+    p /= p.sum()
+    cols = rng.choice(features, int(counts.sum()), p=p).astype(np.int32)
+    r = np.repeat(np.arange(rows, dtype=np.int32), counts)
+    idf = np.log(1.0 / (p * features) + 1.0).astype(np.float32)
+    vals = rng.uniform(0.5, 1.5, cols.shape[0]).astype(np.float32) * idf[cols]
+    return r, cols, vals
+
+
+def sparse_knn_phase(device, seed, smi):
+    """``sparse_knn``: SPKNN["rows"] TF-IDF-shaped rows over
+    SPKNN["features"] features, L2-normalised with ``row_normalize`` (the
+    squared values' L1 rows, rooted), the first SPKNN["queries"] rows as
+    queries, k = SPKNN["k"]: ``brute_force_knn`` under CosineExpanded and
+    InnerProduct (the feature-compressed engine) against a
+    ``torch.sparse`` CSR product and ``torch.topk``, and under L1 on a
+    SPKNN["l1_features"]-feature variant (the densify engine, B5) against
+    ``torch.cdist(p=1)`` on the densified rows; each with its launch
+    counts reset.  Returns the launch counts of the three."""
+    import torch
+
+    from raft_tpu_torch import sparse
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.sparse import neighbors
+
+    c = SPKNN
+    rng = np.random.default_rng(seed)
+    n, f, k, nq = c["rows"], c["features"], c["k"], c["queries"]
+    r, cols, vals = _tfidf_rows(rng, n, f, c["nnz"], c["zipf"])
+    t0 = time.perf_counter()
+    raw = sparse.from_triplets(r, cols, vals, (n, f), device=device)
+    sq = sparse.row_normalize(sparse.CSR(raw.indptr, raw.indices,
+                                         raw.data * raw.data, raw.shape))
+    index = sparse.CSR(sq.indptr, sq.indices, torch.sqrt(sq.data), sq.shape)
+    query = sparse.csr_row_slice(index, 0, nq)
+    build_s = _synced_seconds(device, t0)
+    norms = sparse.spmv(sparse.CSR(index.indptr, index.indices,
+                                   index.data * index.data, index.shape),
+                        torch.ones(f, device=device))
+    check(bool(((norms - 1).abs() <= 1e-5).all()),
+          "sparse_knn: rows not L2-normalised")
+    csr_t = torch.sparse_csr_tensor(index.indptr.long(), index.indices.long(),
+                                    index.data, size=(n, f))
+    q_dense = sparse.csr_to_dense(query)
+    total = {name: 0 for name in native.LAUNCHES}
+
+    def run(metric, idx, qry, ref_d_full):
+        _reset(device)
+        t0 = time.perf_counter()
+        d, i = neighbors.brute_force_knn(idx, qry, k, metric)
+        secs = _synced_seconds(device, t0)
+        launches = dict(native.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+                else None)
+        for key, v in launches.items():
+            total[key] += v
+        tie = torch.topk(ref_d_full, k + 1, dim=1, largest=False)
+        ref = torch.topk(ref_d_full, k, dim=1, largest=False)
+        near = check_knn(f"sparse_knn {metric.name}", d, i, ref.values,
+                         ref.indices, tie.values)
+        return {"seconds": secs, "qps": qry.shape[0] / secs,
+                "ids_apart_at_near_ties": near, "launches": launches,
+                "peak_mem_bytes": peak}
+
+    ip = torch.sparse.mm(csr_t, q_dense.T).T.contiguous()   # (nq, n)
+    rows = {}
+    for metric, ref in ((DistanceType.CosineExpanded, 1.0 - ip),
+                        (DistanceType.InnerProduct, ip)):
+        rows[metric.name] = run(metric, index, query, ref)
+    del ip, csr_t, q_dense
+    emit({"phase": "sparse_knn", "part": "compressed", "rows": n,
+          "features": f, "nnz": int(index.nnz), "queries": nq, "k": k,
+          "card": smi, "build_s": build_s, **rows})
+
+    # L1: the densify engine, B5
+    r, cols, vals = _tfidf_rows(rng, n, c["l1_features"],
+                                (c["l1_nnz"], c["l1_nnz"]), c["zipf"])
+    small = sparse.from_triplets(r, cols, vals, (n, c["l1_features"]),
+                                 device=device)
+    small_q = sparse.csr_row_slice(small, 0, nq)
+    dense = sparse.csr_to_dense(small)
+    ref = torch.cdist(dense[:nq], dense, p=1)
+    row = run(DistanceType.L1, small, small_q, ref)
+    for name in PATH_KERNELS["sparse_knn"]:
+        check(row["launches"][name] > 0,
+              f"sparse_knn L1 never launched {name}")
+    # the compressed engine runs no B5: its selects are the path's B2
+    for metric, r in rows.items():
+        for name in set(PATH_KERNELS["sparse_knn"]) - {"pairwise_accumulate"}:
+            check(r["launches"][name] > 0,
+                  f"sparse_knn {metric} never launched {name}")
+    emit({"phase": "sparse_knn", "part": "densify", "rows": n,
+          "features": c["l1_features"], "nnz": int(small.nnz),
+          "queries": nq, "k": k, "card": smi, "L1": row})
+    return total
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
         profile: bool = False):
@@ -5115,6 +5745,19 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                                                         rep)
     launches_bc = ball_cover_phase(device, n_lists, seed, smi)
     launches_eps = eps_phase(device, x, queries, qr, truth, smi)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    launches_sl, sl_tile, scipy_check = single_linkage_phase(device, seed,
+                                                              smi)
+    rows["select_k"]["single_linkage_shapes"] = {"knn_graph_tile": sl_tile}
+    try:
+        launches_spec, spec_rows = spectral_phase(device, seed, smi)
+        launches_spknn = sparse_knn_phase(device, seed, smi)
+        scipy_check.finish()
+    finally:
+        scipy_check.close()
+    for name, fields in spec_rows.items():
+        rows[name]["spectral_shapes"] = fields
     by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
                "ivf_flat_mutable": mut_flat,
                "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
@@ -5129,7 +5772,9 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "sharded": launches_sh, "sharded_w2": launches_sh_w2,
                "replica_w2": launches_rep,
                "sharded_mutable": launches_sh_mut,
-               "sharded_mutable_w2": launches_sh_mut_w2, **launches_km}
+               "sharded_mutable_w2": launches_sh_mut_w2,
+               "single_linkage": launches_sl, "spectral": launches_spec,
+               "sparse_knn": launches_spknn, **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():

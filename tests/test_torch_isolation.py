@@ -265,3 +265,61 @@ def test_native_loader_stands_alone():
     assert native.BUILD_DIR.is_relative_to(ROOT / "build")
     assert native.library_path().parent == native.BUILD_DIR
     assert "libraft_tpu_runtime.so" not in native.library_path().name
+
+
+#: the sparse, spectral and single-linkage modules
+SPARSE = ("core/logger.py", "sparse/__init__.py", "sparse/types.py",
+          "sparse/op.py", "sparse/convert.py", "sparse/linalg.py",
+          "sparse/distance.py", "sparse/neighbors.py",
+          "sparse/solver/__init__.py", "sparse/solver/mst.py",
+          "sparse/solver/lanczos.py", "spectral/__init__.py",
+          "spectral/matrix.py", "spectral/solvers.py",
+          "spectral/partition.py", "cluster/single_linkage.py")
+
+
+def test_sparse_spectral_linkage_stand_alone(monkeypatch):
+    """The sparse, spectral and single-linkage modules import neither jax
+    nor raft_tpu; their entry points asked for no device raise when CUDA
+    is absent, and run with ``device="cpu"``."""
+    import importlib
+
+    from raft_tpu_torch import sparse, spectral
+    from raft_tpu_torch.sparse import distance, neighbors
+
+    sl = importlib.import_module("raft_tpu_torch.cluster.single_linkage")
+    for f in SPARSE:
+        assert (PORT / f).is_file(), f
+        for name in _imports(PORT / f):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "raft_tpu"), (
+                f, name)
+    rng = np.random.default_rng(0)
+    x = rng.random((40, 3)).astype(np.float32)
+    r = np.r_[np.arange(39), np.arange(1, 40)]
+    c = np.r_[np.arange(1, 40), np.arange(39)]
+    v = np.ones(78, np.float32)
+    eig = spectral.LanczosEigenSolver(spectral.EigenSolverConfig(2))
+    km = spectral.KMeansClusterSolver(spectral.ClusterSolverConfig(2))
+
+    def calls(device):
+        return {
+            "lanczos_smallest": lambda: sparse.lanczos_smallest(
+                lambda u: u * torch.arange(40, device=u.device), 2, n=40,
+                device=device),
+            "partition": lambda: spectral.partition(
+                sparse.from_triplets(r, c, v, (40, 40), device=device), eig,
+                km),
+            "single_linkage": lambda: sl.single_linkage(x, n_clusters=2,
+                                                        device=device),
+            "pairwise_distance": lambda: distance.pairwise_distance(
+                sparse.CSR(np.arange(41), np.zeros(40, np.int32), x[:, 0],
+                           (40, 3), device=device),
+                sparse.dense_to_csr(x, device=device)),
+            "knn_graph": lambda: neighbors.knn_graph(x, c=2, device=device),
+        }
+
+    for name, call in calls("cpu").items():
+        assert call() is not None, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls(None).items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -154,3 +154,124 @@ def test_stalled_reader_does_not_block_others(native_server, client):
     finally:
         slow.close()
         fast.close()
+
+
+# --- the sparse and single-linkage entry points -----------------------------
+
+def _forest(rng, n):
+    """Weight-sorted edges of a random spanning tree on n vertices."""
+    perm = rng.permutation(n)
+    src = perm[1:]
+    dst = perm[rng.integers(0, np.arange(1, n))]
+    w = np.sort(rng.random(n - 1).astype(np.float32))
+    return src.astype(np.int32), dst.astype(np.int32), w
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dendrogram_and_cut_against_numpy_twins(seed):
+    from raft_tpu_torch.cluster.single_linkage import (
+        build_dendrogram_numpy, extract_flattened_clusters_numpy)
+
+    rng = np.random.default_rng(seed)
+    n = 257
+    src, dst, w = _forest(rng, n)
+    got = native.build_dendrogram(src, dst, w)
+    want = build_dendrogram_numpy(src, dst, w)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for k in (1, 3, 64, n):
+        np.testing.assert_array_equal(
+            native.extract_flattened_clusters(got[0], k, n),
+            extract_flattened_clusters_numpy(got[0], k, n))
+    with pytest.raises(ValueError):
+        native.extract_flattened_clusters(got[0], n + 1, n)
+    with pytest.raises(ValueError, match="outside"):
+        native.build_dendrogram(src, np.full_like(dst, n), w)
+
+
+@pytest.mark.parametrize("zero_based", [True, False])
+def test_make_monotonic_against_numpy(zero_based):
+    labels = np.random.default_rng(3).integers(-50, 900, 1000).astype(
+        np.int32)
+    out, k = native.make_monotonic(labels, zero_based)
+    uniq, inv = np.unique(labels, return_inverse=True)
+    assert k == len(uniq)
+    np.testing.assert_array_equal(out, inv + (0 if zero_based else 1))
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_coo_canonicalize_and_csr_to_ell_against_numpy(seed):
+    from raft_tpu_torch.sparse import convert, linalg
+
+    rng = np.random.default_rng(seed)
+    m, n, nnz = 80, 50, 600
+    r = rng.integers(0, m, nnz)
+    c = rng.integers(0, n, nnz)
+    v = rng.standard_normal(nnz).astype(np.float32)
+    v[::17] = 0
+    r, c, v = np.r_[r, r[:40]], np.r_[c, c[:40]], np.r_[v, -v[:40]]
+    got = native.coo_canonicalize(r, c, v)
+    want = convert.canonicalize_numpy(r, c, v, (m, n))
+    # the runtime sums duplicates in float64, the twin in float32
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+    keep = native.coo_canonicalize(r, c, v, drop_zeros=False)
+    assert len(keep[0]) >= len(got[0])
+    rows, cols, vals = (np.asarray(a) for a in got)
+    indptr = np.r_[0, np.cumsum(np.bincount(rows, minlength=m))]
+    vals = vals.astype(np.float32)
+    for width in (1, 8, 16):
+        for a, b in zip(native.csr_to_ell(indptr, cols, vals, width),
+                        linalg.csr_to_ell_numpy(indptr, cols, vals, width)):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="malformed"):
+        native.csr_to_ell(indptr[::-1].copy(), cols, vals, 8)
+
+
+def _entry_points():
+    """Each native entry point, called through its port caller where it
+    has one."""
+    import importlib
+
+    sl = importlib.import_module("raft_tpu_torch.cluster.single_linkage")
+    from raft_tpu_torch import sparse
+
+    csr = sparse.CSR(np.array([0, 1, 2]), np.array([1, 0]),
+                     np.array([1.0, 1.0], np.float32), (2, 2), device="cpu")
+    children = np.array([[0, 1]], np.int64)
+    return {
+        "from_triplets": lambda: sparse.from_triplets(
+            [0, 1], [1, 0], [1.0, 1.0], (2, 2), device="cpu"),
+        "csr_to_ell": lambda: sparse.csr_to_ell(csr),
+        "build_dendrogram_host": lambda: sl.build_dendrogram_host(
+            [0], [1], [0.5]),
+        "extract_flattened_clusters": lambda: sl.extract_flattened_clusters(
+            children, 1, 2),
+        "make_monotonic": lambda: native.make_monotonic([3, 1]),
+    }
+
+
+def test_sparse_entry_points_missing_source_raise(monkeypatch, tmp_path):
+    calls = _entry_points()
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "SOURCE_DIR", tmp_path / "native")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "out")
+    for name, call in calls.items():
+        with pytest.raises(FileNotFoundError, match="missing source"):
+            call()
+    assert not (tmp_path / "out").exists()
+
+
+def test_sparse_entry_points_never_fall_back(monkeypatch):
+    def broken():
+        raise native.NativeBuildError("g++ exited 1")
+
+    calls = _entry_points()
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "build", broken)
+    raised = []
+    for name, call in calls.items():
+        with pytest.raises(native.NativeBuildError):
+            call()
+        raised.append(name)
+    assert len(raised) == 5

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive raft_tpu_torch's k-means and its IVF-Flat, IVF-PQ (with its
-PER_CLUSTER, float16 and legacy variants), tiered and brute-force serving
-paths (each request type on its own ladder), the serving autotuner,
-random ball cover, the ε-neighbourhood, the distributed layer (MNMG
-k-means and kNN at world 1 over NCCL and world 2 over gloo), sharded and
-replicated serving, the mutable index over a sharded main and the
-sparse graph path (single linkage, spectral partitioning with
-BASELINE.json configs[3], sparse kNN) on one NVIDIA card.
+"""Drive raft_tpu_torch's compile probe, k-means and its IVF-Flat, IVF-PQ
+(with its PER_CLUSTER, float16 and legacy variants), tiered and
+brute-force serving paths (each request type on its own ladder), the
+serving autotuner, random ball cover, the ε-neighbourhood, the
+distributed layer (MNMG k-means and kNN at world 1 over NCCL and world 2
+over gloo), sharded and replicated serving, the mutable index over a
+sharded main, the sparse graph path (single linkage, spectral
+partitioning with BASELINE.json configs[3], sparse kNN) and the dense
+long tail (BLAS, decompositions, least squares, gram matrices, labels,
+the LAP solver) on one NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -26,8 +28,17 @@ the index (512 MB on the card), in index tiles of 16,384 rows.
 Phases, one JSON line each:
 
 1. device — the card, its power limit (nvidia-smi), torch and CUDA; then
-   the kernels are built from ``raft_tpu_torch/kernels/csrc`` (nvcc, one
-   process per source, all at once).
+   ``probe``, the compile probe (``raft_tpu_torch.kernels.probe``, the
+   counterpart of ``bench/tpu_session.py``'s ``pallas_probe_stage``):
+   ``probe.cu`` built alone and kernel B6 (x + 1) run on a 128 × 128
+   zero tensor, exactly x + 1; then ``fused_l2nn.cu`` built alone and B1
+   at 1,024 × 256 × 128 against its plain version.  A failed case prints
+   nvcc's or the launch's whole error to stderr and fails the run within
+   seconds, before the other sources build.  B6's row: exact on seeded
+   values, its median device time, the host's cost of a call (the launch
+   overhead), its bytes bound, ``x + 1`` and ``torch.add``.  Then the
+   other kernels are built from ``raft_tpu_torch/kernels/csrc`` (nvcc,
+   one process per source, all at once).
 2. kernels — B1, B2 and B3 against their plain PyTorch versions on the
    card at the main paths' shapes (B1 at the build path's four: the list
    assignment 1,000,000 × 1,024 × 128, B3's E-step 500,000 × 1,024 ×
@@ -280,7 +291,28 @@ Phases, one JSON line each:
    under L1 on 1,024 features (the densify engine, B5) against
    ``torch.cdist(p=1)``; ids equal except at near ties.  Each prints its
    kernels' launches and fails if a kernel of its path never launched.
-13. the ``{"kernels": [...]}`` line, then the last line
+13. ``dense``, the dense long tail (no kernel of the repository; cuBLAS
+   and cuSOLVER through ``torch``): ``reduce``, ``row_norm``,
+   ``col_norm``, ``coalesced_reduction`` (an ``fmax`` fold) and
+   ``normalize`` on 16,384 × 1,024 float32 (bench/bench_linalg.py's
+   shape) within γ(n)·Σ|x| of the float64 result (the fold exactly);
+   ``gemm`` 4,096² within γ(n) of float64, beside its float32 bound;
+   ``matrix.argmin``, equal to the CPU's; the four ``lstsq_*`` on
+   configs[1]'s blobs (100,000 × 128) with a planted linear target,
+   coefficients within ``DENSE_LSTSQ_RTOL`` of float64
+   ``torch.linalg.lstsq`` on the host; ``svd_qr``, ``svd_eig`` and
+   ``rsvd_fixed_rank`` (k = 16, one Ω for both) on the blobs and
+   ``eig_dc`` / ``eig_sel_dc`` on a 4,096² symmetric matrix, the card's
+   reconstruction error and ‖VᵀV − I‖ within ``DENSE_DECOMP_X`` times the
+   CPU's (or ``DENSE_DECOMP_FLOOR``), values within ``DENSE_VALUE_RTOL``;
+   ``gram_matrix`` RBF at 16,384 × 16,384 × 128 (gamma "scale") against
+   its float64 formula on a row block; ``make_monotonic`` (host and card)
+   and ``merge_labels`` on the blobs' 100,000 labels against numpy twins;
+   ``solve_lap`` on 8 float32 1,024² problems (objective within n·ε_eff
+   of scipy's ``linear_sum_assignment``, converged) and one 4,096²
+   problem of integer costs below 1,000 (scipy's optimum exactly), with
+   the seconds beside scipy's.
+14. the ``{"kernels": [...]}`` line (B1–B6), then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -331,6 +363,7 @@ REPLACES = {
     "lut_scan": "raft_tpu/kernels/ivf_pq_lut.py:98",
     "lut_scan_tombstones": "raft_tpu/kernels/ivf_pq_lut.py:98",
     "pairwise_accumulate": "raft_tpu/kernels/pairwise.py:81",
+    "add_one": "bench/tpu_session.py:357",
 }
 SOURCE = {
     "fused_l2_nn": "raft_tpu_torch/kernels/csrc/fused_l2nn.cu",
@@ -340,6 +373,7 @@ SOURCE = {
     "lut_scan": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
     "lut_scan_tombstones": "raft_tpu_torch/kernels/csrc/ivf_pq_lut.cu",
     "pairwise_accumulate": "raft_tpu_torch/kernels/csrc/pairwise.cu",
+    "add_one": "raft_tpu_torch/kernels/csrc/probe.cu",
 }
 #: B3 launches an IVF-PQ build may take: the coarse balancing EM (20 + 5
 #: iterations) and one per codebook Lloyd iteration (20) for all subspaces
@@ -564,7 +598,7 @@ def b1_phase(device, x, centers, rep: int):
     Returns the list assignment's row."""
     import torch
 
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
     from raft_tpu_torch.kernels import fused_l2nn
 
     n_meso = max(2, int(math.sqrt(centers.shape[0]) + 0.5))
@@ -577,7 +611,7 @@ def b1_phase(device, x, centers, rep: int):
         m, d = xs.shape
         k = y.shape[0]
         val, idx = fused_l2nn.fused_l2_nn(xs, y)
-        pv, pi = plain_nn.fused_l2_nn_plain(xs, y)
+        pv, pi = fused_l2_nn_plain(xs, y)
         n_diff = check_labels(f"fused_l2_nn {name}", idx, pi, xs, y)
         scale = (xs * xs).sum(1) + (y * y).sum(1)[idx.long()]
         err = (val - pv).abs()
@@ -601,7 +635,7 @@ def b1_phase(device, x, centers, rep: int):
         ms = timed(lambda: fused_l2nn.fused_l2_nn(xs, y), device, rep)
         by_shape[name] = dict(
             shape=[m, k, d], ms=ms,
-            plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(xs, y),
+            plain_ms=timed(lambda: fused_l2_nn_plain(xs, y),
                            device, 3),
             product_only_ms=timed(lambda: xs @ y.T, device, 3),
             bound_ms=bound, bound_by=by, bound_f32_ms=bound_f32,
@@ -630,7 +664,7 @@ def b1_fma_phase(device, gen, x, y, rep: int):
     operands in float32, in other orders); returns their times."""
     import torch
 
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
     from raft_tpu_torch.kernels import fused_l2nn
 
     xw = torch.randn(1000, 300, generator=gen, device=device)
@@ -642,7 +676,7 @@ def b1_fma_phase(device, gen, x, y, rep: int):
         check(not fused_l2nn.tensor_cores(xs.shape[1], bf16),
               f"fused_l2_nn {name}: not dispatched to the FMA kernel")
         val, idx = fused_l2nn.fused_l2_nn(xs, ys, bf16_dot=bf16)
-        pv, pi = plain_nn.fused_l2_nn_plain(xs, ys, bf16_dot=bf16)
+        pv, pi = fused_l2_nn_plain(xs, ys, bf16_dot=bf16)
         n_diff = check_labels(f"fused_l2_nn {name}", idx, pi, xs, ys,
                               bf16_dot=bf16)
         check(torch.allclose(val, pv, rtol=1e-5, atol=1e-4),
@@ -651,7 +685,7 @@ def b1_fma_phase(device, gen, x, y, rep: int):
             shape=[xs.shape[0], ys.shape[0], xs.shape[1]],
             ms=timed(lambda: fused_l2nn.fused_l2_nn(xs, ys, bf16_dot=bf16),
                      device, rep),
-            plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(
+            plain_ms=timed(lambda: fused_l2_nn_plain(
                 xs, ys, bf16_dot=bf16), device, 3),
             max_abs_err=float((val - pv).abs().max()),
             label_diffs_near_ties=n_diff)
@@ -663,7 +697,11 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     """Each kernel against its plain version; returns the kernels' rows."""
     import torch
 
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.distance.fused_l2_nn import (
+        cluster_partials_plain,
+        fused_l2_nn_partials_plain,
+        fused_l2_nn_plain,
+    )
     from raft_tpu_torch.kernels import fused_l2nn, select_k as ksel
     from raft_tpu_torch.matrix.select_k import select_k_plain
 
@@ -678,7 +716,7 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     xr = torch.randn(1000, 100, generator=gen, device=device)
     yr = torch.randn(1000, 100, generator=gen, device=device)
     rv, ri = fused_l2nn.fused_l2_nn(xr, yr)
-    prv, pri = plain_nn.fused_l2_nn_plain(xr, yr)
+    prv, pri = fused_l2_nn_plain(xr, yr)
     n_diff_r = check_labels("fused_l2_nn ragged", ri, pri, xr, yr)
     check(torch.allclose(rv, prv, rtol=1e-5, atol=1e-4),
           "fused_l2_nn ragged: values beyond tolerance")
@@ -690,10 +728,10 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     xt = x[: m // 2]
     mt = xt.shape[0]
     out = fused_l2nn.fused_l2_nn_partials(xt, y)
-    ref = plain_nn.fused_l2_nn_partials_plain(xt, y)
+    ref = fused_l2_nn_partials_plain(xt, y)
     n_diff3 = check_labels("fused_l2_nn_partials", out[1], ref[1], xt, y)
-    sums_ref, wsum_ref = plain_nn.cluster_partials_plain(xt, out[1], k)
-    abs_ref, _ = plain_nn.cluster_partials_plain(xt.abs(), out[1], k)
+    sums_ref, wsum_ref = cluster_partials_plain(xt, out[1], k)
+    abs_ref, _ = cluster_partials_plain(xt.abs(), out[1], k)
     err3 = float((out[2] - sums_ref).abs().max())
     check(bool(((out[2] - sums_ref).abs() <= 1e-4 * abs_ref + 1e-6).all()),
           "fused_l2_nn_partials: sums beyond 1e-4 of the members' |sum|")
@@ -703,7 +741,7 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     check(torch.equal(again[2], out[2]), "fused_l2_nn_partials: sums "
           "differ between two runs")
     ms = timed(lambda: fused_l2nn.fused_l2_nn_partials(xt, y), device, rep)
-    plain_ms = timed(lambda: plain_nn.fused_l2_nn_partials_plain(xt, y),
+    plain_ms = timed(lambda: fused_l2_nn_partials_plain(xt, y),
                      device, 3)
     # the M-step alone (per-chunk partials from B1's labels) beside its
     # bytes bound: one read of x and the labels, the partials written
@@ -734,21 +772,21 @@ def kernel_phase(device, x, queries, centers_probe, rep: int):
     xc = torch.randn(262144, 2, generator=gen, device=device)
     yc = xc[torch.randperm(262144, generator=gen, device=device)[:256]]
     cv, ci = fused_l2nn.fused_l2_nn(xc, yc)
-    pcv, pci = plain_nn.fused_l2_nn_plain(xc, yc)
+    pcv, pci = fused_l2_nn_plain(xc, yc)
     n_diff_c = check_labels("fused_l2_nn codebook", ci, pci, xc, yc)
     check(torch.allclose(cv, pcv, rtol=1e-5, atol=1e-5),
           "fused_l2_nn codebook: values beyond rtol 1e-5, atol 1e-5")
     outc = fused_l2nn.fused_l2_nn_partials(xc, yc)
-    sums_c, wsum_c = plain_nn.cluster_partials_plain(xc, outc[1], 256)
-    abs_c, _ = plain_nn.cluster_partials_plain(xc.abs(), outc[1], 256)
+    sums_c, wsum_c = cluster_partials_plain(xc, outc[1], 256)
+    abs_c, _ = cluster_partials_plain(xc.abs(), outc[1], 256)
     check(bool(((outc[2] - sums_c).abs() <= 1e-4 * abs_c + 1e-6).all())
           and torch.allclose(outc[3], wsum_c, rtol=1e-4),
           "fused_l2_nn_partials codebook: partials beyond tolerance")
     for name, fn, plain_fn in (
             ("fused_l2_nn", fused_l2nn.fused_l2_nn,
-             plain_nn.fused_l2_nn_plain),
+             fused_l2_nn_plain),
             ("fused_l2_nn_partials", fused_l2nn.fused_l2_nn_partials,
-             plain_nn.fused_l2_nn_partials_plain)):
+             fused_l2_nn_partials_plain)):
         rows[name].update(
             codebook_shape=[262144, 256, 2],
             codebook_ms=timed(lambda: fn(xc, yc), device, rep),
@@ -845,7 +883,10 @@ def b3_batched_phase(device, gen, rep: int, n: int, s: int = 64,
     more); returns the fields for B3's row, under *prefix*."""
     import torch
 
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.distance.fused_l2_nn import (
+        cluster_partials_plain,
+        fused_l2_nn_partials_batched_plain,
+    )
     from raft_tpu_torch.kernels import fused_l2nn
 
     k, ds = 256, 2
@@ -854,13 +895,13 @@ def b3_batched_phase(device, gen, rep: int, n: int, s: int = 64,
                                            device=device)[:k]]
                       for i in range(s)])
     out = fused_l2nn.fused_l2_nn_partials_batched(xs, ys)
-    ref = plain_nn.fused_l2_nn_partials_batched_plain(xs, ys)
+    ref = fused_l2_nn_partials_batched_plain(xs, ys)
     n_diff, err = 0, 0.0
     for i in (range(s) if s <= 64 else range(0, s, s // 16)):
         n_diff += check_labels("fused_l2_nn_partials batched", out[1][i],
                                ref[1][i], xs[i], ys[i], of_norms=True)
-        sums, wsum = plain_nn.cluster_partials_plain(xs[i], out[1][i], k)
-        mag, _ = plain_nn.cluster_partials_plain(xs[i].abs(), out[1][i], k)
+        sums, wsum = cluster_partials_plain(xs[i], out[1][i], k)
+        mag, _ = cluster_partials_plain(xs[i].abs(), out[1][i], k)
         check(bool(((out[2][i] - sums).abs() <= 1e-5 * mag + 1e-6).all())
               and torch.equal(out[3][i], wsum),
               "fused_l2_nn_partials batched: partials beyond 1e-5 of the "
@@ -885,7 +926,7 @@ def b3_batched_phase(device, gen, rep: int, n: int, s: int = 64,
         f"{prefix}_ms": timed(lambda: fused_l2nn.fused_l2_nn_partials_batched(
             xs, ys), device, rep),
         f"{prefix}_plain_ms": timed(
-            lambda: plain_nn.fused_l2_nn_partials_batched_plain(xs, ys),
+            lambda: fused_l2_nn_partials_batched_plain(xs, ys),
             device, 3)}
     if s <= 64:
         row["per_subspace_x64_ms"] = timed(lambda: [
@@ -2984,13 +3025,13 @@ def b1_row(name, device, x, y, rep: int):
     ties, values within 1e-5 of ‖x‖² + ‖y‖²; with its time, the plain
     version's, the product's alone and the bound."""
     from raft_tpu_torch.distance import DistanceType
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
     from raft_tpu_torch.kernels import fused_l2nn
 
     n, d = x.shape
     ky = y.shape[0]
     val, idx = fused_l2nn.fused_l2_nn(x, y)
-    pv, pi = plain_nn.fused_l2_nn_plain(x, y)
+    pv, pi = fused_l2_nn_plain(x, y)
     n_diff = kmeans_labels(f"fused_l2_nn {name}", idx, pi, x, y,
                            DistanceType.L2Expanded)
     scale = (x * x).sum(1) + (y * y).sum(1)[idx.long()]
@@ -3003,7 +3044,7 @@ def b1_row(name, device, x, y, rep: int):
         shape=[n, ky, d], max_abs_err=float(err.max()),
         label_diffs_near_ties=n_diff,
         ms=timed(lambda: fused_l2nn.fused_l2_nn(x, y), device, rep),
-        plain_ms=timed(lambda: plain_nn.fused_l2_nn_plain(x, y), device, 3),
+        plain_ms=timed(lambda: fused_l2_nn_plain(x, y), device, 3),
         product_only_ms=timed(lambda: x @ y.T, device, 3),
         bound_ms=bound, bound_by=by, library_ms=None)
 
@@ -3021,7 +3062,10 @@ def b3_row(name, device, x, c, rep: int):
     import torch
 
     from raft_tpu_torch.distance import DistanceType
-    from raft_tpu_torch.distance import fused_l2_nn as plain_nn
+    from raft_tpu_torch.distance.fused_l2_nn import (
+        cluster_partials_plain,
+        fused_l2_nn_partials_plain,
+    )
     from raft_tpu_torch.kernels import fused_l2nn
     from raft_tpu_torch.linalg.reduce import segment_sum
 
@@ -3029,7 +3073,7 @@ def b3_row(name, device, x, c, rep: int):
     k = c.shape[0]
     tag = f"fused_l2_nn_partials {name}"
     out = fused_l2nn.fused_l2_nn_partials(x, c)
-    ref = plain_nn.fused_l2_nn_partials_plain(x, c)
+    ref = fused_l2_nn_partials_plain(x, c)
     n_diff = kmeans_labels(tag, out[1], ref[1], x, c,
                            DistanceType.L2Expanded)
     scale = (x * x).sum(1) + (c * c).sum(1)[out[1].long()]
@@ -3041,7 +3085,7 @@ def b3_row(name, device, x, c, rep: int):
           and abs(float(out[4]) - own) <= 1e-5 * own,
           f"{tag}: inertia {float(out[4])} against the plain version's "
           f"{float(ref[4])} and its values' sum {own}")
-    sums, wsum = plain_nn.cluster_partials_plain(x, out[1], k)
+    sums, wsum = cluster_partials_plain(x, out[1], k)
     exact = segment_sum(x.double(), out[1], k)
     mag = segment_sum(x.double().abs(), out[1], k)
     nc = segment_sum(torch.ones_like(x[:, 0], dtype=torch.float64), out[1],
@@ -3066,7 +3110,7 @@ def b3_row(name, device, x, c, rep: int):
         partials_err_share_of_bound=float(share.max()),
         label_diffs_near_ties=n_diff, inertia_gap=inertia_gap,
         ms=timed(lambda: fused_l2nn.fused_l2_nn_partials(x, c), device, rep),
-        plain_ms=timed(lambda: plain_nn.fused_l2_nn_partials_plain(x, c),
+        plain_ms=timed(lambda: fused_l2_nn_partials_plain(x, c),
                        device, 3),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -5626,10 +5670,469 @@ def sparse_knn_phase(device, seed, smi):
     return total
 
 
+#: the probe phase's kernels (B6, then B1 at the TPU probe's small shape)
+PROBE_KERNELS = ("add_one", "fused_l2_nn")
+
+
+def probe_phase(device, rep: int = 5):
+    """The compile probe (``raft_tpu_torch.kernels.probe``): case (a)
+    builds ``probe.cu`` alone and runs B6 on a 128 × 128 zero tensor (the
+    result must be exactly x + 1), case (b) builds ``fused_l2nn.cu`` alone
+    and runs B1 at 1,024 × 256 × 128 against its plain version.  Launch
+    counts are reset just before and read just after.  A failed case
+    prints its whole error text (nvcc's output, or the launch's) to stderr
+    and fails the run.  Then B6's kernels-line row: exact on seeded
+    values, the median device time of 5 calls beside its bytes bound, the
+    host's cost of one call (back-to-back calls: the launch overhead, which
+    is all this kernel's time), the plain version's and ``torch.add``'s.
+    Returns (the row, the probe's launch counts)."""
+    import torch
+
+    from raft_tpu_torch.kernels import native, probe
+
+    _reset(device)
+    t0 = time.perf_counter()
+    cases = probe.probe(device)
+    launches = dict(native.LAUNCHES)
+    seconds = _synced_seconds(device, t0)
+    emit({"phase": "probe", "seconds": seconds,
+          "cases": [{k: v for k, v in c.items() if k != "error"}
+                    for c in cases]})
+    for c in cases:
+        if not c.get("ok"):
+            print(f"chip_smoke: probe case {c['case']} failed:\n"
+                  f"{c.get('error', 'result differs from the plain version')}",
+                  file=sys.stderr, flush=True)
+    check(all(c.get("ok") for c in cases), "probe: a case failed (stderr)")
+    for name in PROBE_KERNELS:
+        check(launches[name] > 0, f"probe: kernel {name} never launched")
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    x = torch.randn(probe.ADD_ONE_SHAPE, generator=gen, device=device)
+    got = probe.add_one(x)
+    err = float((got - probe.add_one_plain(x)).abs().max())
+    check(torch.equal(got, probe.add_one_plain(x)),
+          f"add_one: not exactly x + 1 on seeded values ({err})")
+    reps = 200
+    probe.add_one(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        probe.add_one(x)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    n_bytes = 2.0 * x.numel() * 4
+    bound, by = bound_ms(n_bytes, float(x.numel()))
+    row = dict(shape=list(probe.ADD_ONE_SHAPE), max_abs_err=err,
+               build_s=cases[0].get("build_s"),
+               b1_build_s=cases[1].get("build_s"),
+               ms=timed(lambda: probe.add_one(x), device, rep),
+               plain_ms=timed(lambda: probe.add_one_plain(x), device, rep),
+               bound_ms=bound, bound_by=by,
+               launch_overhead_us=host_us,
+               library_ms=timed(lambda: torch.add(x, 1), device, rep))
+    emit({"kernel": "add_one", **row})
+    return row, launches
+
+
+#: the dense phase's shapes: the reductions' and argmin's (bench/
+#: bench_linalg.py, RAFT's cpp/bench/linalg: 16,384 × 1,024 float32), the
+#: product's (4,096²), the symmetric eigenproblem's (4,096²), the RBF gram
+#: matrix's (cuML SVC's default kernel: 16,384 × 16,384 × 128, 1 GiB out)
+DENSE_REDUCE = (16_384, 1_024)
+DENSE_GEMM = 4_096
+DENSE_EIG = 4_096
+DENSE_GRAM = (16_384, 128)
+#: the rank of ``rsvd_fixed_rank`` on the blobs (oversampling 10)
+DENSE_RSVD_K = 16
+#: the LAP problems (cuGraph's Hungarian sizes): a batch of float32
+#: uniform costs in [0, 100), and one problem of integer costs in [0, 1,000)
+DENSE_LAP_BATCH = (8, 1_024)
+DENSE_LAP_INT = (4_096, 1_000)
+#: the least-squares coefficients against float64 ``torch.linalg.lstsq``
+#: on the host, relative: κ(X)²·√m·u is 7.6e-5 for the normal equations
+#: (``lstsq_eig``) at the blobs' κ ≈ 1.97 and m = 100,000 (float32 on the
+#: host errs 2.6e-7–1.4e-6 there)
+DENSE_LSTSQ_RTOL = 1e-4
+#: a decomposition's reconstruction error and ‖VᵀV − I‖ on the card may be
+#: at most DENSE_DECOMP_X times the CPU's on the same input, or
+#: DENSE_DECOMP_FLOOR (float32 LAPACK gives 1e-6–3e-6 on these inputs);
+#: singular and eigenvalues lie within DENSE_VALUE_RTOL of the CPU's,
+#: relative to the largest
+DENSE_DECOMP_X = 10.0
+DENSE_DECOMP_FLOOR = 1e-5
+DENSE_VALUE_RTOL = 1e-4
+#: the labels' merge: the masked share of the rows and the labels_b range
+DENSE_MERGE_MASKED = 0.01
+DENSE_MERGE_B = 64
+
+
+def _gamma(n: int) -> float:
+    """γ(n) = n·u / (1 − n·u), u = 2⁻²⁴: the relative error bound of any
+    float32 summation of n terms (against Σ|terms|)."""
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+def _rec_orth(a, u, s, v):
+    """(relative Frobenius reconstruction error, max |VᵀV − I|)."""
+    import torch
+
+    rec = (a - (u * s[None, :]) @ v.T).norm() / a.norm()
+    eye = torch.eye(v.shape[1], dtype=v.dtype, device=v.device)
+    return float(rec), float((v.T @ v - eye).abs().max())
+
+
+def _eig_metrics(a, v, w):
+    """(‖AV − VΛ‖_F / ‖A‖_F, max |VᵀV − I|) of eigenpairs (v, w) of a."""
+    import torch
+
+    res = (a @ v - v * w[None, :]).norm() / a.norm()
+    eye = torch.eye(v.shape[1], dtype=v.dtype, device=v.device)
+    return float(res), float((v.T @ v - eye).abs().max())
+
+
+def _held(name, card, cpu, what):
+    check(card <= max(DENSE_DECOMP_X * cpu, DENSE_DECOMP_FLOOR),
+          f"dense {name}: {what} {card} on the card against {cpu} on the "
+          f"CPU")
+
+
+def _lap_counts():
+    from raft_tpu_torch import telemetry
+
+    return {k: telemetry.counter(f"raft_tpu_lap_{k}_total").get()
+            for k in ("phases", "rounds", "reads")}
+
+
+def _merge_twin(labels_a, labels_b, mask):
+    """numpy twin of ``merge_labels``: components of the union of the
+    labels_a classes and, among masked rows, the labels_b classes; each
+    row gets its component's least labels_a value."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    n = labels_a.shape[0]
+    rows = [np.arange(n)]
+    cols = [labels_a]
+    idx = np.nonzero(mask)[0]
+    first = {}
+    for i in idx:
+        first.setdefault(int(labels_b[i]), int(i))
+    rows.append(idx)
+    cols.append(np.array([first[int(labels_b[i])] for i in idx],
+                         dtype=np.int64))
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    g = scipy.sparse.coo_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, n))
+    _, comp = scipy.sparse.csgraph.connected_components(g, directed=False)
+    low = np.full(comp.max() + 1, n, np.int64)
+    np.minimum.at(low, comp, labels_a)
+    return low[comp]
+
+
+def dense_phase(device, seed: int, smi):
+    """The dense long tail on the card (see the module docstring): each
+    result held to its check, with its time.  The CPU's eigendecomposition
+    of the 4,096² matrix runs on a thread of its own (6 of the host's
+    threads) while the card works; every time but the LAP's is the card's
+    or is taken before the LAP, and the LAP runs after the thread ended."""
+    import concurrent.futures
+
+    import scipy.optimize
+    import torch
+
+    from raft_tpu_torch import label, linalg, matrix, solver
+    from raft_tpu_torch.distance import KernelParams, KernelType
+    from raft_tpu_torch.distance import gram_matrix
+    from raft_tpu_torch.random import RngState, make_blobs
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed + 16)
+    out = {"card": smi}
+
+    # the symmetric eigenproblem: its CPU result on a thread of its own
+    g_cpu = torch.Generator().manual_seed(seed + 16)
+    m = torch.randn(DENSE_EIG, DENSE_EIG, generator=g_cpu)
+    sym_cpu = (m + m.T) / 2
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, min(threads, 6)))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        eig_cpu = pool.submit(linalg.eig_dc, sym_cpu)
+        # 1. reductions against the CPU's float64 result
+        rows_, cols_ = DENSE_REDUCE
+        x = torch.rand(rows_, cols_, generator=gen, device=device)
+        x64 = x.double().cpu()
+        red = {}
+        cases = {
+            "reduce": (lambda: linalg.reduce(x),
+                       x64.sum(1), x64.abs().sum(1), cols_),
+            "row_norm": (lambda: linalg.row_norm(x),
+                         (x64 * x64).sum(1), (x64 * x64).sum(1), cols_),
+            "col_norm": (lambda: linalg.col_norm(x),
+                         (x64 * x64).sum(0), (x64 * x64).sum(0), rows_),
+            "coalesced_reduction": (
+                lambda: linalg.coalesced_reduction(x, main_op=torch.abs,
+                                                   reduce_op=torch.fmax),
+                x64.abs().amax(1), None, cols_),
+        }
+        for name, (fn, ref, mag, n_terms) in cases.items():
+            got = fn().double().cpu()
+            err = (got - ref).abs()
+            if mag is None:    # a max is exact
+                check(bool((err == 0).all()), f"dense {name}: not exact")
+                share = float(err.max())
+            else:
+                bound = _gamma(n_terms) * mag
+                check(bool((err <= bound).all()),
+                      f"dense {name}: beyond γ(n)·Σ|x| of float64")
+                share = float((err / bound.clamp_min(1e-300)).max())
+            red[name] = {"ms": timed(fn, device), "bound_share": share,
+                         "max_rel_err": float((err / ref.abs().clamp_min(
+                             1e-300)).max())}
+        got = linalg.normalize(x).double().cpu()
+        ref = x64 / x64.norm(dim=1, keepdim=True)
+        err = float((got - ref).abs().max())
+        check(err <= _gamma(cols_) + 4 * 2.0 ** -24,
+              f"dense normalize: {err} from float64")
+        red["normalize"] = {"ms": timed(lambda: linalg.normalize(x), device),
+                            "max_abs_err": err}
+        b_bytes = 4.0 * rows_ * cols_
+        out["reductions"] = {"shape": list(DENSE_REDUCE), "by_op": red,
+                             "bytes_bound_ms": bound_ms(b_bytes, 0)[0]}
+        got = matrix.argmin(x)
+        check(torch.equal(got.cpu(), x64.argmin(1)),
+              "dense argmin: differs from the CPU's")
+        out["argmin"] = {"shape": list(DENSE_REDUCE),
+                         "ms": timed(lambda: matrix.argmin(x), device),
+                         "bytes_bound_ms": bound_ms(b_bytes, 0)[0]}
+        del x, x64
+
+        # 2. the product against float64
+        n = DENSE_GEMM
+        a = torch.rand(n, n, generator=gen, device=device)
+        b = torch.rand(n, n, generator=gen, device=device)
+        c64 = a.double() @ b.double()
+        err = (linalg.gemm(a, b).double() - c64).abs()
+        bound = _gamma(n) * c64       # the terms are non-negative
+        check(bool((err <= bound).all()), "dense gemm: beyond γ(n)·Σ|ab|")
+        fl_bound, fl_by = bound_ms(3 * 4.0 * n * n, 2.0 * n ** 3)
+        out["gemm"] = {"n": n, "ms": timed(lambda: linalg.gemm(a, b), device),
+                       "bound_ms": fl_bound, "bound_by": fl_by,
+                       "bound_share": float((err / bound).max()),
+                       "max_rel_err": float((err / c64).max())}
+        del a, b, c64, err, bound
+
+        # 3. least squares and SVDs on configs[1]'s blobs
+        xb, lab, _ = make_blobs(RngState(seed), *KMEANS_SHAPE[:2],
+                                n_clusters=KMEANS_SHAPE[2], cluster_std=1.0,
+                                device=device)
+        mrows, d = xb.shape
+        w_true = torch.randn(d, generator=gen, device=device)
+        yb = xb @ w_true + 0.01 * torch.randn(mrows, generator=gen,
+                                              device=device)
+        xb_h, yb_h = xb.double().cpu(), yb.double().cpu()
+        s64 = torch.linalg.svdvals(xb_h)
+        w64 = torch.linalg.lstsq(xb_h, yb_h[:, None]).solution[:, 0]
+        ls = {}
+        for fn in (linalg.lstsq_svd_qr, linalg.lstsq_eig, linalg.lstsq_qr,
+                   linalg.lstsq_svd_jacobi):
+            t0 = time.perf_counter()
+            w = fn(xb, yb)
+            sec = _synced_seconds(device, t0)
+            rel = float((w.double().cpu() - w64).norm() / w64.norm())
+            check(rel <= DENSE_LSTSQ_RTOL,
+                  f"dense {fn.__name__}: coefficients {rel} from float64")
+            ls[fn.__name__] = {"s": sec, "rel_err": rel}
+        out["lstsq"] = {"shape": [mrows, d],
+                        "kappa": float(s64[0] / s64[-1]), "by_algo": ls}
+        xf = xb_h.float()
+        svd = {}
+        omega_h = torch.randn(d, DENSE_RSVD_K + 10, generator=g_cpu)
+        for name, fn in (
+                ("svd_qr", linalg.svd_qr), ("svd_eig", linalg.svd_eig),
+                ("rsvd_fixed_rank", lambda a_: linalg.rsvd_fixed_rank(
+                    a_, DENSE_RSVD_K, omega=omega_h.to(a_.device)))):
+            t0 = time.perf_counter()
+            u_, s_, v_ = fn(xb)
+            sec = _synced_seconds(device, t0)
+            rec, orth = _rec_orth(xb, u_, s_, v_)
+            uc, sc, vc = fn(xf)
+            rec_c, orth_c = _rec_orth(xf, uc, sc, vc)
+            val = float((s_.cpu() - sc).abs().max() / sc[0])
+            if name == "rsvd_fixed_rank":
+                # a rank-16 approximation: its error is the spectrum's
+                # tail, which both must find alike
+                check(abs(rec - rec_c) <= DENSE_VALUE_RTOL,
+                      f"dense {name}: reconstruction {rec} against {rec_c}")
+            else:
+                _held(name, rec, rec_c, "reconstruction error")
+            _held(name, orth, orth_c, "‖VᵀV − I‖")
+            check(val <= DENSE_VALUE_RTOL,
+                  f"dense {name}: singular values {val} from the CPU's")
+            svd[name] = {"s": sec, "rec": rec, "cpu_rec": rec_c,
+                         "orth": orth, "cpu_orth": orth_c,
+                         "value_rel_err": val}
+        out["svd"] = {"shape": [mrows, d], "rsvd_k": DENSE_RSVD_K,
+                      "by_algo": svd}
+        del xb_h, yb_h, xf
+
+        # 4. the symmetric eigenproblem
+        sym = sym_cpu.to(device)
+        eig = {}
+        for name, fn in (("eig_dc", linalg.eig_dc),
+                         ("eig_sel_dc", lambda a_: linalg.eig_sel_dc(
+                             a_, DENSE_RSVD_K))):
+            t0 = time.perf_counter()
+            v_, w_ = fn(sym)
+            sec = _synced_seconds(device, t0)
+            eig[name] = (sec, _eig_metrics(sym, v_, w_), w_.cpu())
+        vc, wc = eig_cpu.result()
+    finally:
+        pool.shutdown(wait=True)
+        torch.set_num_threads(threads)
+    top = float(wc.abs().max())
+    for name, (sec, (res, orth), w_) in eig.items():
+        k_ = w_.shape[0]
+        res_c, orth_c = _eig_metrics(sym_cpu, vc[:, :k_], wc[:k_])
+        val = float((w_ - wc[:k_]).abs().max() / top)
+        _held(name, res, res_c, "eigen residual")
+        _held(name, orth, orth_c, "‖VᵀV − I‖")
+        check(val <= DENSE_VALUE_RTOL,
+              f"dense {name}: eigenvalues {val} from the CPU's")
+        eig[name] = {"s": sec, "residual": res, "cpu_residual": res_c,
+                     "orth": orth, "cpu_orth": orth_c, "value_rel_err": val}
+    out["eig"] = {"n": DENSE_EIG, "by_algo": eig}
+    del sym, sym_cpu, m, vc, wc
+
+    # 5. the RBF gram matrix, gamma 'scale' (cuML SVC's default)
+    gx = xb[:DENSE_GRAM[0], :DENSE_GRAM[1]].contiguous()
+    gamma = float(1.0 / (gx.shape[1] * gx.var()))
+    params = KernelParams(kernel=KernelType.RBF, gamma=gamma)
+    k_mat = gram_matrix(gx, gx, params)
+    blk = 256
+    g64 = gx.double()
+    d64 = torch.cdist(g64[:blk], g64) ** 2
+    ref = torch.exp(-gamma * d64)
+    nrm = (g64[:blk] ** 2).sum(1)[:, None] + (g64 ** 2).sum(1)[None, :]
+    # float32's expanded form errs at most (2γ(d) + 3u)·(‖x‖² + ‖y‖²) in
+    # the squared distance (two norms and a product of d terms, two adds),
+    # u·γ·sq in the scaling; K then errs that times gamma, relative, plus
+    # exp's own few ulp
+    u = 2.0 ** -24
+    tol = ref * torch.expm1(gamma * ((2 * _gamma(gx.shape[1]) + 3 * u) * nrm
+                                     + u * d64)) + 4 * u * ref
+    err = (k_mat[:blk].double() - ref).abs()
+    check(bool((err <= tol).all()), "dense gram RBF: beyond its bound")
+    gn = DENSE_GRAM[0]
+    g_bound, g_by = bound_ms(4.0 * (gn * gn + 2 * gn * DENSE_GRAM[1]),
+                             2.0 * gn * gn * DENSE_GRAM[1])
+    out["gram_rbf"] = {"shape": [gn, gn, DENSE_GRAM[1]], "gamma": gamma,
+                       "ms": timed(lambda: gram_matrix(gx, gx, params),
+                                   device, 3),
+                       "bound_ms": g_bound, "bound_by": g_by,
+                       "bytes_bound_ms": bound_ms(4.0 * gn * gn, 0)[0],
+                       "max_abs_err": float(err.max()),
+                       "bound_share": float((err / tol).max())}
+    del k_mat, g64, d64, ref, nrm, tol, err
+
+    # 6. labels on the blobs' 100,000 labels
+    lab_h = lab.cpu().numpy().astype(np.int64)
+    lab_h = (lab_h * 7919) % 100_003        # spread the values apart
+    twin = np.unique(lab_h, return_inverse=True)[1]
+    t0 = time.perf_counter()
+    host = label.make_monotonic(lab_h, device=device)
+    mono_host_s = _synced_seconds(device, t0)
+    t0 = time.perf_counter()
+    dev_lab = label.make_monotonic(torch.as_tensor(lab_h, device=device))
+    mono_dev_s = _synced_seconds(device, t0)
+    check(np.array_equal(host.cpu().numpy(), twin)
+          and np.array_equal(dev_lab.cpu().numpy(), twin),
+          "dense make_monotonic: differs from numpy's")
+    rng = np.random.default_rng(seed + 16)
+    nl = lab_h.shape[0]
+    first = np.full(lab_h.max() + 1, nl, np.int64)
+    np.minimum.at(first, lab_h, np.arange(nl))
+    labels_a = first[lab_h]
+    labels_b = rng.integers(0, DENSE_MERGE_B, nl)
+    mask = rng.random(nl) < DENSE_MERGE_MASKED
+    t0 = time.perf_counter()
+    merged = label.merge_labels(labels_a, labels_b, mask, device=device)
+    merge_s = _synced_seconds(device, t0)
+    want = _merge_twin(labels_a, labels_b, mask)
+    check(np.array_equal(merged.cpu().numpy(), want),
+          "dense merge_labels: differs from its numpy twin")
+    out["labels"] = {"n": nl, "make_monotonic_host_s": mono_host_s,
+                     "make_monotonic_card_s": mono_dev_s,
+                     "merge_labels_s": merge_s,
+                     "components": int(np.unique(want).shape[0])}
+    del xb, yb, lab
+
+    # 7. the LAP solver against scipy
+    bsz, n = DENSE_LAP_BATCH
+    costs = torch.rand(bsz, n, n, generator=gen, device=device) * 100
+    before = _lap_counts()
+    t0 = time.perf_counter()
+    res = solver.solve_lap(costs)
+    lap_s = _synced_seconds(device, t0)
+    counts = {k: v - before[k] for k, v in _lap_counts().items()}
+    c_h = costs.cpu().numpy()
+    spread = float(costs.max() - costs.min())
+    eps_eff = max(1e-6, spread * 8 * 2.0 ** -23)
+    t0 = time.perf_counter()
+    opt = []
+    for i in range(bsz):
+        r_, c_ = scipy.optimize.linear_sum_assignment(c_h[i])
+        opt.append(float(c_h[i][r_, c_].astype(np.float64).sum()))
+    scipy_s = time.perf_counter() - t0
+    r2c = res.row_assignment.cpu().numpy()
+    gaps = []
+    for i in range(bsz):
+        check(np.array_equal(np.sort(r2c[i]), np.arange(n)),
+              f"dense solve_lap: problem {i} is not a permutation")
+        got = float(c_h[i][np.arange(n), r2c[i]].astype(np.float64).sum())
+        gaps.append(got - opt[i])
+        # n·ε_eff, plus the float32 rounding of the costs' sum
+        check(got - opt[i] <= n * eps_eff + _gamma(n) * got,
+              f"dense solve_lap: problem {i} {got} against scipy's {opt[i]}")
+    check(bool(res.converged.all()), "dense solve_lap: not converged")
+    lap = {"batch": {"shape": [bsz, n, n], "s": lap_s, "scipy_s": scipy_s,
+                     **counts,
+                     "eps_eff": eps_eff, "max_gap": max(gaps),
+                     "max_residual": float(res.residual.max())}}
+    n, hi = DENSE_LAP_INT
+    ci = torch.randint(0, hi, (n, n), generator=gen, device=device)
+    before = _lap_counts()
+    t0 = time.perf_counter()
+    res = solver.solve_lap(ci, epsilon=1.0 / (2 * n))
+    lap_s = _synced_seconds(device, t0)
+    counts = {k: v - before[k] for k, v in _lap_counts().items()}
+    ci_h = ci.cpu().numpy()
+    t0 = time.perf_counter()
+    r_, c_ = scipy.optimize.linear_sum_assignment(ci_h)
+    scipy_s = time.perf_counter() - t0
+    opt = int(ci_h[r_, c_].sum())
+    r2c = res.row_assignment.cpu().numpy()
+    check(np.array_equal(np.sort(r2c), np.arange(n)),
+          "dense solve_lap: the integer problem is not a permutation")
+    got = int(ci_h[np.arange(n), r2c].sum())
+    check(got == opt and bool(res.converged),
+          f"dense solve_lap: integer objective {got} against scipy's {opt}")
+    lap["integer"] = {"shape": [n, n], "costs_below": hi, "s": lap_s,
+                      **counts,
+                      "scipy_s": scipy_s, "objective": got,
+                      "dtype": str(res.objective.dtype),
+                      "residual": float(res.residual)}
+    out["lap"] = lap
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "dense", **out})
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
-        profile: bool = False):
-    """The phases after the device line; returns the kernels' rows."""
+        profile: bool = False, probe=None):
+    """The phases after the kernel build; returns the kernels' rows.
+    *probe* is the probe phase's (B6 row, launch counts)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5758,8 +6261,12 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         scipy_check.close()
     for name, fields in spec_rows.items():
         rows[name]["spectral_shapes"] = fields
-    by_path = {"ivf_flat": launches_flat, "ivf_flat_stream": stream_flat,
-               "ivf_flat_mutable": mut_flat,
+    dense_phase(device, seed, smi)
+    launches_probe = {name: 0 for name in launches_spknn}
+    if probe is not None:
+        rows["add_one"], launches_probe = probe
+    by_path = {"probe": launches_probe, "ivf_flat": launches_flat,
+               "ivf_flat_stream": stream_flat, "ivf_flat_mutable": mut_flat,
                "ivf_pq": launches_pq, "ivf_pq_stream": stream_pq,
                "ivf_pq_mutable": mut_pq, "ivf_pq_per_cluster": launches_pc,
                "ivf_pq_legacy": launches_legacy,
@@ -5778,7 +6285,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():
-        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        row["launches_by_path"] = {p: c.get(name, 0)
+                                   for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     if profile:
         profile_serve("ivf_flat", eng_flat, q_host, device)
@@ -5823,14 +6331,15 @@ def main(argv=None) -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-    t0 = time.perf_counter()
-    native.load_all()
-    emit({"phase": "kernel_build", "seconds": time.perf_counter() - t0,
-          "sources": [f"{s}.cu" for s in native.SOURCES]})
     try:
+        probe = probe_phase(device)
+        t0 = time.perf_counter()
+        native.load_all()
+        emit({"phase": "kernel_build", "seconds": time.perf_counter() - t0,
+              "sources": [f"{s}.cu" for s in native.SOURCES]})
         rows = run(device, args.n, args.queries, args.dim, args.n_lists,
                    args.n_probes, args.k, args.seed,
-                   profile=args.profile)
+                   profile=args.profile, probe=probe)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

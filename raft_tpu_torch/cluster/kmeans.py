@@ -35,7 +35,12 @@ from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import issued_on, resolve_device
 from raft_tpu_torch.core.kvp import KeyValuePair
-from raft_tpu_torch.distance import fused_l2_nn as fl2nn
+from raft_tpu_torch.distance.fused_l2_nn import (
+    cluster_partials_plain,
+    fused_l2_nn,
+    fused_l2_nn_partials_batched_plain,
+    fused_l2_nn_partials_plain,
+)
 from raft_tpu_torch.distance.distance_types import DistanceType, L2_METRICS
 from raft_tpu_torch.distance.pairwise import (_HALF_DTYPES, _dispatch,
                                               accum_dtype, as_input,
@@ -126,8 +131,8 @@ def min_cluster_and_distance(x: torch.Tensor, centroids: torch.Tensor,
     back in the accumulation type (float32 for half inputs)."""
     eng = _engine(x, engine)
     if metric in L2_METRICS:
-        idx, val = fl2nn.fused_l2_nn(x, centroids, precision=precision,
-                                     engine=eng)
+        idx, val = fused_l2_nn(x, centroids, precision=precision,
+                               engine=eng)
     else:
         val, idx = _nn_blocks(x, centroids, metric, batch_samples, eng)
     return KeyValuePair(key=idx, value=val.to(accum_dtype(x.dtype)))
@@ -149,8 +154,8 @@ def update_centroids(x: torch.Tensor, labels: torch.Tensor, n_clusters: int,
                      old_centroids: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """M-step: (new centroids, weight per cluster)."""
-    sums, wsum = fl2nn.cluster_partials_plain(x, labels, n_clusters,
-                                              sample_weights)
+    sums, wsum = cluster_partials_plain(x, labels, n_clusters,
+                                        sample_weights)
     return centroids_from_sums(sums, wsum, old_centroids, x.dtype), wsum
 
 
@@ -176,12 +181,12 @@ def fused_em_step(x: torch.Tensor, centroids: torch.Tensor,
             val, idx, sums, wsum, inertia = fused_l2_nn_partials(
                 x, centroids, sample_weights, bf16)
         else:
-            val, idx, sums, wsum, inertia = fl2nn.fused_l2_nn_partials_plain(
+            val, idx, sums, wsum, inertia = fused_l2_nn_partials_plain(
                 x, centroids, sample_weights, bf16)
     else:
         val, idx = _nn_blocks(x, centroids, metric, batch_samples, eng)
         val = val.to(accum_dtype(x.dtype))
-        sums, wsum = fl2nn.cluster_partials_plain(x, idx, k, sample_weights)
+        sums, wsum = cluster_partials_plain(x, idx, k, sample_weights)
         inertia = (torch.sum(val) if sample_weights is None
                    else torch.sum(val * sample_weights.to(val.dtype)))
     return EMPartials(sums, wsum, inertia,
@@ -209,8 +214,8 @@ def fused_em_step_batched(x: torch.Tensor, centroids: torch.Tensor,
             x, centroids, sample_weights)
     else:
         val, idx, sums, wsum, inertia = (
-            fl2nn.fused_l2_nn_partials_batched_plain(x, centroids,
-                                                     sample_weights))
+            fused_l2_nn_partials_batched_plain(x, centroids,
+                                               sample_weights))
     return EMPartials(sums, wsum, inertia,
                       idx if return_labels else None,
                       val if return_labels else None)
@@ -368,7 +373,7 @@ def _em_body(x, centroids, weights, metric, batch_samples, batch_centroids,
     else:
         nn = min_cluster_and_distance(x, centroids, metric, batch_samples,
                                       batch_centroids, engine=engine)
-        sums, wsum = fl2nn.cluster_partials_plain(x, nn.key, k, weights)
+        sums, wsum = cluster_partials_plain(x, nn.key, k, weights)
         inertia = cluster_cost(nn, weights)
     new = centroids_from_sums(sums, wsum, centroids, centroids.dtype)
     acc = accum_dtype(centroids.dtype)

@@ -35,7 +35,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import (_HALF_DTYPES, accum_dtype,
                                               as_input)
-from raft_tpu_torch.distance import fused_l2_nn as fl2nn
+from raft_tpu_torch.distance.fused_l2_nn import cluster_partials_plain
 from raft_tpu_torch.random.rng import RngState
 
 
@@ -73,8 +73,8 @@ def compute_new_centroids(x_shard: torch.Tensor, centroids: torch.Tensor,
         nn = _km.min_cluster_and_distance(x_shard, centroids, metric,
                                           batch_samples, batch_centroids,
                                           engine=engine)
-        sums, wsum = fl2nn.cluster_partials_plain(x_shard, nn.key, k,
-                                                  sample_weights)
+        sums, wsum = cluster_partials_plain(x_shard, nn.key, k,
+                                            sample_weights)
         inertia = _km.cluster_cost(nn.value, sample_weights)
         # the OPG allreduce (reference: comms.allreduce on per-cluster sums)
         sums = comms.allreduce(sums, ReduceOp.SUM)

@@ -30,6 +30,11 @@ class DeviceError(CudaError):
     retry on it fails the same way."""
 
 
+class InterruptedError_(RaftError):
+    """Raised by :mod:`raft_tpu_torch.core.interruptible` on cancellation
+    (``raft::interrupted_exception``, reference core/interruptible.hpp:41)."""
+
+
 def expects(condition: bool, message: str = "precondition violated") -> None:
     """``RAFT_EXPECTS``: raise :class:`LogicError` unless *condition* holds."""
     if not condition:

@@ -11,6 +11,9 @@ runs on both.
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
+import threading
 from typing import Dict, List, Optional
 
 import torch
@@ -137,3 +140,43 @@ def issued_on(handle: Optional[Handle]):
     with stream.context():
         yield handle.device
     stream.record()
+
+
+#: the newer reference's name of the handle (``device_resources``)
+DeviceResources = Handle
+
+_default_handle: Optional[Handle] = None
+_default_lock = threading.Lock()
+
+
+def default_handle() -> Handle:
+    """The process-wide default handle on the card, made on first use."""
+    global _default_handle
+    with _default_lock:
+        if _default_handle is None:
+            _default_handle = Handle()
+        return _default_handle
+
+
+def auto_sync_handle(fn):
+    """Decorator of a function with a ``handle`` parameter (pylibraft's
+    ``auto_sync_handle``, used at distance/pairwise_distance.pyx:94): a
+    call without a handle runs on :func:`default_handle` and waits for it
+    before returning; a caller that passes its own handle syncs it
+    itself (``handle.sync()``)."""
+    sig = inspect.signature(fn)
+    if "handle" not in sig.parameters:
+        return fn
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        bound = sig.bind_partial(*args, **kwargs)
+        supplied = bound.arguments.get("handle")
+        h = supplied if supplied is not None else default_handle()
+        bound.arguments["handle"] = h
+        out = fn(*bound.args, **bound.kwargs)
+        if supplied is None:
+            h.sync()
+        return out
+
+    return wrapper

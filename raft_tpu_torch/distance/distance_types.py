@@ -5,6 +5,7 @@ names are pylibraft's, pairwise_distance.pyx:65-91)."""
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass
 
 
 class DistanceType(enum.IntEnum):
@@ -67,3 +68,23 @@ SUPPORTED_DISTANCES = [
     "minkowski", "canberra", "kl_divergence", "correlation", "russellrao",
     "hellinger", "lp", "hamming", "jensenshannon", "cosine", "sqeuclidean",
 ]
+
+
+class KernelType(enum.Enum):
+    """The gram kernels (reference distance_types.hpp:70
+    ``kernels::KernelType``)."""
+
+    LINEAR = "linear"
+    POLYNOMIAL = "polynomial"
+    RBF = "rbf"
+    TANH = "tanh"
+
+
+@dataclass
+class KernelParams:
+    """Reference distance_types.hpp:72-86 ``kernels::KernelParams``."""
+
+    kernel: KernelType = KernelType.LINEAR
+    degree: int = 3
+    gamma: float = 1.0
+    coef0: float = 0.0

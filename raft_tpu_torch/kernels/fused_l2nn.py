@@ -29,7 +29,11 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.distance import fused_l2_nn as plain
+from raft_tpu_torch.distance.fused_l2_nn import (
+    fused_l2_nn_partials_batched_plain,
+    fused_l2_nn_partials_plain,
+    fused_l2_nn_plain,
+)
 from raft_tpu_torch.distance.pairwise import _row_norms
 from raft_tpu_torch.kernels import native
 
@@ -98,7 +102,7 @@ def fused_l2_nn(x: torch.Tensor, y: torch.Tensor, bf16_dot: bool = False
     index) as (val (m,) f32, idx (m,) int32); lowest index wins ties."""
     _check(x, y)
     if x.device.type == "cpu":
-        return plain.fused_l2_nn_plain(x, y, bf16_dot)
+        return fused_l2_nn_plain(x, y, bf16_dot)
     expects(x.device.type == "cuda", f"fused_l2_nn: device {x.device}")
     out = _launch_nn(_aligned(x), _aligned(y), bf16_dot)
     native.LAUNCHES["fused_l2_nn"] += 1
@@ -170,7 +174,7 @@ def fused_l2_nn_partials(x: torch.Tensor, y: torch.Tensor,
     Σ w·val."""
     _check(x, y)
     if x.device.type == "cpu":
-        return plain.fused_l2_nn_partials_plain(x, y, weights, bf16_dot)
+        return fused_l2_nn_partials_plain(x, y, weights, bf16_dot)
     expects(x.device.type == "cuda",
             f"fused_l2_nn_partials: device {x.device}")
     m, d = x.shape
@@ -204,7 +208,7 @@ def fused_l2_nn_partials_batched(x: torch.Tensor, y: torch.Tensor,
     expects(x.device == y.device and x.shape[0] >= 1 and y.shape[1] >= 1,
             "fused_l2_nn_partials_batched: S >= 1 and k >= 1, on one device")
     if x.device.type == "cpu":
-        return plain.fused_l2_nn_partials_batched_plain(x, y, weights)
+        return fused_l2_nn_partials_batched_plain(x, y, weights)
     expects(x.device.type == "cuda",
             f"fused_l2_nn_partials_batched: device {x.device}")
     s, n, d = x.shape

@@ -2,14 +2,15 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``: no PyTorch headers, so a build takes seconds.  The first call
-to :func:`library` starts one ``nvcc`` per source, all at once, and waits
-for them; later calls return the loaded library.  Libraries are written
+``ctypes``: no PyTorch headers, so a build takes seconds.
+:func:`library` builds its own source alone (the first call), so the
+compile probe (``probe.cu``) and one kernel fail or pass without waiting
+for the others; :func:`load_all` starts one ``nvcc`` for every missing
+source, all at once, and waits for them.  Libraries are written
 under ``build/raft_tpu_torch_kernels/`` at the checkout's root (listed in
 ``.gitignore``), named by a hash of their source and of every header
 under ``csrc/``, so an edited source or header is never served by a stale
-library.  A build that fails raises with the
-compiler's output.
+library.  A build that fails raises with the compiler's whole output.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
 show which kernels its path went through; :data:`BUILDS` counts the
@@ -26,14 +27,14 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 from raft_tpu_torch.core.error import DeviceError
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "raft_tpu_torch_kernels")
-SOURCES = ("fused_l2nn", "select_k", "ivf_pq_lut", "pairwise")
+SOURCES = ("probe", "fused_l2nn", "select_k", "ivf_pq_lut", "pairwise")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -42,7 +43,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"fused_l2_nn": 0, "fused_l2_nn_partials": 0,
                             "select_k": 0, "lut_score": 0, "lut_scan": 0,
                             "lut_scan_tombstones": 0,
-                            "pairwise_accumulate": 0}
+                            "pairwise_accumulate": 0, "add_one": 0}
 
 #: ``nvcc`` runs ("compiled") and libraries loaded into the process
 #: ("loaded") since it started
@@ -77,11 +78,17 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build_all() -> None:
-    """Compile every source whose library is missing, in parallel."""
+def build_all(names: Optional[Iterable[str]] = None) -> None:
+    """Compile each of *names* (default: every source) whose library is
+    missing, one ``nvcc`` each, all at once; raises after all have ended
+    with the output of each that failed."""
+    names = SOURCES if names is None else tuple(names)
+    for name in names:
+        if name not in SOURCES:
+            raise ValueError(f"raft_tpu_torch: no kernel source {name!r}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         out = _target(name)
         if out.exists():
             continue
@@ -106,7 +113,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     with _lock:
         if name not in _libs:
-            build_all()
+            build_all((name,))
             lib = ctypes.CDLL(str(_target(name)))
             _declare(name, lib)
             _libs[name] = lib
@@ -115,6 +122,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def load_all() -> None:
+    """Build every missing library in parallel, then load them all."""
+    with _lock:
+        build_all()
     for name in SOURCES:
         library(name)
 
@@ -165,6 +175,10 @@ _SIGNATURES = {
                           _P, _I, _I, _I, _P],
         # nq, S, cap, device -> blocks per step, or a negated error code
         "raft_lut_scan_tiles": [_I, _I, _I, _I],
+    },
+    "probe": {
+        # x, out, n, stream
+        "raft_add_one": [_P, _P, _L, _P],
     },
     "pairwise": {
         # x, y, out, m, n, k, op, p, dtype, stream

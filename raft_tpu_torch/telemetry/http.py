@@ -166,3 +166,13 @@ class TelemetryServer:
     @property
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
+
+
+def serve(port: int = 0, host: str = "127.0.0.1", *,
+          health: Optional[Callable[[], dict]] = None,
+          recorder: Optional[FlightRecorder] = None) -> TelemetryServer:
+    """Start a standalone scrape server over the process-wide registry
+    (``ServeEngine.serve_http`` is the engine-wired form); the caller owns
+    ``close()``."""
+    return TelemetryServer(port, host, health=health,
+                           recorder=recorder).start()

@@ -13,9 +13,10 @@ from raft_tpu_torch.testing.faults import (  # noqa: F401
     InjectedLogicFault,
     active_plan,
     check,
+    clear_plan,
     install_plan,
     plan,
 )
 
 __all__ = ["FaultPlan", "InjectedFault", "InjectedLogicFault",
-           "active_plan", "check", "install_plan", "plan"]
+           "active_plan", "check", "clear_plan", "install_plan", "plan"]

@@ -219,6 +219,11 @@ def install_plan(plan_or_text) -> Optional[FaultPlan]:
 
 
 
+def clear_plan() -> None:
+    """Remove the installed plan."""
+    install_plan(None)
+
+
 @contextlib.contextmanager
 def plan(text):
     """Context-manager install: the plan is active inside the block and the

@@ -9,6 +9,8 @@ different orders); duplicated centroids resolve to the lower index in
 both; values, sums and weights agree to rtol 1e-5, atol 1e-5.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +19,10 @@ import torch
 from raft_tpu.cluster import kmeans as jax_kmeans
 from raft_tpu.kernels import fused_l2nn as jax_kernel
 from raft_tpu_torch.cluster import kmeans as tk
-from raft_tpu_torch.distance import fused_l2_nn as plain
 from raft_tpu_torch.kernels import fused_l2nn as kernel
+
+# the module (raft_tpu_torch.distance exports a function of the same name)
+plain = importlib.import_module("raft_tpu_torch.distance.fused_l2_nn")
 
 M, K, D = 300, 70, 33
 _DUPES = {10: 3, 50: 20, 69: 0}   # duplicate centroid → its lower twin

@@ -323,3 +323,66 @@ def test_sparse_spectral_linkage_stand_alone(monkeypatch):
     for name, call in calls(None).items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+#: the dense long tail, the compile probe and the new core modules
+DENSE = ("kernels/probe.py", "label/__init__.py", "label/classlabels.py",
+         "label/merge_labels.py", "solver/__init__.py",
+         "solver/linear_assignment.py", "util/__init__.py",
+         "util/itertools.py", "util/math.py", "util/seive.py",
+         "util/tiling.py", "core/interruptible.py", "core/mdarray.py",
+         "core/handle.py", "linalg/__init__.py", "linalg/types.py",
+         "linalg/elementwise.py", "linalg/matrix_vector.py",
+         "linalg/reduce.py", "linalg/blas.py", "linalg/decompositions.py",
+         "matrix/ops.py", "distance/kernels.py")
+
+
+def test_dense_modules_stand_alone(monkeypatch):
+    """The dense modules, the probe and the new core modules import
+    neither jax, raft_tpu nor bench; their entry points asked for no
+    device raise when CUDA is absent, and run with ``device="cpu"``."""
+    from raft_tpu_torch import label, linalg, matrix, solver
+    from raft_tpu_torch.core import handle, mdarray
+    from raft_tpu_torch.distance import KernelParams, gram_matrix
+    from raft_tpu_torch.kernels import probe
+
+    for f in DENSE:
+        assert (PORT / f).is_file(), f
+        for name in _imports(PORT / f):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "raft_tpu",
+                                              "bench"), (f, name)
+    lab = np.array([5, 3, 5, 9], np.int32)
+    costs = np.random.default_rng(0).random((4, 4)).astype(np.float32)
+
+    def calls(device):
+        return {
+            "make_monotonic": lambda: label.make_monotonic(lab,
+                                                           device=device),
+            "get_unique_labels": lambda: label.get_unique_labels(
+                lab, device=device),
+            "merge_labels": lambda: label.merge_labels(
+                np.zeros(4, np.int32), np.zeros(4, np.int32),
+                np.ones(4, bool), device=device),
+            "solve_lap": lambda: solver.solve_lap(costs, device=device),
+            "LinearAssignmentProblem": lambda: solver.LinearAssignmentProblem(
+                4, device=device).solve(costs),
+            "gram_matrix": lambda: gram_matrix(costs, costs, KernelParams(),
+                                               device=device),
+            "eye": lambda: matrix.eye(3, device=device),
+            "fill": lambda: matrix.fill((2, 2), 1.0, device=device),
+            "map_offset": lambda: linalg.map_offset((2, 2), lambda i: i,
+                                                    device=device),
+        }
+
+    for name, call in calls("cpu").items():
+        assert call() is not None, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls(None).items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in (probe.probe, handle.default_handle,
+                 lambda: mdarray.make_device_matrix(None, 2, 2),
+                 lambda: mdarray.as_device_array([1.0])):
+        monkeypatch.setattr(handle, "_default_handle", None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

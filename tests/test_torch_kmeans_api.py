@@ -25,10 +25,10 @@ from raft_tpu.distance.distance_types import DistanceType as JaxDT
 from raft_tpu_torch import cluster as tc
 from raft_tpu_torch.cluster import InitMethod, KMeansParams
 from raft_tpu_torch.distance import DistanceType
-from raft_tpu_torch.distance import fused_l2_nn as tfl
 
-# the module (raft_tpu.distance exports a function of the same name)
+# the modules (both distance packages export a function of the same name)
 jax_fl = importlib.import_module("raft_tpu.distance.fused_l2_nn")
+tfl = importlib.import_module("raft_tpu_torch.distance.fused_l2_nn")
 
 METRICS = [DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
            DistanceType.L1, DistanceType.CosineExpanded,

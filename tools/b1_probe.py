@@ -79,7 +79,7 @@ def kernel_of(fused_l2nn, d: int) -> str:
 def b1(dev, gen, comps, reps: int) -> None:
     import torch
 
-    from raft_tpu_torch.distance import fused_l2_nn as plain
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
     from raft_tpu_torch.kernels import fused_l2nn
 
     x_all = mixture(gen, 1_000_000, 128, comps, dev)
@@ -87,7 +87,7 @@ def b1(dev, gen, comps, reps: int) -> None:
         x = x_all[:m]
         y = mixture(gen, k, d, comps, dev)
         val, idx = fused_l2nn.fused_l2_nn(x, y)
-        pv, pi = plain.fused_l2_nn_plain(x, y)
+        pv, pi = fused_l2_nn_plain(x, y)
         diff = idx != pi
         n_diff = int(diff.sum())
         if n_diff:   # near ties: the two best within 1e-5 relative
@@ -146,7 +146,7 @@ def quality(dev, seed: int, n: int = 1_000_000, n_lists: int = 1024
             ) -> None:
     import torch
 
-    from raft_tpu_torch.distance import fused_l2_nn as plain
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_plain
     from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -163,7 +163,7 @@ def quality(dev, seed: int, n: int = 1_000_000, n_lists: int = 1024
             _, ids = mod.search(mod.SearchParams(n_probes=20), index, q, 10,
                                 engine=engine)
             hits = (ids.long()[:, :, None] == truth[:, None, :]).any(-1)
-            val, _ = plain.fused_l2_nn_plain(x, index.centers)
+            val, _ = fused_l2_nn_plain(x, index.centers)
             emit({"probe": "quality", "seed": seed, "index": name,
                   "built": "plain" if engine else "kernels",
                   "recall_at_10": float(hits.sum()) / truth.numel(),

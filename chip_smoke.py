@@ -6,9 +6,11 @@ serving autotuner, random ball cover, the ε-neighbourhood, the
 distributed layer (MNMG k-means and kNN at world 1 over NCCL and world 2
 over gloo), sharded and replicated serving, the mutable index over a
 sharded main, the sparse graph path (single linkage, spectral
-partitioning with BASELINE.json configs[3], sparse kNN) and the dense
+partitioning with BASELINE.json configs[3], sparse kNN), the dense
 long tail (BLAS, decompositions, least squares, gram matrices, labels,
-the LAP solver) on one NVIDIA card.
+the LAP solver), the AOT core (``prewarm`` over the kernel cache,
+BASELINE.json configs[0] at its own shape) and the program audit on one
+NVIDIA card.
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
@@ -312,7 +314,38 @@ Phases, one JSON line each:
    of scipy's ``linear_sum_assignment``, converged) and one 4,096²
    problem of integer costs below 1,000 (scipy's optimum exactly), with
    the seconds beside scipy's.
-14. the ``{"kernels": [...]}`` line (B1–B6), then the last line
+14. ``aot`` and ``audit``, the AOT core and the analysis package's
+   program audit.  ``aot``: a fresh process (``chip_smoke.py
+   --aot-child``) over the build directory the smoke has filled:
+   ``prewarm()`` of the default grid (pairwise sqeuclidean, euclidean,
+   cosine, inner product and L1 plus ``fused_l2_nn`` at 5,000 × 5,000 ×
+   50 and 2,048 × 1,024 × 128, ``select_k`` at 1,024 × 1,000, k = 40),
+   which must build no library (``BUILDS["compiled"]`` 0), with each
+   signature's first and warm call (``aot_prewarm``,
+   ``aot_signatures``); B1 and B5 (L1) at both grid shapes (the k-means
+   tile and configs[0]'s 5,000 × 5,000 × 50) and B2 at the select shape,
+   prewarmed, against their plain versions with no new compile
+   (``aot_checks``: B1's ids on more than 0.999 of the rows and values
+   within 1e-4·(max + 1), B5 within rtol = atol = 1e-5, B2 bit for
+   bit); configs[0] itself, ``pairwise_distance``
+   L2SqrtExpanded on 5,000 × 5,000 × 50, its squared distances within
+   1e-5 of ‖x‖² + ‖y‖² of float64 (``config0``, with its time and bytes
+   bound); the grid again with ``aot_compile_counters["compiles"]``
+   unchanged (``aot_repeat``).  ``audit``: the sync counter checked on
+   one ``.item()`` (one sync) and one product (none), then
+   ``raft_tpu_torch.analysis.program_audit`` over every registered
+   program on the card (the four ``ann_mnmg.*`` at world 1 in a process
+   of their own): one line a program with its host syncs and where they
+   happened, launches by kernel, collectives and their bytes and
+   transient bytes, each beside its budget, its outputs against its
+   plain version on the same inputs (every program that launches a
+   kernel: ``program_audit.against_plain``, floats within 1e-4·(max + 1),
+   ids equal but for near-tie swaps in at most max(4, 1%) of the slots)
+   and its fingerprint; any miss fails, and the fingerprints are diffed against committed
+   goldens of the card's scope (another scope's are skipped).
+   ``--golden-dir DIR`` writes them under ``DIR/<scope>/``.  Each phase
+   fails if a kernel of its path (``PATH_KERNELS``) never launched.
+15. the ``{"kernels": [...]}`` line (B1–B6), then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -427,6 +460,11 @@ PATH_KERNELS = {
     "spectral": ("fused_l2_nn", "fused_l2_nn_partials"),
     "single_linkage": ("select_k",),
     "sparse_knn": ("pairwise_accumulate", "select_k"),
+    # prewarm's grid and its checks in a fresh process: B1, B2, B5 (L1)
+    "aot": ("fused_l2_nn", "select_k", "pairwise_accumulate"),
+    # the audited programs: B3 (fused_em_step, kernels.fused_l2_nn), B2,
+    # B4's raw mode (kernels.ivf_pq_lut) and scan mode (ivf_pq.full_search)
+    "audit": ("fused_l2_nn_partials", "select_k", "lut_score", "lut_scan"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -6128,11 +6166,230 @@ def dense_phase(device, seed: int, smi):
     emit({"phase": "dense", **out})
 
 
+# ---------------------------------------------------------------------------
+# the AOT core and the program audit
+
+#: the longest the aot phase's fresh process may take
+AOT_CHILD_TIMEOUT_S = 300
+#: configs[0]'s own shape: pairwise_distance L2SqrtExpanded, 5,000 × 5,000
+#: × 50 float32 (BASELINE.json configs[0])
+CONFIG0_SHAPE = (5_000, 5_000, 50)
+
+
+def aot_child(seed: int) -> int:
+    """The aot phase's fresh process: ``prewarm()`` over the build
+    directory the smoke filled (nothing may build), each signature's
+    first and warm call, B1 / B2 / B5 at prewarmed signatures against
+    their plain versions (B1 and B5 at both grid shapes, the k-means tile
+    and configs[0]'s 5,000 × 5,000 × 50), configs[0] against float64, and
+    the grid again with ``aot_compile_counters["compiles"]`` flat.  One
+    JSON line each; exits non-zero on a failed check."""
+    import torch
+
+    from raft_tpu_torch import prewarm
+    from raft_tpu_torch.core import aot_compile_counters
+    from raft_tpu_torch.distance import pairwise_distance
+    from raft_tpu_torch.distance.fused_l2_nn import (fused_l2_nn,
+                                                     fused_l2_nn_plain)
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.distance.pairwise import _dispatch
+    from raft_tpu_torch.kernels import native
+    from raft_tpu_torch.matrix.select_k import select_k, select_k_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    smi = nvidia_smi()
+    try:
+        native.reset_launches()
+        t0 = time.perf_counter()
+        r = prewarm(device=device)
+        seconds = time.perf_counter() - t0
+        check(native.BUILDS["compiled"] == 0,
+              f"aot: prewarm built {native.BUILDS['compiled']} libraries "
+              "in a process whose cache held them")
+        emit({"phase": "aot_prewarm", "nvidia_smi": smi,
+              "seconds": seconds, "n_signatures": r["n_signatures"],
+              "cache_dir": r["cache_dir"], "builds": dict(native.BUILDS)})
+        gen = torch.Generator(device=device).manual_seed(seed + 17)
+        sigs = [{"name": g["name"], "first_ms": 1e3 * g["first_s"],
+                 "warm_ms": 1e3 * g["warm_s"], "nvidia_smi": smi}
+                for g in r["signatures"]]
+        # B1 and B5 (L1) at both grid shapes, B2 at the select grid:
+        # prewarmed signatures, held to the plain versions
+        c0 = aot_compile_counters["compiles"]
+        shape_rows = []
+        for m, n, k in ((2048, 1024, 128), CONFIG0_SHAPE):
+            x = torch.randn((m, k), generator=gen, device=device)
+            y = torch.randn((n, k), generator=gen, device=device)
+            kv = fused_l2_nn(x, y)
+            pv, pi = fused_l2_nn_plain(x, y)
+            same = float((kv.key == pi).float().mean())
+            check(same > 0.999, f"aot: B1 ids at {m} × {n} × {k} agree "
+                  f"with the plain version on {same} of the rows")
+            b1_err = float((kv.value - pv).abs().max())
+            check(b1_err <= 1e-4 * float(pv.abs().max() + 1),
+                  f"aot: B1 values at {m} × {n} × {k}: {b1_err}")
+            d5 = pairwise_distance(x, y, "l1", device=device)
+            # the plain version through the unkeyed dispatch: another
+            # engine is another signature
+            p5 = _dispatch(x, y, DistanceType.L1, 2.0, "torch")
+            b5_err = float((d5 - p5).abs().max())
+            check(torch.allclose(d5, p5, rtol=1e-5, atol=1e-5),
+                  f"aot: B5 L1 at {m} × {n} × {k}: max error {b5_err}")
+            shape_rows.append({"shape": [m, n, k], "b1_ids_equal": same,
+                               "b1_max_abs_err": b1_err,
+                               "b5_l1_max_abs_err": b5_err})
+        v = torch.randn((1024, 1000), generator=gen, device=device)
+        sv, si = select_k(v, 40)
+        pv2, pi2 = select_k_plain(v, 40)
+        check(torch.equal(sv, pv2) and torch.equal(si, pi2),
+              "aot: B2 differs from its plain version")
+        check(aot_compile_counters["compiles"] == c0,
+              "aot: a prewarmed signature compiled again")
+        emit({"phase": "aot_signatures", "nvidia_smi": smi,
+              "signatures": sigs})
+        emit({"phase": "aot_checks", "nvidia_smi": smi,
+              "shapes": shape_rows, "b2_bit_exact": True})
+        # configs[0] at its own shape against float64
+        m0, n0, k0 = CONFIG0_SHAPE
+        x0 = torch.randn((m0, k0), generator=gen, device=device)
+        y0 = torch.randn((n0, k0), generator=gen, device=device)
+        c1 = aot_compile_counters["compiles"]
+        d0 = pairwise_distance(x0, y0, "euclidean", device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            pairwise_distance(x0, y0, "euclidean", device=device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t) / reps
+        d64 = torch.cdist(x0.double(), y0.double())
+        norms = (x0.double().square().sum(1)[:, None]
+                 + y0.double().square().sum(1)[None, :])
+        sq_err = float(((d0.double() ** 2 - d64 ** 2).abs()
+                        / norms).max())
+        abs_err = float((d0.double() - d64).abs().max())
+        check(sq_err <= 1e-5,
+              f"configs[0]: squared distances off float64 by {sq_err} "
+              "of ‖x‖² + ‖y‖²")
+        check(aot_compile_counters["compiles"] == c1,
+              "configs[0]: the prewarmed signature compiled again")
+        emit({"phase": "config0", "nvidia_smi": smi,
+              "shape": list(CONFIG0_SHAPE), "metric": "L2SqrtExpanded",
+              "max_abs_err": abs_err, "max_sq_err_of_norms": sq_err,
+              "ms": ms, "bytes_bound_ms": 1e3 * 4 * (m0 * k0 + n0 * k0
+                                                     + m0 * n0) / 3.35e12})
+        c2 = aot_compile_counters["compiles"]
+        r2 = prewarm(device=device)
+        check(aot_compile_counters["compiles"] == c2,
+              "aot: repeating the grid compiled again")
+        emit({"phase": "aot_repeat", "nvidia_smi": smi,
+              "seconds": r2["seconds"], "compiles_added": 0,
+              "launches": dict(native.LAUNCHES)})
+    except CheckFailed as e:
+        print(f"chip_smoke: check failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def aot_phase(device, seed: int, smi):
+    """Run :func:`aot_child` in a fresh process (see the module doc) and
+    relay its lines; returns its launch counts."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                          "--aot-child", "--seed", str(seed)],
+                         capture_output=True, text=True,
+                         timeout=AOT_CHILD_TIMEOUT_S,
+                         cwd=str(pathlib.Path(__file__).resolve().parent))
+    launches = {}
+    for line in out.stdout.splitlines():
+        print(line, flush=True)
+        if line.startswith('{"phase": "aot_repeat"'):
+            launches = json.loads(line)["launches"]
+    if out.returncode != 0:
+        print(out.stderr, file=sys.stderr)
+    check(out.returncode == 0, f"aot: the fresh process exited "
+          f"{out.returncode}")
+    emit({"phase": "aot", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def audit_phase(device, smi, golden_dir=None):
+    """``program_audit`` over every registered program on the card: one
+    line per program (syncs, launches by kernel, collectives, transient
+    bytes against their budgets, its fingerprint); any miss fails.  The
+    fingerprints are diffed against committed goldens of the card's scope
+    (another scope's: skipped), and written under *golden_dir* when one
+    is given."""
+    import io
+
+    from raft_tpu_torch.analysis import fingerprint, program_audit, registry
+    from raft_tpu_torch.kernels import native
+
+    import torch
+
+    t0 = time.perf_counter()
+    # the counter itself first: one .item() is one sync, a product none
+    for fn, want in ((lambda t: t.sum().item(), 1), (lambda t: t @ t, 0)):
+        probe = registry.ProgramEntry("audit.sync_probe", lambda d: dict(
+            fn=fn, args=(torch.ones((4, 4), device=d),)))
+        got = program_audit.measure(probe, device)["host_reads"]
+        check(got == want, f"audit: the sync counter saw {got} syncs, "
+              f"not {want}")
+    native.reset_launches()
+    entries = registry.iter_programs()
+    recs = program_audit.measure_all(entries, device)
+    launches = dict(native.LAUNCHES)
+    failed = []
+    fps = {}
+    for e in entries:
+        rec = recs[e.name]
+        if "error" in rec:
+            failed.append(f"{e.name}: {rec['error']}")
+            emit({"phase": "audit", "program": e.name, "nvidia_smi": smi,
+                  "status": "fail", "error": rec["error"]})
+            continue
+        findings = program_audit.check(e, rec)
+        failed += [f"{e.name}: {f}" for f in findings]
+        fps[e.name] = fingerprint.of(rec)
+        emit({"phase": "audit", "program": e.name, "nvidia_smi": smi,
+              "status": "fail" if findings else "ok",
+              "host_syncs": rec["host_reads"],
+              "host_syncs_budget": e.host_reads,
+              "sync_sites": rec["sync_sites"],
+              "launches": rec["launches"],
+              "collectives": rec["collectives"],
+              "collectives_budget": e.collectives,
+              "collective_bytes": rec["collective_bytes"],
+              "collective_bytes_budget": e.collective_bytes,
+              "transient_bytes": rec["transient_bytes"],
+              "transient_bytes_budget": e.transient_bytes,
+              "requested_bytes": rec["requested_bytes"],
+              "against_plain": rec["plain"],
+              "findings": findings, "fingerprint": fps[e.name]})
+    out = io.StringIO()
+    reports, drift = fingerprint.compare(fps, sorted(fps), out=out)
+    if golden_dir:
+        fingerprint.compare(fps, sorted(fps), golden_dir=golden_dir,
+                            update=True, out=io.StringIO())
+    emit({"phase": "audit_fingerprints", "nvidia_smi": smi,
+          "scope": program_audit.scope(device),
+          "status": {r.name: r.status for r in reports},
+          "drift": {r.name: r.findings for r in reports if r.findings}})
+    check(not failed, f"audit: {failed}")
+    check(drift == 0, f"audit: fingerprint drift {out.getvalue()}")
+    emit({"phase": "audit_summary", "nvidia_smi": smi,
+          "programs": len(entries), "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         n_probes: int, k: int, seed: int, rep: int = 5,
-        profile: bool = False, probe=None):
+        profile: bool = False, probe=None, golden_dir=None):
     """The phases after the kernel build; returns the kernels' rows.
-    *probe* is the probe phase's (B6 row, launch counts)."""
+    *probe* is the probe phase's (B6 row, launch counts); *golden_dir*
+    receives the audit's fingerprints."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6262,6 +6519,11 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     for name, fields in spec_rows.items():
         rows[name]["spectral_shapes"] = fields
     dense_phase(device, seed, smi)
+    launches_aot = aot_phase(device, seed, smi)
+    launches_audit = audit_phase(device, smi, golden_dir)
+    for path, counts in (("aot", launches_aot), ("audit", launches_audit)):
+        missing = [kk for kk in PATH_KERNELS[path] if not counts.get(kk)]
+        check(not missing, f"{path}: kernels never launched: {missing}")
     launches_probe = {name: 0 for name in launches_spknn}
     if probe is not None:
         rows["add_one"], launches_probe = probe
@@ -6281,7 +6543,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "sharded_mutable": launches_sh_mut,
                "sharded_mutable_w2": launches_sh_mut_w2,
                "single_linkage": launches_sl, "spectral": launches_spec,
-               "sparse_knn": launches_spknn, **launches_km}
+               "sparse_knn": launches_spknn, "aot": launches_aot,
+               "audit": launches_audit, **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():
@@ -6311,6 +6574,11 @@ def main(argv=None) -> int:
                     help="also trace one 1024-query super-batch of each "
                     "engine, the builds and the k-means init with "
                     "torch.profiler and print device time by kernel")
+    ap.add_argument("--golden-dir", default=None,
+                    help="write the audit's fingerprints under this "
+                    "directory (<scope>/<program>.json)")
+    ap.add_argument("--aot-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -6324,6 +6592,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the raft_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 3
+    if args.aot_child:
+        return aot_child(args.seed)
     device = torch.device("cuda")
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -6339,7 +6609,8 @@ def main(argv=None) -> int:
               "sources": [f"{s}.cu" for s in native.SOURCES]})
         rows = run(device, args.n, args.queries, args.dim, args.n_lists,
                    args.n_probes, args.k, args.seed,
-                   profile=args.profile, probe=probe)
+                   profile=args.profile, probe=probe,
+                   golden_dir=args.golden_dir)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -14,6 +14,6 @@ versions on the host.  The package imports neither ``jax`` nor anything of
 __version__ = "0.1.0"
 
 from raft_tpu_torch.core import (Handle, LogicError, RaftError,  # noqa: E402
-                                 expects)
+                                 expects, prewarm)
 
-__all__ = ["Handle", "LogicError", "RaftError", "expects"]
+__all__ = ["Handle", "LogicError", "RaftError", "expects", "prewarm"]

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import issued_on, resolve_device
@@ -159,6 +160,10 @@ def update_centroids(x: torch.Tensor, labels: torch.Tensor, n_clusters: int,
     return centroids_from_sums(sums, wsum, old_centroids, x.dtype), wsum
 
 
+@audit_program(
+    "cluster.fused_em_step", transient_bytes=12 << 20,
+    notes="one EM iteration's E-step argmin and M-step partials (B3 on "
+          "the card) — x read once an iteration")
 def fused_em_step(x: torch.Tensor, centroids: torch.Tensor,
                   sample_weights: Optional[torch.Tensor] = None,
                   metric: DistanceType = DistanceType.L2Expanded,
@@ -273,6 +278,7 @@ def _weighted_kmeans_pp(u: torch.Tensor, candidates: torch.Tensor,
     k-means++).  Every index comes from the inverse CDF of the device
     uniforms *u* (k, trials): no step reads anything back to the host.
     Zero-weight slots are never drawn while a positive one remains."""
+    # exempt(dtype-drift): float64 draw weights keep the CDF exact over n rows
     w = torch.clamp_min(weights.double(), 0.0)
     cf = candidates.float()
     chosen = candidates.new_empty((k, candidates.shape[1]))
@@ -327,8 +333,10 @@ def init_plus_plus(rng, x: torch.Tensor, n_clusters: int,
     gen = generator_of(rng)
     first = int(torch.randint(n, (1,), generator=gen))
     u_rounds = torch.rand((n_rounds, n), generator=gen,
+                          # exempt(dtype-drift): float64 uniforms, compared against the float64 CDF
                           dtype=torch.float64).to(dev)
     u_pp = torch.rand((n_clusters, local_trials(n_clusters)), generator=gen,
+                      # exempt(dtype-drift): float64 uniforms, compared against the float64 CDF
                       dtype=torch.float64).to(dev)
     cap = 1 + n_rounds * l
     candidates = x[first:first + 1].expand(cap, dim).clone()
@@ -341,6 +349,7 @@ def init_plus_plus(rng, x: torch.Tensor, n_clusters: int,
     # at 256); sums of ones are exact in any order, and unlike bincount
     # the add reads nothing back to size its output
     acc = accum_dtype(x.dtype)
+    # exempt(raw-segment-sum): cluster sizes, a histogram of labels
     counts = torch.zeros(cap, dtype=acc, device=dev).index_add_(
         0, nn.key.long(), torch.ones(n, dtype=acc, device=dev))
     return _weighted_kmeans_pp(u_pp, candidates, counts, n_clusters)

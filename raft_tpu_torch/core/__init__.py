@@ -1,4 +1,8 @@
 from raft_tpu_torch.core import interruptible
+from raft_tpu_torch.core.aot import (AotFunction, aot,
+                                    aot_compile_counters,
+                                    enable_persistent_cache,
+                                    try_enable_persistent_cache)
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import (CudaError, DeviceError,
                                       InterruptedError_, LogicError,
@@ -18,8 +22,12 @@ from raft_tpu_torch.core.mdarray import (Layout, MdArray, MdSpan, MemoryType,
                                         make_device_vector, make_host_matrix,
                                         make_host_scalar, make_host_vector,
                                         row_major)
+from raft_tpu_torch.core.prewarm import prewarm
 
-__all__ = ["CudaError", "DeviceError", "DeviceResources", "Handle",
+__all__ = ["AotFunction", "CudaError", "DeviceError", "DeviceResources",
+           "Handle", "aot", "aot_compile_counters",
+           "enable_persistent_cache", "prewarm",
+           "try_enable_persistent_cache",
            "InterruptedError_", "KeyValuePair", "Layout", "Logger",
            "LogicError", "MdArray", "MdSpan", "MemoryType", "RaftError",
            "Stream", "as_device_array", "auto_sync_handle", "bucket_dim",

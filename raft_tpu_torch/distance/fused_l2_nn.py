@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import issued_on
 from raft_tpu_torch.core.kvp import KeyValuePair, kvp_min
@@ -165,10 +166,20 @@ def fused_l2_nn(x, y, sqrt: bool = False, x_norms=None, y_norms=None,
     the same norms from the rows itself.  ``precision="default"`` rounds
     the dot products' operands to bfloat16 (B1's ``bf16_dot``).  Arrays go
     to *device* (``None``: the card); tensors stay where they are."""
-    from raft_tpu_torch.kernels.engine import resolve_engine
-
     x, y = as_input(x, device), as_input(y, device)
     expects(x.shape[1] == y.shape[1], "x and y must share feature dim")
+    val, idx = _fused_l2_nn_aot(x, y, bool(sqrt), x_norms, y_norms,
+                                precision, engine)
+    return KeyValuePair(key=idx, value=val)
+
+
+def _fused_l2_nn_impl(x: torch.Tensor, y: torch.Tensor, sqrt: bool,
+                      x_norms, y_norms, precision: str,
+                      engine: Optional[str]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_l2_nn`'s program: (distances, indices)."""
+    from raft_tpu_torch.kernels.engine import resolve_engine
+
     bf16 = precision == "default"
     if resolve_engine("l2nn", x.device, engine=engine) == "cuda":
         from raft_tpu_torch.kernels.fused_l2nn import fused_l2_nn as b1
@@ -176,7 +187,13 @@ def fused_l2_nn(x, y, sqrt: bool = False, x_norms=None, y_norms=None,
         val, idx = b1(x, y, bf16)
     else:
         val, idx = fused_l2_nn_plain(x, y, bf16, x_norms, y_norms)
-    return KeyValuePair(key=idx, value=torch.sqrt(val) if sqrt else val)
+    return (torch.sqrt(val) if sqrt else val), idx
+
+
+#: ``fused_l2_nn``'s program, keyed per signature (``raft_tpu/distance/
+#: fused_l2_nn.py:193`` ``_fused_l2_nn_aot``; ``core/prewarm.py`` warms
+#: it)
+_fused_l2_nn_aot = aot(_fused_l2_nn_impl, static_argnums=(2, 5, 6))
 
 
 def fused_l2_nn_min_reduce(x, y, sqrt: bool = False, **kw) -> KeyValuePair:

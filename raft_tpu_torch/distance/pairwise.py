@@ -21,8 +21,9 @@ run in fixed 1,024-row blocks (:func:`_dot_fixed_rows`), the tiles of
 and float16 inputs give float32 distances (:func:`accum_dtype`).  Float32
 products run in full float32: the port never enables TF32
 (``torch.backends.cuda.matmul.allow_tf32`` stays False), matching the JAX
-package's "highest" precision.  The JAX file's AOT/jit dispatch has no
-counterpart: PyTorch runs eagerly.
+package's "highest" precision.  :func:`pairwise_distance` runs through
+``_distance_aot`` (:mod:`raft_tpu_torch.core.aot`), which keys its
+signatures as the JAX file's AOT dispatch does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Optional, Union
 
 import torch
 
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.error import LogicError, expects
 from raft_tpu_torch.core.handle import resolve_device
 from raft_tpu_torch.distance.distance_types import (DISTANCE_TYPES,
@@ -411,18 +413,29 @@ def distance(x: torch.Tensor, y: torch.Tensor, metric: DistanceType,
              ) -> torch.Tensor:
     """Pairwise distances of two (·, k) tensors on one device (reference
     ``distance<DistanceType>``, distance/distance.cuh:62)."""
+    _check_pair(x, y)
+    return _dispatch(x, y, DistanceType(metric), float(metric_arg), engine)
+
+
+def _check_pair(x: torch.Tensor, y: torch.Tensor) -> None:
     expects(x.ndim == 2 and y.ndim == 2, "x and y must be 2-d")
     expects(x.shape[1] == y.shape[1],
             "x and y must have the same number of columns")
     expects(x.dtype == y.dtype, f"x and y types differ: {x.dtype}, "
             f"{y.dtype}")
-    return _dispatch(x, y, DistanceType(metric), float(metric_arg), engine)
+
+
+#: ``pairwise_distance``'s program, keyed per (shape, dtype, device,
+#: metric, metric_arg, engine) signature (``raft_tpu/distance/
+#: pairwise.py:439`` ``_distance_aot``; ``core/prewarm.py`` warms it)
+_distance_aot = aot(_dispatch, static_argnums=(2, 3, 4))
 
 
 def as_float_tensor(a, device: torch.device) -> torch.Tensor:
     """*a* (array or tensor) on *device*; float64 becomes float32, as the
     JAX package's arrays do with 64-bit types off."""
     t = torch.as_tensor(a, device=device)
+    # exempt(dtype-drift): the check that turns a float64 input into float32
     return t.float() if t.dtype == torch.float64 else t
 
 
@@ -453,5 +466,7 @@ def pairwise_distance(x, y, metric: Union[str, DistanceType] = "euclidean",
     if p is not None:
         metric_arg = p
     dev = resolve_device(device)
-    return distance(as_float_tensor(x, dev), as_float_tensor(y, dev), metric,
-                    metric_arg, engine)
+    xt, yt = as_float_tensor(x, dev), as_float_tensor(y, dev)
+    _check_pair(xt, yt)
+    return _distance_aot(xt, yt, DistanceType(metric), float(metric_arg),
+                         engine)

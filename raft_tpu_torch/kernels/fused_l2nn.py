@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.fused_l2_nn import (
     fused_l2_nn_partials_batched_plain,
@@ -165,6 +166,10 @@ def _weights(weights: Optional[torch.Tensor], shapes, x: torch.Tensor):
     return w
 
 
+@audit_program(
+    "kernels.fused_l2_nn", transient_bytes=8 << 20,
+    notes="B3: fused L2-NN argmin with the M-step partials at (2,048, 64) "
+          "× 64 centres")
 def fused_l2_nn_partials(x: torch.Tensor, y: torch.Tensor,
                          weights: Optional[torch.Tensor] = None,
                          bf16_dot: bool = False):

@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.kernels import native
 
@@ -125,6 +126,10 @@ def _check(list_codes, rows, lut, pq_dim, pq_bits, kcb, acc):
             f"lut_score: acc={acc}")
 
 
+@audit_program(
+    "kernels.ivf_pq_lut", transient_bytes=8 << 20,
+    notes="B4 raw mode: 64 queries' f32 LUTs against their rows of a "
+          "(64, 64, 8 B) code block, pq_dim 8 × 8 bits")
 def lut_score_rows(list_codes: torch.Tensor, rows: torch.Tensor,
                    lut: torch.Tensor, pq_dim: int, pq_bits: int, kcb: int,
                    acc: int = SUM_FLOAT32) -> torch.Tensor:

@@ -81,6 +81,7 @@ def _l2nn_case(device: torch.device) -> Dict:
     kv = fused_l2_nn(x, y)
     pv, pi = fused_l2_nn_plain(x, y)
     # a near tie: the two best distances within 1e-5 (relative, float64)
+    # exempt(dtype-drift): float64 near-tie yardstick of the probe's B1 row
     d = torch.cdist(x.double(), y.double()) ** 2
     two = torch.topk(d, 2, dim=1, largest=False).values
     tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].clamp_min(1e-30)

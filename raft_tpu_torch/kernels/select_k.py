@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.kernels import native
 
@@ -34,6 +35,9 @@ def supports(k: int, n: int, dtype: torch.dtype) -> bool:
     return int(k) <= MAX_K and int(k) <= int(n) and dtype in _DTYPES
 
 
+@audit_program(
+    "kernels.select_k", transient_bytes=16 << 20,
+    notes="B2: blockwise select of 64 of 4,096 per row, 64 rows")
 def select_k_blockwise(values: torch.Tensor, k: int, select_min: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values (..., k), positions (..., k) int32) of the k best per row."""

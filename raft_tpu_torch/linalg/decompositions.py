@@ -11,7 +11,8 @@ the SVD's name picks the reference's cuSOLVER algorithm: ``svd_qr`` (and
 ``chip_smoke.py``'s dense phase its reconstruction error was 2.4e-5
 against ``gesvd``'s and the CPU's 1.1e-6, NVIDIA H100 80GB HBM3,
 700.00 W).  The other variants (Jacobi against divide-and-conquer eig)
-stay as named entry points over one backend.  Eigenvectors and singular vectors are defined up to sign
+stay as named entry points over one backend.  Eigenvectors and singular
+vectors are defined up to sign
 (and within a repeated value up to rotation), and cuSOLVER picks its own:
 compare results by reconstruction, orthogonality and subspace, never
 element by element.  Tensors stay where they are.
@@ -49,6 +50,7 @@ def eig_dc(a) -> Tuple[torch.Tensor, torch.Tensor]:
     n = a.shape[-1]
     if (a.is_cuda and a.dtype == torch.float32
             and _SYEVJ_ROWS[0] <= n <= _SYEVJ_ROWS[1]):
+        # exempt(dtype-drift): syevj errs on float32 of 32-512 rows (PERF.md 6)
         w, v = torch.linalg.eigh(a.double())
         return v.float(), w.float()
     w, v = torch.linalg.eigh(a)

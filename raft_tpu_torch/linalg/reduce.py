@@ -52,15 +52,14 @@ def one_hot_by_key(keys: torch.Tensor, n_keys: int, dtype: torch.dtype,
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``out[s] = Σ_{i: ids[i]==s} data[i]``.  Ids outside
-    ``[0, num_segments)`` are dropped (the JAX scatter semantics the
-    discard slot relies on).  On the CPU the sum runs in row order."""
+    ``[0, num_segments)`` go to a discard slot past the end and are
+    dropped (the JAX scatter semantics), with no read back to the host.
+    On the CPU the sum runs in row order."""
     ids = segment_ids.long()
-    keep = (ids >= 0) & (ids < num_segments)
-    if not bool(keep.all()):
-        data, ids = data[keep], ids[keep]
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
-    return out.index_add_(0, ids, data)
+    return out.index_add_(0, ids, data)[:num_segments]
 
 
 def reduce_rows_by_key(data: torch.Tensor, keys: torch.Tensor,

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.kernels.engine import resolve_engine
 
 #: merge width from which :func:`merge_sorted_runs` takes one stable
@@ -37,6 +38,7 @@ def _key(values: torch.Tensor, select_min: bool) -> torch.Tensor:
     to float32 (exact, so order and ties are unchanged)."""
     if not values.dtype.is_floating_point:
         return values
+    # exempt(dtype-drift): float64 values keep their type (a check)
     if values.dtype != torch.float32 and values.dtype != torch.float64:
         values = values.float()
     return torch.where(torch.isnan(values),
@@ -61,9 +63,15 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
     """The k smallest (or largest) per row, best-first: (values [..., k],
     positions [..., k] int32), or the *indices* payload gathered at those
     positions."""
+    return _select_k_aot(values, int(k), bool(select_min), indices, engine)
+
+
+def _select_k_impl(values: torch.Tensor, k: int, select_min: bool,
+                   indices: Optional[torch.Tensor], engine: Optional[str]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`select_k`'s program."""
     from raft_tpu_torch.kernels import select_k as kernel
 
-    k = int(k)
     engine = resolve_engine("select_k", values.device, engine=engine)
     if (engine == "cuda" and values.numel()
             and kernel.supports(k, values.shape[-1], values.dtype)):
@@ -73,6 +81,12 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
     if indices is not None:
         return vals, torch.gather(indices, -1, pos.long())
     return vals, pos
+
+
+#: ``select_k``'s program, keyed per signature (``raft_tpu/matrix/
+#: select_k.py:230`` ``_select_k_aot``; ``core/prewarm.py`` warms it); a
+#: call inside another keyed program (an IVF search) runs inline
+_select_k_aot = aot(_select_k_impl, static_argnums=(1, 2, 4))
 
 
 def merge_sorted_runs(a_vals, a_idx, b_vals, b_idx, k: Optional[int] = None,

@@ -214,6 +214,7 @@ def coo_canonicalize(rows, cols, vals, drop_zeros: bool = True
     int32, vals float64)."""
     rows = _contig(rows, np.int32).copy()
     cols = _contig(cols, np.int32).copy()
+    # exempt(dtype-drift): rt_coo_canonicalize takes double values
     vals = _contig(vals, np.float64).copy()
     if not rows.shape == cols.shape == vals.shape:
         raise ValueError("coo_canonicalize: rows, cols and vals must have "

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.neighbors._common import (chunk_layout, extend_layout,
                                               ranks_within)
 
@@ -33,6 +34,7 @@ def _counts(labels: torch.Tensor, n_lists: int) -> np.ndarray:
     """(n_lists,) list sizes, counted on the device."""
     if labels.shape[0] == 0:
         return np.zeros(n_lists, np.int64)
+    # exempt(hot-path-host-transfer): (n_lists,) counts size the host chunk layout
     return torch.bincount(labels.long(), minlength=n_lists).cpu().numpy()
 
 
@@ -62,6 +64,11 @@ def scatter_new(payloads: Tuple[torch.Tensor, ...], ids: torch.Tensor,
     return tuple(datas), idx.reshape(n_rows, cap)
 
 
+@audit_program(
+    "build.scatter_append_in_place", transient_bytes=1 << 20,
+    in_place=(0, 1),
+    notes="the in-place extend's append scatter: the payload rows and ids "
+          "land in the existing blocks, no O(index) copy")
 def scatter_append(datas: Tuple[torch.Tensor, ...], idx: torch.Tensor,
                    payloads: Tuple[torch.Tensor, ...], ids: torch.Tensor,
                    flat: torch.Tensor, in_place: bool):
@@ -136,9 +143,12 @@ def extend_device(data, idx: torch.Tensor, list_sizes: torch.Tensor,
     n_lists = chunk_table.shape[0]
     cap = datas[0].shape[1]
     n_phys = datas[0].shape[0] - 1
+    # exempt(hot-path-host-transfer): (n_lists,) sizes lay out an extend on the host
     counts_old = list_sizes.cpu().numpy().astype(np.int64)
+    # exempt(hot-path-host-transfer): the chunk table lays out an extend on the host
+    table_old = chunk_table.cpu().numpy()
     lay = extend_layout(counts_old, _counts(labels_new, n_lists), cap,
-                        chunk_table.cpu().numpy(), n_phys)
+                        table_old, n_phys)
     table = torch.as_tensor(lay.chunk_table, device=dev)
     if lay.m:
         datas = tuple(torch.cat([d[:n_phys], d.new_zeros(

@@ -47,6 +47,7 @@ def chunk_layout(counts: np.ndarray) -> ChunkLayout:
     the nonzero sizes rounded up to 8; a list spans ceil(size / cap)
     physical rows (empty lists keep one); the last physical row is an
     empty dummy that padding entries of the chunk table point at."""
+    # exempt(hot-path-host-transfer): host counts (numpy), no device read
     counts = np.asarray(counts).astype(np.int64)
     n_lists = counts.shape[0]
     nz = counts[counts > 0]
@@ -78,10 +79,13 @@ def array_to_tensor(a, device) -> torch.Tensor:
     *device*.  Two-byte raw items — what ``np.savez`` keeps of a bfloat16
     array, and the dtype ``ml_dtypes`` gives it — are read as bfloat16
     bits."""
+    # exempt(hot-path-host-transfer): a host array in, no device read
     a = np.asarray(a)
     if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        # exempt(hot-path-host-transfer): a host array in, no device read
         bits = np.array(a).view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    # exempt(hot-path-host-transfer): a host array in, no device read
     return torch.as_tensor(np.array(a), device=device)
 
 
@@ -90,7 +94,9 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     in two-byte raw items (``|V2``, the layout the JAX package's archives
     hold)."""
     if t.dtype == torch.bfloat16:
+        # exempt(hot-path-host-transfer): export to numpy (archives, results)
         return t.view(torch.int16).cpu().numpy().view("V2")
+    # exempt(hot-path-host-transfer): export to numpy (archives, results)
     return t.cpu().numpy()
 
 
@@ -114,6 +120,7 @@ def remap_chunk_table(chunk_table: np.ndarray, row_map: np.ndarray,
     the renumbering drops (``row_map[r] < 0``) fall to *dummy*, the target
     block's empty row, so probing a dropped list scores only masked
     slots."""
+    # exempt(hot-path-host-transfer): host chunk tables (numpy), no device read
     out = np.asarray(row_map).astype(np.int64)[np.asarray(chunk_table)]
     return np.where(out < 0, np.int64(dummy), out).astype(np.int32)
 
@@ -143,7 +150,9 @@ def extend_layout(counts_old: np.ndarray, added: np.ndarray, cap: int,
     All (n_lists,)-shaped host bookkeeping; *n_phys* is the old block's
     real row count."""
     n_lists, max_chunks = chunk_table.shape
+    # exempt(hot-path-host-transfer): host counts (numpy), no device read
     counts_old = np.asarray(counts_old).astype(np.int64)
+    # exempt(hot-path-host-transfer): host counts (numpy), no device read
     counts_total = counts_old + np.asarray(added).astype(np.int64)
     chunks_old = np.maximum(-(-counts_old // cap), 1)
     chunks_total = np.maximum(-(-counts_total // cap), 1)
@@ -282,17 +291,22 @@ def validate_new_ids(new_ids: torch.Tensor, list_indices: torch.Tensor,
     give two live rows for one key (and break the mutable index, whose id
     ↔ row map is 1:1).  Reads the id column to the host: the write path
     only, never the serve path."""
+    # exempt(hot-path-host-transfer): an extend's id check: the write path, not a search
     ids_h = new_ids.cpu().numpy()
     uniq, counts = np.unique(ids_h, return_counts=True)
     if uniq.size != ids_h.size:
         raise ValueError(f"extend: duplicate ids within new_ids batch: "
+                         # exempt(hot-path-host-transfer): numpy ids in an error message
                          f"{uniq[counts > 1][:8].tolist()}")
+    # exempt(hot-path-host-transfer): an extend's id check: the write path, not a search
     idx_h = list_indices.cpu().numpy()
+    # exempt(hot-path-host-transfer): an extend's id check: the write path, not a search
     psz_h = phys_sizes.cpu().numpy()
     live = idx_h[np.arange(idx_h.shape[1])[None, :] < psz_h[:, None]]
     clash = np.intersect1d(ids_h, live)
     if clash.size:
         raise ValueError(
+            # exempt(hot-path-host-transfer): numpy ids in an error message
             f"extend: ids already live in the index: {clash[:8].tolist()} "
             "— a duplicate id would yield two live rows for one key; use "
             "neighbors.mutable.MutableIndex.upsert for replace semantics")

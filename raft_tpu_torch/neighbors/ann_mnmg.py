@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.comms.comms import Comms, ReplicaLayout, as_comms
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
@@ -457,7 +458,9 @@ def _allgather_packed(comms: Comms, d: torch.Tensor, i: torch.Tensor,
     moved by ONE allgather of the (rows, 2k) packed payload (float64
     distances carry the ids widened exactly)."""
     i = i.to(torch.int32)
+    # exempt(dtype-drift): float64 distances carry int32 ids exactly
     if d.dtype == torch.float64:
+        # exempt(dtype-drift): float64 distances carry int32 ids exactly
         parts = comms.allgather(torch.cat([d, i.to(torch.float64)], dim=1))
         return parts[..., :k], parts[..., k:].to(torch.int32)
     parts = comms.allgather(torch.cat([d.to(torch.float32),
@@ -537,6 +540,10 @@ def _brute_force_program(sh: ShardedIndex, q: torch.Tensor, k: int,
     return d, i
 
 
+#: one allgather of the packed (64, 2k) float32 merge payload at world 1
+_SHARDED_AUDIT_BYTES = 64 * 2 * 8 * 4
+
+
 class ShardedSearcher:
     """The batch program of one (sharded index, k, params) serving key —
     what ``serve.ServeEngine``'s sharded and replica backends run.
@@ -607,6 +614,24 @@ class ShardedSearcher:
         self.dispatch(torch.zeros((int(bucket), self.dim), dtype=dtype,
                                   device=self.device))
 
+    # the four world-1 audit programs (inputs: analysis/programs.py)
+    @audit_program("ann_mnmg.ivf_flat_sharded", comms=True, collectives=1,
+                   collective_bytes=_SHARDED_AUDIT_BYTES,
+                   notes="a sharded IVF-Flat batch: coarse step, this "
+                         "rank's probe scan, ONE allgather merge (world 1)")
+    @audit_program("ann_mnmg.brute_force_sharded", comms=True,
+                   collectives=1, collective_bytes=_SHARDED_AUDIT_BYTES,
+                   notes="row-sharded brute force: this rank's scan, ONE "
+                         "allgather merge (world 1)")
+    @audit_program("ann_mnmg.ivf_pq_sharded", comms=True, collectives=1,
+                   collective_bytes=_SHARDED_AUDIT_BYTES,
+                   notes="a sharded IVF-PQ batch (hoisted-LUT scan), ONE "
+                         "allgather merge (world 1)")
+    @audit_program("ann_mnmg.ivf_flat_replica_group", comms=True,
+                   collectives=1, collective_bytes=_SHARDED_AUDIT_BYTES,
+                   notes="one replica group's batch (one group of one rank "
+                         "at world 1): ONE allgather on the group's "
+                         "communicator")
     def dispatch(self, qb: torch.Tensor,
                  tombstones: Optional[torch.Tensor] = None):
         """One pre-bucketed batch on every rank; a masked searcher takes

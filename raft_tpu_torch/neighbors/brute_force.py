@@ -24,6 +24,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
@@ -47,6 +49,15 @@ def _resolve_metric(metric) -> DistanceType:
     return DistanceType(metric)
 
 
+@audit_program(
+    "brute_force.knn_scan",
+    # one tile's product in its fixed 1,024-row block (1,024 × 1,024 f32,
+    # 4 MB: the block that keeps a row's bits batch-independent) + the
+    # (64, 1,024) epilogue and select scratch — NOT the (64, 4,096)
+    # matrix's every block at once (16 MB at this shape)
+    transient_bytes=8 << 20,
+    notes="the serving engine's brute-force program: the tile loop of "
+          "distance + B2 select + merge over a (4,096, 32) index")
 def _knn_scan_impl(index: torch.Tensor, queries: torch.Tensor, k: int,
                    metric: DistanceType, metric_arg: float, tile: int,
                    select_min: bool, engine: Optional[str] = None
@@ -80,6 +91,12 @@ def _knn_scan_impl(index: torch.Tensor, queries: torch.Tensor, k: int,
     return best_d, best_i
 
 
+#: the scan's program, keyed per (bucket, dtype, device, statics)
+#: signature (``raft_tpu/neighbors/brute_force.py:164`` ``_knn_scan_aot``);
+#: ``knn`` and the serving engine's brute-force backend dispatch it
+_knn_scan_aot = aot(_knn_scan_impl, static_argnums=(2, 3, 4, 5, 6, 7))
+
+
 def _knn_batched(index: torch.Tensor, queries: torch.Tensor, k: int,
                  metric: DistanceType, metric_arg: float, tile: int,
                  batch_size_query: int, engine: Optional[str] = None
@@ -96,8 +113,8 @@ def _knn_batched(index: torch.Tensor, queries: torch.Tensor, k: int,
         if bucket != n_valid:
             qb = torch.cat([qb, qb.new_zeros((bucket - n_valid,
                                               qb.shape[1]))])
-        d, i = _knn_scan_impl(index, qb, k, metric, metric_arg, tile,
-                              select_min, engine)
+        d, i = _knn_scan_aot(index, qb, k, metric, metric_arg, tile,
+                             select_min, engine)
         out_d.append(d[:n_valid])
         out_i.append(i[:n_valid])
     if len(out_d) == 1:

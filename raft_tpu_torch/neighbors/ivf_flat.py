@@ -33,8 +33,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.cluster.kmeans import min_cluster_and_distance
 from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
@@ -382,6 +384,10 @@ def _coarse_distances(q: torch.Tensor, centers: torch.Tensor,
     return torch.clamp_min(d, 0.0)
 
 
+@audit_program(
+    "ivf_flat.search_batch", transient_bytes=4 << 20,
+    notes="the whole one-batch IVF-Flat search (coarse product, "
+          "top-n_probes, probe scan) — the serving engine's backend")
 def _search_batch_impl(queries: torch.Tensor, index: Index, k: int,
                        n_probes: int, sqrt: bool, engine: str,
                        tombstones: Optional[torch.Tensor] = None
@@ -434,6 +440,12 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
     return best_d, best_i
 
 
+#: the one-batch search program, keyed per signature (``raft_tpu/neighbors/
+#: ivf_flat.py:460`` ``_search_batch_aot``); ``search`` and the serving
+#: engine's IVF-Flat backend dispatch it
+_search_batch_aot = aot(_search_batch_impl, static_argnums=(2, 3, 4, 5))
+
+
 def search(params: SearchParams, index: Index, queries, k: int, *,
            batch_size_query: int = 1024, engine: Optional[str] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -459,8 +471,8 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
         bucket = min(bucket_dim(n_valid), batch_size_query)
         if bucket != n_valid:
             qb = torch.cat([qb, qb.new_zeros((bucket - n_valid, qb.shape[1]))])
-        d, i = _search_batch_impl(qb, index, int(k), int(n_probes), sqrt,
-                                  engine)
+        d, i = _search_batch_aot(qb, index, int(k), int(n_probes), sqrt,
+                                 engine)
         out_d.append(d[:n_valid])
         out_i.append(i[:n_valid])
     if len(out_d) == 1:

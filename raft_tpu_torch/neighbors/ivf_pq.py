@@ -60,9 +60,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.cluster.kmeans import (centroids_from_sums,
                                            fused_em_step_batched)
 from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
@@ -297,6 +299,7 @@ def _pca_balanced_rotation(resid_sample: np.ndarray, pq_dim: int
     [m·ds, (m+1)·ds)."""
     dim = resid_sample.shape[1]
     ds = dim // pq_dim
+    # exempt(dtype-drift): host covariance of the PCA rotation (numpy)
     cov = np.cov(resid_sample.T).astype(np.float64)
     w, v = np.linalg.eigh(cov)                       # ascending
     w, v = w[::-1], v[:, ::-1]                       # descending variance
@@ -444,6 +447,9 @@ def _build_list_adc(rot_centers: torch.Tensor, codebooks: torch.Tensor,
     return cb_sq[None] + 2.0 * _sub_dot(ctr[:, :, None, :], codebooks[None])
 
 
+@audit_program(
+    "ivf_pq.csum_tile", transient_bytes=8 << 20,
+    notes="the per-candidate list-side ADC sums of one 8,192-row tile")
 def _csum_for_codes(codes: torch.Tensor, labels: torch.Tensor,
                     rot_centers: torch.Tensor, codebooks: torch.Tensor,
                     per_cluster: bool = False) -> torch.Tensor:
@@ -554,6 +560,17 @@ def _train_model(params: IndexParams, x: torch.Tensor,
     return centers, labels, rotation, codebooks
 
 
+@audit_program(
+    "ivf_pq.encode_tile",
+    # the eager encode holds (tile, pq_dim, 2^bits) f32 distance planes —
+    # 64 MB each at 8,192 × 8 × 256 — four of them live at its peak (the
+    # cross product, the distances and two broadcast sums; 257 MB on an
+    # H100), where the JAX package's fused encode holds 4.2 MB a tile;
+    # five planes bound it, and a regression to a (tile, pq_dim, 2^bits,
+    # ds) product (1 GB here) fails
+    transient_bytes=5 * (8192 * 8 * 256 * 4),
+    notes="one 8,192-row populate tile: residual, rotation, encode, pack "
+          "and the list-side sums")
 def _encode_tile(index: Index, xt: torch.Tensor, lt: torch.Tensor,
                  keep: Optional[torch.Tensor] = None):
     """(packed codes, csum) of one row tile under *index*'s model:
@@ -1059,6 +1076,10 @@ def coarse_probes(queries: torch.Tensor, index: Index, n_probes: int,
     return probes
 
 
+@audit_program(
+    "ivf_pq.full_search", transient_bytes=4 << 20,
+    notes="coarse + top-n_probes + the hoisted-LUT probe scan (B4 scan "
+          "mode on the card) — the serving engine's IVF-PQ backend")
 def _full_search_impl(queries: torch.Tensor, index: Index, k: int,
                       n_probes: int, lut_dtype_name: str,
                       engines: Tuple[str, str],
@@ -1071,6 +1092,12 @@ def _full_search_impl(queries: torch.Tensor, index: Index, k: int,
     return _search_batch_impl(queries, probes, index, k, lut_dtype_name,
                               engines, tombstones, sqrt,
                               int_dtype=int_dtype, hoisted=hoisted)
+
+
+#: the serving program (coarse + select + probe scan), keyed per
+#: signature (``raft_tpu/neighbors/ivf_pq.py:1443`` ``_full_search_aot``);
+#: ``search`` and the serving engine's IVF-PQ backend dispatch it
+_full_search_aot = aot(_full_search_impl, static_argnums=(2, 3, 4, 5))
 
 
 def hoisted_batch_cap_dims(metric, per_cluster: bool, n_phys: int,
@@ -1144,7 +1171,7 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
         bucket = min(bucket_dim(n_valid), batch_size_query)
         if bucket != n_valid:
             qb = torch.cat([qb, qb.new_zeros((bucket - n_valid, qb.shape[1]))])
-        d, i = _full_search_impl(qb, index, int(k), int(n_probes),
+        d, i = _full_search_aot(qb, index, int(k), int(n_probes),
                                  params.lut_dtype, engines,
                                  int_dtype=params.internal_distance_dtype,
                                  hoisted=hoisted)

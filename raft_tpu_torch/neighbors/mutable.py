@@ -79,6 +79,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch import telemetry
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
@@ -158,6 +159,10 @@ def _family_scan(q, index, k: int, n_probes: int, lut_dtype: str,
                                     **pq_kw)
 
 
+@audit_program(
+    "mutable.delta_merged_search", transient_bytes=4 << 20,
+    notes="main ∪ delta, each scan masked by its bitmap, folded by "
+          "merge_sorted_parts — the mutable backend's batch")
 def _merged_search_impl(q, main, delta, tomb_main, tomb_delta, k: int,
                         n_probes: int, lut_dtype: str,
                         engines: Tuple[str, str], pq_kw=None):

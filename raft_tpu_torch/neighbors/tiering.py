@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch import telemetry
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
@@ -81,6 +82,9 @@ _MODEL = {"ivf_flat": ("centers",),
           "ivf_pq": ("centers", "rotation", "codebooks", "list_adc")}
 
 
+@audit_program(
+    "tiering.refine", transient_bytes=2 << 20,
+    notes="the exact re-rank of the k·ratio staged candidates")
 def _refine_impl(q: torch.Tensor, cand_vecs: torch.Tensor,
                  cand_ids: torch.Tensor, metric: DistanceType, k: int,
                  engine: str):
@@ -223,7 +227,9 @@ def _select_hot(hotness: Optional[np.ndarray], counts: np.ndarray,
     n_lists = counts.shape[0]
     n_chunks = np.maximum(-(-counts.astype(np.int64) // cap), 1)
     n_phys = int(n_chunks.sum())
+    # exempt(dtype-drift): host hotness scores (numpy)
     score = (np.asarray(hotness, np.float64) if hotness is not None
+             # exempt(dtype-drift): host hotness scores (numpy)
              else counts.astype(np.float64))
     expects(score.shape == (n_lists,),
             f"hotness must be (n_lists,) = ({n_lists},), got {score.shape}")
@@ -509,6 +515,10 @@ class TieredSearcher:
         self._acc = torch.zeros(tiered.n_lists, dtype=torch.int32,
                                 device=self.device)
 
+    @audit_program(
+        "tiering.cold_scan", transient_bytes=2 << 20,
+        notes="one staged cold tile scored over O(tile) buffers — the "
+              "tiered backend's cold phase")
     def _scan(self, qb: torch.Tensor, probes: torch.Tensor, blk,
               extra: Optional[int]):
         """One block through its family's scan: squared distances (the
@@ -534,6 +544,7 @@ class TieredSearcher:
         d, i = self._scan(qb, probes, self._hot, self.tiered.probe_extra_hot)
         if count:
             flat = probes.reshape(-1).long()
+            # exempt(raw-segment-sum): the per-list probe counter, a histogram
             self._acc.index_add_(0, flat, torch.ones_like(
                 flat, dtype=torch.int32))
         return probes, d, i
@@ -546,6 +557,7 @@ class TieredSearcher:
         if self.device.type == "cuda":
             stream = self._handle.get_next_usable_stream(lane)._stream
             with torch.cuda.stream(stream):
+                # tier-staging(hot-path-host-transfer): the one staged copy
                 staged = tuple(t.to(self.device, non_blocking=True)
                                for t in tile)
                 ev = torch.cuda.Event()
@@ -611,6 +623,7 @@ class TieredSearcher:
         the refine store into pinned memory, one staged copy, the
         re-score."""
         store = self.tiered.refine_store
+        # exempt(hot-path-host-transfer): the refine's one id read: the host gathers rows
         ids_host = ids.cpu()
         rows = torch.clamp(ids_host.long(), 0, store.shape[0] - 1)
         vecs = torch.empty(rows.shape + (self.dim,), dtype=torch.float32,

@@ -19,6 +19,11 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
 from raft_tpu_torch.random.rng import generator_of
 
+#: the type host-side draws are made in before they are rounded once to
+#: the output type (the JAX package's generator order)
+# exempt(dtype-drift): draws, centres and R-MAT parameters are made on the host in float64
+_HOST_FLOAT = torch.float64
+
 
 def make_blobs(rng, n_samples: int, n_features: int, n_clusters: int = 3,
                cluster_std: float = 1.0, centers=None,
@@ -34,17 +39,17 @@ def make_blobs(rng, n_samples: int, n_features: int, n_clusters: int = 3,
         lo, hi = center_box
         centers = lo + (hi - lo) * torch.rand((n_clusters, n_features),
                                               generator=g,
-                                              dtype=torch.float64)
+                                              dtype=_HOST_FLOAT)
     else:
         if isinstance(centers, torch.Tensor):
             device = centers.device
-        centers = torch.as_tensor(centers).detach().cpu().double()
+        centers = torch.as_tensor(centers).detach().cpu().to(_HOST_FLOAT)
         n_clusters = centers.shape[0]
     labels = torch.arange(n_samples) % n_clusters
     if shuffle:
         labels = labels[torch.randperm(n_samples, generator=g)]
     noise = torch.randn((n_samples, n_features), generator=g,
-                        dtype=(torch.float64 if dtype == torch.float64
+                        dtype=(_HOST_FLOAT if dtype == _HOST_FLOAT
                                else torch.float32))
     dev = resolve_device(device)
     centers = centers.to(device=dev, dtype=dtype)
@@ -69,11 +74,11 @@ def make_regression(rng, n_samples: int, n_features: int,
     g = generator_of(rng)
     dev = resolve_device(device)
     x = torch.randn((n_samples, n_features), generator=g,
-                    dtype=torch.float64)
+                    dtype=_HOST_FLOAT)
     w_inf = 100.0 * torch.rand((n_informative, n_targets), generator=g,
-                               dtype=torch.float64)
+                               dtype=_HOST_FLOAT)
     eps = torch.randn((n_samples, n_targets), generator=g,
-                      dtype=torch.float64)
+                      dtype=_HOST_FLOAT)
     perm = torch.randperm(n_samples, generator=g)
     x = x.to(device=dev, dtype=dtype)
     if effective_rank is not None:
@@ -111,7 +116,7 @@ def multi_variable_gaussian(rng, mean, cov, n_samples: int = 1,
     dim = mean.shape[0]
     expects(tuple(cov.shape) == (dim, dim), "cov must be [dim, dim]")
     z = torch.randn((n_samples, dim), generator=generator_of(rng),
-                    dtype=torch.float64).to(device=dev, dtype=cov.dtype)
+                    dtype=_HOST_FLOAT).to(device=dev, dtype=cov.dtype)
     if method == "cholesky":
         samples = z @ torch.linalg.cholesky(cov).T
     else:
@@ -133,7 +138,7 @@ def rmat_rectangular_gen(rng, theta, r_scale: int, c_scale: int,
     if handle is not None:
         device = handle.device
     dev = resolve_device(device)
-    theta = torch.as_tensor(theta, dtype=torch.float64).cpu()
+    theta = torch.as_tensor(theta, dtype=_HOST_FLOAT).cpu()
     max_scale = max(r_scale, c_scale)
     if theta.ndim == 1:
         theta = theta[None, :].expand(max_scale, 4)
@@ -142,7 +147,7 @@ def rmat_rectangular_gen(rng, theta, r_scale: int, c_scale: int,
     p = torch.clamp_min(theta[:max_scale], 0)
     cdf = torch.cumsum(p / p.sum(1, keepdim=True), 1)        # (L, 4)
     u = torch.rand((n_edges, max_scale), generator=generator_of(rng),
-                   dtype=torch.float64)
+                   dtype=_HOST_FLOAT)
     quad = (u[..., None] >= cdf[None, :, :3]).sum(-1)       # 0..3
     row_bits = (quad >> 1) & 1
     col_bits = quad & 1

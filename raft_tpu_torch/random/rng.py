@@ -26,6 +26,11 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
 
+#: the type host-side draws are made in before they are rounded once to
+#: the output type (the JAX package's generator order)
+# exempt(dtype-drift): draws, moments and CDFs are made on the host in float64
+_HOST_FLOAT = torch.float64
+
 
 class GeneratorType(enum.Enum):
     """reference random/rng_state.hpp:28 — GenPhilox / GenPC.  Both map to
@@ -81,7 +86,7 @@ def _shape(shape):
 def _uniform01(rng: Rng, shape, open_low: bool = False) -> torch.Tensor:
     """float64 uniforms in [0, 1) on the CPU ((0, 1) with *open_low*)."""
     u = torch.rand(_shape(shape), generator=generator_of(rng),
-                   dtype=torch.float64)
+                   dtype=_HOST_FLOAT)
     return u.clamp_min(1e-300) if open_low else u
 
 
@@ -106,7 +111,7 @@ def uniform_int(rng: Rng, shape, low, high, dtype=torch.int32,
 
 def _std_normal(rng: Rng, shape) -> torch.Tensor:
     return torch.randn(_shape(shape), generator=generator_of(rng),
-                       dtype=torch.float64)
+                       dtype=_HOST_FLOAT)
 
 
 def normal(rng: Rng, shape, mu=0.0, sigma=1.0, dtype=torch.float32,
@@ -126,9 +131,9 @@ def normal_table(rng: Rng, n_rows: int, mu_vec, sigma_vec=None,
     (n_rows, len(mu_vec)).  A tensor *mu_vec* sets the device."""
     if isinstance(mu_vec, torch.Tensor):
         device = mu_vec.device
-    mu = torch.as_tensor(mu_vec, dtype=torch.float64).cpu()
+    mu = torch.as_tensor(mu_vec, dtype=_HOST_FLOAT).cpu()
     z = _std_normal(rng, (int(n_rows), mu.shape[0]))
-    sig = (torch.as_tensor(sigma_vec, dtype=torch.float64).cpu()[None, :]
+    sig = (torch.as_tensor(sigma_vec, dtype=_HOST_FLOAT).cpu()[None, :]
            if sigma_vec is not None else sigma)
     return _out(mu[None, :] + z * sig, dtype, device)
 
@@ -194,9 +199,9 @@ def inverse_cdf(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     the weights' device with no read to the host: the first slot whose
     cumulative weight exceeds u · total (float64 sums).  A slot of zero
     weight is never drawn while any weight is positive."""
-    cdf = torch.cumsum(weights.double(), 0)
+    cdf = torch.cumsum(weights.to(_HOST_FLOAT), 0)
     total = cdf[-1:]
-    idx = torch.searchsorted(cdf, u.to(cdf.device, torch.float64) * total,
+    idx = torch.searchsorted(cdf, u.to(cdf.device, _HOST_FLOAT) * total,
                              right=True)
     # u · total may round up to total: the last slot of positive weight
     return torch.minimum(idx, torch.searchsorted(cdf, total))
@@ -224,7 +229,7 @@ def sample_without_replacement(rng: Rng, items: torch.Tensor, n_samples: int,
     weights on the card never come to the host."""
     n = items.shape[0]
     expects(0 < n_samples <= n, "sampledLen must be in (0, len]")
-    u = torch.rand(n, generator=generator_of(rng), dtype=torch.float64)
+    u = torch.rand(n, generator=generator_of(rng), dtype=_HOST_FLOAT)
     idx = gumbel_top_k(u, n_samples, weights).to(items.device)
     out = items[idx]
     return (out, idx) if return_indices else out
@@ -239,7 +244,7 @@ def gumbel_top_k(u: torch.Tensor, n_samples: int,
     g = -torch.log(-torch.log(u.clamp(1e-300, 1.0 - 1e-16)))
     if weights is not None:
         g = g.to(weights.device) + torch.log(
-            torch.clamp_min(weights.double(), 1e-37))
+            torch.clamp_min(weights.to(_HOST_FLOAT), 1e-37))
     _, idx = torch.sort(g, descending=True, stable=True)
     return idx[:n_samples]
 

@@ -22,7 +22,8 @@ bounded p99.  Three pieces:
   (``raft_tpu_device_seconds{fn}`` p50, CUDA events on the card), falling
   back to the host-side dispatch-latency histogram
   (``raft_tpu_aot_dispatch_seconds{fn,sig}`` rows merged across
-  signatures), falling back to a static estimate when cold.  A request's projected completion is (batches ahead of it + its
+  signatures), falling back to a static estimate when cold.  A
+  request's projected completion is (batches ahead of it + its
   own) × that estimate; a deadline that cannot cover the projection sheds
   at admission.
 

@@ -174,8 +174,10 @@ def _request_tensor(q) -> torch.Tensor:
     serves may have no numpy bfloat16; float64 becomes float32, as
     everywhere in the port."""
     if isinstance(q, torch.Tensor):
+        # exempt(hot-path-host-transfer): request assembly: a tensor joins the host block
         t = q.detach().cpu()
     else:
+        # exempt(hot-path-host-transfer): request assembly: a numpy request
         a = np.asarray(q)
         if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
                                           and a.dtype.itemsize == 2):
@@ -183,6 +185,7 @@ def _request_tensor(q) -> torch.Tensor:
                 np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.ascontiguousarray(a))
+    # exempt(dtype-drift): the check that turns a float64 request into float32
     return t.float() if t.dtype == torch.float64 else t
 
 
@@ -211,6 +214,7 @@ def _flat_ingest(q, dim: int, metric, device) -> torch.Tensor:
     expects(t.dtype in (torch.float32, torch.bfloat16, torch.float16),
             f"ivf_flat: unsupported query dtype {t.dtype}")
     if metric == DistanceType.CosineExpanded and t.shape[0]:
+        # exempt(hot-path-host-transfer): cosine rows normalized as solo, back to the block
         return ivf_flat._normalize_rows(t.to(device).float()).cpu()
     return t
 
@@ -245,12 +249,12 @@ class _Backend:
 
 class _BruteForceBackend(_Backend):
     """Adapter: a dense (n, dim) array or tensor, placed on *device* (the
-    card by default) → ``brute_force._knn_scan_impl``."""
+    card by default) → ``brute_force._knn_scan_aot``."""
 
     name = "brute_force"
     #: the backend's program: its ``__qualname__`` labels the telemetry
     #: the admission and scheduler cost models read
-    fn = staticmethod(brute_force._knn_scan_impl)
+    fn = staticmethod(brute_force._knn_scan_aot)
 
     def __init__(self, index, k: int, metric, metric_arg: float,
                  batch_size_index: int, device, engine: Optional[str]):
@@ -284,10 +288,10 @@ class _BruteForceBackend(_Backend):
 
 
 class _IvfFlatBackend(_Backend):
-    """Adapter: ``ivf_flat.Index`` → ``ivf_flat._search_batch_impl``."""
+    """Adapter: ``ivf_flat.Index`` → ``ivf_flat._search_batch_aot``."""
 
     name = "ivf_flat"
-    fn = staticmethod(ivf_flat._search_batch_impl)
+    fn = staticmethod(ivf_flat._search_batch_aot)
 
     def __init__(self, index: ivf_flat.Index, k: int,
                  params: Optional[ivf_flat.SearchParams],
@@ -317,11 +321,11 @@ class _IvfFlatBackend(_Backend):
 
 
 class _IvfPqBackend(_Backend):
-    """Adapter: ``ivf_pq.Index`` → ``ivf_pq._full_search_impl`` (coarse +
+    """Adapter: ``ivf_pq.Index`` → ``ivf_pq._full_search_aot`` (coarse +
     select + probe scan of one batch)."""
 
     name = "ivf_pq"
-    fn = staticmethod(ivf_pq._full_search_impl)
+    fn = staticmethod(ivf_pq._full_search_aot)
 
     def __init__(self, index: ivf_pq.Index, k: int,
                  params: Optional[ivf_pq.SearchParams],
@@ -510,6 +514,7 @@ class _DistributedBackend:
             t0 = telemetry.now()
             self._wait(self._run(lane, block))
             if self.device.type == "cuda":
+                # exempt(hot-path-host-transfer): a distributed warm run waits for its stream
                 torch.cuda.current_stream(self.device).synchronize()
             secs.append(telemetry.now() - t0)
         return min(secs)
@@ -529,6 +534,7 @@ class _DistributedBackend:
         d, i = ann_mnmg.bucketed(
             self.ingest(q), bs,
             lambda qb: self._wait(self._run(replica, qb)))
+        # exempt(hot-path-host-transfer): a solo replica search returns host results
         return d.cpu(), i.cpu()
 
 
@@ -652,6 +658,7 @@ def _warm(backend, buckets, dtype=torch.float32) -> Dict[int, Any]:
     what each warm run returned (a distributed backend: its seconds)."""
     out = {b: backend.warm(b, dtype) for b in sorted(buckets)}
     if backend.device.type == "cuda":
+        # exempt(hot-path-host-transfer): warmup waits for its warm runs, before serving
         torch.cuda.current_stream(backend.device).synchronize()
     return out
 
@@ -1105,6 +1112,7 @@ class ServeEngine:
 
     def _on_write(self, arg: int, ids: torch.Tensor, rows) -> None:
         self._served_mutable("WRITE")._apply_remote_write(
+            # exempt(hot-path-host-transfer): WRITE ids arrive as host tensors
             arg, ids.numpy(), rows)
 
     def _on_compact(self, phase: int) -> None:

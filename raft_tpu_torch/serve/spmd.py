@@ -137,6 +137,7 @@ class Pending:
         return self.d, self.i, self
 
     def result(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        # exempt(hot-path-host-transfer): a lane's result waits for its broadcast
         self.synchronize()
         return self.d, self.i
 
@@ -213,12 +214,14 @@ class LaneWire:
         hdr = torch.tensor([op, gen, bucket, _CODE[dtype], nbytes, arg, 0, 0],
                            dtype=torch.int64)
         self.calls.inc("header")
+        # exempt(collective-discipline): control plane: host header on the lane's group
         return (dist.broadcast(hdr, src=LEADER, group=self.groups[lane],
                                async_op=True), hdr)
 
     def _payload(self, lane: int, data: torch.Tensor, key: str):
         self.calls.inc(key)
         self.calls.inc(f"{key}_bytes", data.numel())
+        # exempt(collective-discipline): control plane: host block on the lane's group
         return (dist.broadcast(data, src=LEADER, group=self.groups[lane],
                                async_op=True), data)
 
@@ -238,6 +241,7 @@ class LaneWire:
         if src == LEADER:
             return works
         res = torch.empty((block.shape[0] + 1, 2 * k), dtype=torch.float32)
+        # exempt(collective-discipline): control plane: host result on the lane's group
         works.append((dist.broadcast(res, src=src, group=self.groups[lane],
                                      async_op=True), res))
         self.calls.inc("result")
@@ -277,6 +281,7 @@ class LaneWire:
         parts = [ids.view(torch.uint8)]
         dtype = torch.float32
         if rows is not None:
+            # exempt(hot-path-host-transfer): control plane stages rows through the host
             rows = rows.detach().cpu().contiguous()
             expects(rows.dtype in _CODE, f"WRITE: rows of type {rows.dtype} "
                     "do not travel on the control plane")
@@ -347,9 +352,11 @@ class LaneWire:
         src = self.lanes[self.lane][0]
         while True:
             hdr = torch.empty(_HEADER, dtype=torch.int64)
+            # exempt(collective-discipline): control plane: host header on the lane's group
             dist.broadcast(hdr, src=LEADER, group=g)
-            op, gen, bucket, code, nbytes, arg = (int(v) for v in
-                                                  hdr[:6].tolist())
+            # exempt(hot-path-host-transfer): the control header is a host tensor
+            head = hdr[:6].tolist()
+            op, gen, bucket, code, nbytes, arg = (int(v) for v in head)
             self.calls.inc("header")
             if op == OP_CLOSE:
                 return "close"
@@ -361,6 +368,7 @@ class LaneWire:
                 compact(arg)
                 continue
             buf = torch.empty(nbytes, dtype=torch.uint8)
+            # exempt(collective-discipline): control plane: host bytes on the lane's group
             dist.broadcast(buf, src=LEADER, group=g)
             if op == OP_WRITE:
                 self.calls.inc("write")
@@ -372,6 +380,7 @@ class LaneWire:
                 continue
             if op == OP_REFRESH:
                 self.calls.inc("params")
+                # exempt(hot-path-host-transfer): pickled params arrive as host bytes
                 if not refresh(gen, pickle.loads(buf.numpy().tobytes()),
                                bool(arg)):
                     return "refresh"
@@ -388,6 +397,7 @@ class LaneWire:
                                    "leaving follow()", self.rank, self.lane)
                     raise
                 if src != LEADER:   # the lane's first rank sends
+                    # exempt(collective-discipline): control plane: host result on the lane's group
                     dist.broadcast(torch.empty((bucket + 1, 2 * k),
                                                dtype=torch.float32),
                                    src=src, group=g)
@@ -395,7 +405,9 @@ class LaneWire:
             res = torch.zeros((bucket + 1, 2 * k), dtype=torch.float32)
             try:
                 d, i = dispatch(gen, block)
+                # exempt(hot-path-host-transfer): a follower's result goes back as a host tensor
                 res[:-1, :k] = d.float().cpu()
+                # exempt(hot-path-host-transfer): a follower's result goes back as a host tensor
                 res[:-1, k:] = i.to(torch.int32).cpu().view(torch.float32)
             except Exception:   # reported to the leader, which re-routes
                 _log.warning("rank %d: a dispatch of lane %d failed; the "
@@ -404,4 +416,5 @@ class LaneWire:
                 res[-1, 0] = 1.0
             self.calls.inc("result")
             self.calls.inc("result_bytes", res.numel() * 4)
+            # exempt(collective-discipline): control plane: host result on the lane's group
             dist.broadcast(res, src=src, group=g)

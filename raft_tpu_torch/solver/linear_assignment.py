@@ -210,7 +210,9 @@ def solve_lap(costs, epsilon: float = 1e-6, scaling_factor: float = 8.0,
             integer = not (costs.dtype.is_floating_point
                            or costs.dtype.is_complex
                            or costs.dtype == torch.bool)
+            # exempt(dtype-drift): integer costs solve in float64 (exact to 2^53)
             if integer and dt != torch.float64:
+                # exempt(dtype-drift): integer costs solve in float64 (exact to 2^53)
                 dt = torch.float64
             else:
                 log_warn("solve_lap: requested epsilon=%g is below the f%d "

@@ -90,6 +90,7 @@ def coo_to_dense(coo: COO) -> torch.Tensor:
     m, n = coo.shape
     out = torch.zeros((m + 1) * n, dtype=coo.vals.dtype, device=coo.device)
     rows = torch.clamp(coo.rows.long(), 0, m)
+    # exempt(raw-segment-sum): densify: COO values scattered into a dense matrix
     out.index_add_(0, rows * n + coo.cols.long(), coo.vals)
     return out.view(m + 1, n)[:m]
 

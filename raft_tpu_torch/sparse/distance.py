@@ -172,6 +172,7 @@ def _densify(rows, pos, vals, n_rows: int, width: int) -> torch.Tensor:
     dropped)."""
     out = torch.zeros((n_rows + 1) * (width + 1), dtype=vals.dtype,
                       device=vals.device)
+    # exempt(raw-segment-sum): densify: a row block scattered into its tile
     out.index_add_(0, rows.long() * (width + 1) + pos.long(), vals)
     return out.view(n_rows + 1, width + 1)[:n_rows, :width]
 

@@ -34,6 +34,7 @@ def segment_reduce(data: torch.Tensor, ids: torch.Tensor, n: int,
     shape = (n + 1,) + tuple(data.shape[1:])
     if reduce == "sum":
         out = torch.zeros(shape, dtype=data.dtype, device=data.device)
+        # exempt(raw-segment-sum): the sparse segment op's own sum
         return out.index_add_(0, ids, data)[:n]
     out = torch.full(shape, _identity(data.dtype, reduce), dtype=data.dtype,
                      device=data.device)

@@ -44,6 +44,7 @@ def as_values(a, device: torch.device) -> torch.Tensor:
     """Values on *device*; a float64 array (not tensor) becomes float32,
     as the JAX package's arrays do with 64-bit types off."""
     t = torch.as_tensor(a, device=device)
+    # exempt(dtype-drift): the check that turns a float64 array into float32
     if not isinstance(a, torch.Tensor) and t.dtype == torch.float64:
         t = t.float()
     return t

@@ -93,6 +93,7 @@ def entropy(labels, n_classes: Optional[int] = None, *,
     lab = _labels(labels, device)
     if n_classes is None:
         n_classes = int(lab.max()) + 1
+    # exempt(dtype-drift): float64 class shares of an entropy
     p = torch.bincount(lab, minlength=n_classes).double() / lab.shape[0]
     return -_xlogx_ratio(p, torch.ones_like(p))
 
@@ -101,6 +102,7 @@ def mutual_info_score(y_true, y_pred, n_classes: Optional[int] = None, *,
                       device=None) -> torch.Tensor:
     """Mutual information (nats) of two labelings (reference
     stats/mutual_info_score.cuh)."""
+    # exempt(dtype-drift): float64 contingency counts of mutual information
     cm = contingency_matrix(y_true, y_pred, n_classes,
                             device=device).double()
     pij = cm / torch.sum(cm)
@@ -139,6 +141,7 @@ def v_measure(y_true, y_pred, n_classes: Optional[int] = None,
 def _pair_counts(y_true, y_pred, device):
     """(Σ_ij C(n_ij, 2), Σ_i C(a_i, 2), Σ_j C(b_j, 2), C(n, 2)) of the
     contingency table, float64."""
+    # exempt(dtype-drift): pair counts exceed float32's exact integers
     cm = contingency_matrix(y_true, y_pred, device=device).double()
 
     def comb2(v):
@@ -253,6 +256,7 @@ def trustworthiness_score(x, x_embedded, n_neighbors: int = 5,
         1, order, torch.arange(n, device=x.device).expand(n, n).contiguous())
     emb_nn = torch.sort(d_emb, dim=1, stable=True).indices[:, :n_neighbors]
     r = torch.gather(ranks, 1, emb_nn)
+    # exempt(dtype-drift): float64 trustworthiness penalty sum
     penalty = torch.clamp_min(r - n_neighbors + 1, 0).double()
     return 1.0 - (2.0 / (n * n_neighbors * (2 * n - 3 * n_neighbors - 1))
                   ) * torch.sum(penalty)

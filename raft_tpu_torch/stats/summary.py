@@ -112,4 +112,5 @@ def histogram(data: torch.Tensor, n_bins: int, lower: Optional[float] = None,
                       n_bins - 1).long()
     out = torch.zeros((n_bins, data.shape[1]), dtype=torch.int32,
                       device=data.device)
+    # exempt(raw-segment-sum): histogram counts
     return out.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))

@@ -266,7 +266,7 @@ Phases, one JSON line each:
    ``AgglomerativeClustering``'s n_neighbors), n − 1 edges in one
    component, ARI against the blobs, the native dendrogram and cut bit
    for bit their numpy twins, seconds by stage and the fix-up rounds;
-   PAIRWISE on the first 20,000 rows, its MST weight against scipy's
+   PAIRWISE on the first 12,000 rows, its MST weight against scipy's
    ``minimum_spanning_tree`` of the same matrix on the host (in a process
    of its own, started after the next two phases so that none of their
    timings shares the host with it) and not above KNN_GRAPH's; B2 at the
@@ -311,7 +311,7 @@ Phases, one JSON line each:
    its float64 formula on a row block; ``make_monotonic`` (host and card)
    and ``merge_labels`` on the blobs' 100,000 labels against numpy twins;
    ``solve_lap`` on 8 float32 1,024² problems (objective within n·ε_eff
-   of scipy's ``linear_sum_assignment``, converged) and one 4,096²
+   of scipy's ``linear_sum_assignment``, converged) and one 2,048²
    problem of integer costs below 1,000 (scipy's optimum exactly), with
    the seconds beside scipy's.
 14. ``aot`` and ``audit``, the AOT core and the analysis package's
@@ -345,7 +345,24 @@ Phases, one JSON line each:
    goldens of the card's scope (another scope's are skipped).
    ``--golden-dir DIR`` writes them under ``DIR/<scope>/``.  Each phase
    fails if a kernel of its path (``PATH_KERNELS``) never launched.
-15. the ``{"kernels": [...]}`` line (B1–B6), then the last line
+15. the zero-compile contract.  Every serving line that warms an engine
+   carries ``compiles_after_warmup``: the first calls of keyed programs
+   (``aot_compile_counters["compiles"]``) over its traffic after
+   ``warmup()``, which must be 0 — serve, serve_stream (and its fault
+   retry), serve_dtypes, tiered, autotune (from ``warm_candidates()``
+   through the rollback), the mutable reads across the writer thread and
+   both compactions (the reading thread's count, ``core.aot.
+   thread_compiles()``: a writer's rewarms run on its own), sharded and
+   sharded_mutable at world 1, and the w2 leaders (a follower's first
+   calls at most its leader's warm-up's).  The ``mutable_*`` lines give
+   the rewarms (writes that changed a served shape) beside the upsert
+   rows/s.  ``build_compiles`` (after the IVF-PQ path): each IVF family
+   built twice from the same 100,000 rows and 20,000 rows extended into
+   the first build twice; the second build and extend make no first
+   call.  ``retrace`` (before ``aot``): the retrace-closure certifier
+   over the checkout, its obligations certified and failed (any failure
+   fails the run) and its seconds.
+16. the ``{"kernels": [...]}`` line (B1–B6), then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -529,8 +546,33 @@ def check(cond, what: str) -> None:
         raise CheckFailed(what)
 
 
+#: when the script started: each phase line carries its seconds since
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
+
+
+def compiles() -> int:
+    """First calls of keyed programs in this process so far
+    (``aot_compile_counters["compiles"]``)."""
+    import importlib
+
+    return importlib.import_module(
+        "raft_tpu_torch.core.aot").aot_compile_counters["compiles"]
+
+
+def after_warmup(row, c0, what, n=None) -> None:
+    """Record the first calls since *c0* (or *n* of them) as *row*'s
+    ``compiles_after_warmup`` and require none: traffic after
+    ``warmup()`` runs only warmed signatures."""
+    row["compiles_after_warmup"] = compiles() - c0 if n is None else n
+    check(row["compiles_after_warmup"] == 0,
+          f"{what}: {row['compiles_after_warmup']} first calls of keyed "
+          "programs after warmup()")
 
 
 def nvidia_smi() -> str:
@@ -1177,6 +1219,7 @@ def serve_path(path, device, eng, k, reqs, calls, n_queries):
     t0 = time.perf_counter()
     n_warm = eng.warmup()
     warm_s = time.perf_counter() - t0
+    c0 = compiles()
     call_s, results = [], []
     t_serve = time.perf_counter()
     for call in calls:
@@ -1195,6 +1238,7 @@ def serve_path(path, device, eng, k, reqs, calls, n_queries):
            "stats": dict(eng.stats), "launches": launches,
            "peak_mem_bytes": (torch.cuda.max_memory_allocated()
                               if device.type == "cuda" else None)}
+    after_warmup(row, c0, f"{path} serve")
     emit(row)
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{path} main path never launched {name}")
@@ -1345,15 +1389,19 @@ def serve_stream(path, device, served, q_host, n_queries, smi, seed,
             eng.close()
         eng = served.make()
         eng.warmup()
+        c0 = compiles()
         timed = _stream_pass(eng, reqs, rate * qps, deadline_s, seed + r)
         rejected = _check_stream(path, timed[0], reqs, offsets, ref_d,
                                  ref_i, rejections_ok=True)
-        emit(_stream_row(path, rate, eng, reqs, timed, rejected, rate * qps,
-                         deadline_s, smi))
+        row = _stream_row(path, rate, eng, reqs, timed, rejected, rate * qps,
+                          deadline_s, smi)
+        after_warmup(row, c0, f"{path} serve_stream at {rate}")
+        emit(row)
     out = {"phase": "serve_stream_checks", "path": path, "card": smi}
     if checks:
         # one transient dispatch fault: retried on the other lane
         check(eng.stats["retries"] == 0, f"{path}: retries before the fault")
+        c0 = compiles()
         with faults.plan("dispatch:n=1:raise"):
             futs = [eng.submit(q) for q in reqs[:8]]
             eng.flush()
@@ -1364,6 +1412,9 @@ def serve_stream(path, device, served, q_host, n_queries, smi, seed,
               f"{path}: one injected fault gave {eng.stats['retries']} "
               "retries")
         out["fault_retries"] = eng.stats["retries"]
+        out["fault_compiles"] = compiles() - c0
+        check(out["fault_compiles"] == 0,
+              f"{path}: the retried dispatch made a first call")
         if refresh_index is not None:
             t0 = time.perf_counter()
             outs = _stream_pass(
@@ -1667,6 +1718,7 @@ def mutable_path(path, device, index, x, build_params, params, calls,
     then compacted while traffic runs (a faulted promote first, then a
     ``Compactor`` tick); launch counts are reset before it and read
     after.  Returns them."""
+    import importlib
     import shutil
 
     import torch
@@ -1676,6 +1728,7 @@ def mutable_path(path, device, index, x, build_params, params, calls,
     from raft_tpu_torch.serve import ServeEngine
     from raft_tpu_torch.testing import faults
 
+    aot = importlib.import_module("raft_tpu_torch.core.aot")
     tag = f"{path}_mutable"
     flat = path == "ivf_flat"
     fam = ivf_flat if flat else ivf_pq
@@ -1713,7 +1766,7 @@ def mutable_path(path, device, index, x, build_params, params, calls,
                 threading.Lock())
         vecs = {}
         tally = {"upsert_s": 0.0, "upsert_rows": 0, "delete_s": 0.0,
-                 "delete_rows": 0}
+                 "delete_rows": 0, "writes": 0}
 
         def upsert(ids):
             v = fresh(ids.size)
@@ -1721,6 +1774,7 @@ def mutable_path(path, device, index, x, build_params, params, calls,
             mut.upsert(v, ids)
             tally["upsert_s"] += _synced_seconds(device, t0)
             tally["upsert_rows"] += ids.size
+            tally["writes"] += 1
             alive[ids] = True
             with dead[1]:
                 dead[0][torch.as_tensor(ids, device=device)] = False
@@ -1732,6 +1786,7 @@ def mutable_path(path, device, index, x, build_params, params, calls,
             got = mut.delete(ids)
             tally["delete_s"] += _synced_seconds(device, t0)
             tally["delete_rows"] += got
+            tally["writes"] += 1
             check(got == ids.size, f"{tag}: a delete missed live ids")
             alive[ids] = False
             with dead[1]:
@@ -1743,6 +1798,7 @@ def mutable_path(path, device, index, x, build_params, params, calls,
             return [ids[b:b + MUT_BATCH] for b in range(0, ids.size,
                                                         MUT_BATCH)]
 
+        rewarms0 = mutable.mutable_counters["rewarms"]
         for ids in batches(rng.choice(n, MUT_UPSERT_LIVE, replace=False)):
             upsert(ids)
         for ids in batches(np.arange(n, n + MUT_UPSERT_NEW)):
@@ -1753,11 +1809,15 @@ def mutable_path(path, device, index, x, build_params, params, calls,
         for ids in batches(rng.choice(gone, MUT_REUPSERT, replace=False)):
             upsert(ids)
         check(mut.size == int(alive.sum()), f"{tag}: size after the churn")
+        rewarms = mutable.mutable_counters["rewarms"] - rewarms0
         emit({"phase": "mutable_churn", "path": path, "card": smi,
               "size": mut.size, "delta_rows": mut.delta_rows,
               "tombstones": mut.tombstone_count,
               "upsert_rows_per_s": tally["upsert_rows"] / tally["upsert_s"],
               "delete_rows_per_s": tally["delete_rows"] / tally["delete_s"],
+              "rewarms": rewarms,
+              "rewarms_per_write": rewarms / tally["writes"],
+              "delta_block_rows": int(mut._mut_core.delta.list_indices.shape[0]),
               "write_batch_rows": MUT_BATCH, **tally})
 
         # the plain backend on the same main and traffic, then the mutable
@@ -1768,6 +1828,10 @@ def mutable_path(path, device, index, x, build_params, params, calls,
         plain.close()
         eng = ServeEngine(mut, k, params, max_batch=1024)
         eng.warmup()
+        # reads run on this thread, the writer's rewarms on its own
+        read0, all0 = aot.thread_compiles(), compiles()
+        rewarms0 = mutable.mutable_counters["rewarms"]
+        tally0 = dict(tally)
         errors = []
 
         def writer():
@@ -1792,6 +1856,15 @@ def mutable_path(path, device, index, x, build_params, params, calls,
         wt.join()
         check(not errors, f"{tag}: the writer failed: {errors}")
         final_s, ids = _serve_all(eng, calls, dead)
+        read_compiles = aot.thread_compiles() - read0
+        serve_writes = {
+            "writes_during_serving": tally["writes"] - tally0["writes"],
+            "write_path_compiles": compiles() - all0 - read_compiles,
+            "rewarms_during_serving": (mutable.mutable_counters["rewarms"]
+                                       - rewarms0),
+            "upsert_rows_per_s_during_serving": (
+                (tally["upsert_rows"] - tally0["upsert_rows"])
+                / (tally["upsert_s"] - tally0["upsert_s"]))}
         live_t = torch.as_tensor(alive, device=device)
         it = torch.as_tensor(ids, device=device).long()
         check(bool((it >= 0).all()) and bool(live_t[it].all()),
@@ -1828,7 +1901,11 @@ def mutable_path(path, device, index, x, build_params, params, calls,
               "tombstones": mut.tombstone_count,
               "recall_at_10": r_mut, "recall_at_10_unchurned": r_unchurned,
               "self_rank1": self_rank1, "self_top10": self_top10,
-              "self_queries": int(sample.size), "stats": dict(eng.stats)})
+              "self_queries": int(sample.size), **serve_writes,
+              "compiles_after_warmup": read_compiles,
+              "stats": dict(eng.stats)})
+        check(read_compiles == 0, f"{tag}: {read_compiles} first calls in "
+              "the reads across the writes")
         check(abs(r_mut - r_unchurned) <= MUT_RECALL_TOL[path],
               f"{tag}: recall {r_mut} not within {MUT_RECALL_TOL[path]} "
               f"of the unchurned index's {r_unchurned}")
@@ -1853,15 +1930,17 @@ def mutable_path(path, device, index, x, build_params, params, calls,
         # core is swapped, the engine keeps its backend), then fresh
         # writes and a Compactor tick that promotes
         stop = threading.Event()
-        served = [0]
+        served = [0, 0]
 
         def reader():
+            c0 = aot.thread_compiles()
             try:
                 while not stop.is_set():
                     _serve_all(eng, calls[:2])
                     served[0] += 1
             except Exception as e:   # noqa: BLE001 — checked below
                 errors.append(repr(e))
+            served[1] = aot.thread_compiles() - c0
 
         rt = threading.Thread(target=reader)
         rt.start()
@@ -1908,7 +1987,10 @@ def mutable_path(path, device, index, x, build_params, params, calls,
         row = {"phase": "mutable_compact", "path": path, "card": smi,
                "faulted_compact_s": faulted_s, "compact_s": compact_s,
                "compaction_errors": comp.errors, "size": mut.size,
-               "reader_passes": served[0], "stats": dict(eng.stats)}
+               "reader_passes": served[0], "compiles_after_warmup": served[1],
+               "stats": dict(eng.stats)}
+        check(served[1] == 0, f"{tag}: {served[1]} first calls in the reads "
+              "across the compactions")
         if flat:
             d_after, _ = mutable.search(mut, qr[:16], k, params=full)
             ident = torch.equal(d_before, d_after)
@@ -2626,6 +2708,7 @@ def tiered_path(kind, device, index, x, resident, q_host, reqs, calls,
            / batches,
            "tile_copy_s": stage_s,
            "staging_gb_per_s": t.tile_bytes() / stage_s / 1e9,
+           "compiles_after_warmup": row["compiles_after_warmup"],
            "equals_resident_bitwise": True}
     nr = qr.shape[0]
     r_tiered = recall(_first_ids(results, nr, device), truth)
@@ -3423,6 +3506,7 @@ def autotune_phase(device, eng, index, x, reqs, calls, resident, truth, k,
     t0 = time.perf_counter()
     n_sig = tuner.warm_candidates()
     frozen = (dict(native.BUILDS), eng.warmed_signatures())
+    c0 = compiles()
     stop = threading.Event()
     feeder, subs = _poisson_feed(eng, reqs, TUNE_LIVE_RATE * closed_qps,
                                  seed, stop)
@@ -3447,6 +3531,9 @@ def autotune_phase(device, eng, index, x, reqs, calls, resident, truth, k,
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
+    tuned = {}
+    # explore, promote, rollback and the live traffic run warmed programs
+    after_warmup(tuned, c0, "autotune")
     check(rolled, "autotune: the forced rollback did not roll back")
     check((dict(native.BUILDS), eng.warmed_signatures()) == frozen,
           "autotune: a kernel library was built or loaded, or a warmed "
@@ -3516,7 +3603,7 @@ def autotune_phase(device, eng, index, x, reqs, calls, resident, truth, k,
           "builds": dict(native.BUILDS),
           "recall_exact_reference": hits_ref / total,
           "recall_ground_truth": hits_truth / total,
-          "launches": launches, "card": smi})
+          "launches": launches, **tuned, "card": smi})
     return launches
 
 
@@ -4052,6 +4139,7 @@ def mnmg_w2_phase(device, seed, km, x, queries, n_lists, k, world1, smi):
                         "dim": x.shape[1], "n_lists": n_lists},
                "x_rows": _witness(x), "q_rows": _witness(queries),
                "k": k, "iters": MNMG_W2_ITERS}
+    parent_memory = _free_for_workers(device)
     with tempfile.TemporaryDirectory(prefix="raft_smoke_w2_") as tmp, \
             MailboxServer() as server:
         t0 = time.perf_counter()
@@ -4061,7 +4149,8 @@ def mnmg_w2_phase(device, seed, km, x, queries, n_lists, k, world1, smi):
                          coordinator="%s:%d" % server.address)
         wall = time.perf_counter() - t0
     row = {"phase": "mnmg_w2", "world": 2, "backend": "gloo",
-           "workers_wall_s": wall, "card": smi}
+           "workers_wall_s": wall, "parent_memory": parent_memory,
+           "card": smi}
     r0, r1 = outs
     for key in ("centroids", "labels"):
         check(np.array_equal(r0["kmeans"][key], r1["kmeans"][key]),
@@ -4176,14 +4265,17 @@ def serve_dtypes_phase(device, engines, q_host, n_queries, smi):
             torch.from_numpy(q_host).to(DTYPES[name]), n_queries)
             for name in SERVE_DTYPES}
         qps = {name: [] for name in SERVE_DTYPES}
+        passes_compiles = 0
         # the types in turns, forward then back: each type's qps is the
         # mean of its two passes
         for order in (SERVE_DTYPES, SERVE_DTYPES[::-1]):
             for name in order:
                 reqs, calls = typed[name]
+                c0 = compiles()
                 with counted.span():
                     results, _, serve_s = _closed_loop(eng, calls,
                                                        warm=False)
+                passes_compiles += compiles() - c0
                 qps[name].append(n_queries / serve_s)
                 if len(qps[name]) > 1:
                     continue
@@ -4204,6 +4296,7 @@ def serve_dtypes_phase(device, engines, q_host, n_queries, smi):
                          / by_type["float32"]["qps"]
                          for name in SERVE_DTYPES},
                      "coalesced_equals_solo": True}
+        after_warmup(row[path], 0, f"serve_dtypes {path}", passes_compiles)
     check(dict(native.BUILDS) == builds0,
           "serve_dtypes: a kernel library was built or loaded while serving")
     launches = counted.total
@@ -4333,6 +4426,7 @@ def sharded_phase(device, x, q_host, reqs, calls, n_queries, n_lists,
                 eng.warmup()
             warm_s = time.perf_counter() - t0
             one.warmup()
+            c0 = compiles()
             passes = {"single": [], "sharded": []}
             single = resident[kind][0]
             for who in ("single", "sharded", "sharded", "single"):
@@ -4367,6 +4461,7 @@ def sharded_phase(device, x, q_host, reqs, calls, n_queries, n_lists,
                              "latency_s_p50", "latency_s_p99",
                              "e2e_latency_s_p50", "e2e_latency_s_p99")},
                          "stats": dict(eng.stats)}
+            after_warmup(row[kind], c0, f"sharded {kind}")
             if profile:
                 profile_serve(f"sharded_{kind}", eng, q_host, device)
             eng.close()
@@ -4472,16 +4567,24 @@ def _sharded_w2_worker(comms, p):
             del built
             params = mod.SearchParams(n_probes=p["n_probes"])
         eng = ServeEngine(sh, p["k"], params, max_batch=1024)
+        c0 = compiles()
         if eng.is_leader:
             with counted.span():
-                results, warm_s, serve_s = _closed_loop(eng, calls)
+                t0 = time.perf_counter()
+                eng.warmup()
+                warm_s = time.perf_counter() - t0
+                c1 = compiles()
+                results, _, serve_s = _closed_loop(eng, calls, warm=False)
                 eng.close()
             res.update(results=_results_arrays(results), warm_s=warm_s,
                        serve_s=serve_s, qps=q_host.shape[0] / serve_s,
-                       stats=dict(eng.stats))
+                       stats=dict(eng.stats), warmup_compiles=c1 - c0,
+                       compiles_after_warmup=compiles() - c1)
         else:
             with counted.span():
                 res["follow"] = eng.follow()
+            # a follower runs the leader's warm blocks, then its traffic
+            res["follower_compiles"] = compiles() - c0
         res["wire"] = dict(eng._wire.calls)
         out["kinds"][kind] = res
         del eng, sh
@@ -4499,18 +4602,31 @@ def _payload(seed, x, queries, n_lists, n_probes, k, archives):
             "archives": archives}
 
 
+def _free_for_workers(device) -> dict:
+    """Hand the card's memory this process holds but no longer uses to
+    the worker processes about to start (their contexts and data need
+    it): collect unreachable objects, then empty the allocator's cache.
+    Returns the bytes allocated and reserved before and after."""
+    import gc
+
+    import torch
+
+    if device.type != "cuda":
+        return {}
+    torch.cuda.synchronize()
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"allocated_bytes": [before[0], torch.cuda.memory_allocated()],
+            "reserved_bytes": [before[1], torch.cuda.memory_reserved()]}
+
+
 def _world(target, payload, device, coordinator=None):
     import tempfile
 
     from raft_tpu_torch.testing.world import run_world
 
-    import torch
-
-    if device.type == "cuda":
-        # what this process's allocator caches, the workers' contexts and
-        # data need
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+    _free_for_workers(device)
     with tempfile.TemporaryDirectory(prefix="raft_smoke_serve_") as tmp:
         t0 = time.perf_counter()
         outs = run_world(target, 2, payload, workdir=tmp, backend="gloo",
@@ -4558,7 +4674,16 @@ def sharded_w2_phase(device, seed, x, queries, n_lists, n_probes, k,
                      "warmup_s": res["warm_s"],
                      "id_diffs_at_exact_ties": ties,
                      "distances_equal_world1": True,
+                     "warmup_compiles": res["warmup_compiles"],
+                     "follower_compiles": follower["kinds"][kind][
+                         "follower_compiles"],
                      "stats": res["stats"], "wire_rank0": res["wire"]}
+        after_warmup(row[kind], 0, f"sharded_w2 {kind}",
+                     res["compiles_after_warmup"])
+        # the follower's first calls are the warm blocks' only
+        check(row[kind]["follower_compiles"] <= res["warmup_compiles"],
+              f"sharded_w2 {kind}: the follower made first calls past "
+              "the warm-up's")
         if kind != "brute_force":
             same = [o["kinds"][kind]["build_sharded_equals_world1_shard"]
                     for o in outs]
@@ -4607,8 +4732,10 @@ def _replica_w2_worker(comms, p):
     comms.barrier()
     eng = ServeEngine(rep, p["k"], params, max_batch=1024)
     out = {"rank": comms.get_rank()}
+    c0 = compiles()
     if not eng.is_leader:
         out["follow"] = eng.follow()
+        out["follower_compiles"] = compiles() - c0
         out["launches"] = dict(native.LAUNCHES)
         out["wire"] = dict(eng._wire.calls)
         return out
@@ -4621,6 +4748,8 @@ def _replica_w2_worker(comms, p):
     t0 = time.perf_counter()
     eng.warmup()
     warm_s = time.perf_counter() - t0
+    out["warmup_compiles"] = compiles() - c0
+    c0 = compiles()
     # both lanes live against lane 1 drained (the router's operator
     # drain), in turns; each qps the mean of its two passes
     passes = {"both": [], "drained": []}
@@ -4686,6 +4815,7 @@ def _replica_w2_worker(comms, p):
                        "dispatch_errors": eng.stats["dispatch_errors"],
                        "healthz_replicas": eng._health()["replicas"]}
     out["stats"] = dict(eng.stats)
+    out["compiles_after_warmup"] = compiles() - c0
     eng.close()
     out["launches"] = dict(native.LAUNCHES)
     out["wire"] = dict(eng._wire.calls)
@@ -4748,7 +4878,12 @@ def replica_w2_phase(device, seed, x, queries, n_lists, n_probes, k,
            "single_device_qps": resident["ivf_pq"][0].row["qps"],
            "equals_single_device": True, "tune": lead["tune"],
            "stats": lead["stats"], "wire_rank0": lead["wire"],
-           "wire_rank1": follower["wire"]}
+           "wire_rank1": follower["wire"],
+           "warmup_compiles": lead["warmup_compiles"],
+           "follower_compiles": follower["follower_compiles"]}
+    after_warmup(row, 0, "replica_w2", lead["compiles_after_warmup"])
+    check(row["follower_compiles"] <= row["warmup_compiles"],
+          "replica_w2: the follower made first calls past the warm-up's")
     launches = {name: sum(o["launches"][name] for o in outs)
                 for name in lead["launches"]}
     row["launches"] = launches
@@ -4829,8 +4964,14 @@ def _apply_churn(muts, ops, rows, device, spans=None):
 
 def _compact_under_traffic(mut, eng, calls):
     """A ``Compactor`` tick while a reader thread serves *calls* closed
-    loop through *eng*: (promoted, seconds, reader passes, failures)."""
+    loop through *eng*: (promoted, seconds, reader passes, failures, the
+    reads' first calls — all but the compaction's, which run on this
+    thread)."""
+    import importlib
+
     from raft_tpu_torch.neighbors import mutable
+
+    aot = importlib.import_module("raft_tpu_torch.core.aot")
 
     stop = threading.Event()
     failed, passes = [], [0]
@@ -4850,14 +4991,16 @@ def _compact_under_traffic(mut, eng, calls):
     comp = mutable.Compactor(mut, eng, delta_fraction=1e-4,
                              tomb_fraction=1e-4)
     t0 = time.perf_counter()
+    c0, own0 = compiles(), aot.thread_compiles()
     try:
         promoted = comp.tick()
     finally:
         stop.set()
         rt.join(STREAM_WAIT_S)
     check(not rt.is_alive(), "the reader under compaction hung")
+    reads = compiles() - c0 - (aot.thread_compiles() - own0)
     return (promoted and comp.errors == 0, time.perf_counter() - t0,
-            passes[0], failed)
+            passes[0], failed, reads)
 
 
 def sharded_mutable_phase(device, seed, x, queries, calls, n_queries,
@@ -4963,6 +5106,7 @@ def sharded_mutable_phase(device, seed, x, queries, calls, n_queries,
             with counted.span():
                 eng.warmup()
             eng_one.warmup()
+            c0 = compiles()
             passes = {"single": [], "sharded": []}
             first = None
             for who in ("single", "sharded", "sharded", "single"):
@@ -4984,11 +5128,14 @@ def sharded_mutable_phase(device, seed, x, queries, calls, n_queries,
             res.update(qps=qps[kind],
                        single_device_qps=float(np.mean(passes["single"])),
                        qps_passes=passes, equals_single_device=True)
+            passes_compiles = compiles() - c0
             eng_one.close()
             # compaction under closed-loop traffic through the engine
             with counted.span():
-                ok, compact_s, reader_passes, failed = \
+                ok, compact_s, reader_passes, failed, read_compiles = \
                     _compact_under_traffic(mut, eng, calls)
+            after_warmup(res, 0, f"sharded_mutable {kind}",
+                         passes_compiles + read_compiles)
             check(ok and not failed and eng.stats["dispatch_errors"] == 0,
                   f"sharded_mutable {kind}: the compaction failed or failed "
                   f"requests ({failed[:3]})")
@@ -5065,8 +5212,12 @@ def _sharded_mutable_w2_worker(comms, p):
     if eng.is_leader:
         with counted.span():
             eng.warmup()
+            r0 = mutable.mutable_counters["rewarms"]
             (out["writes"],) = _apply_churn((mut,), ops, rows, device)
+            out["rewarms"] = mutable.mutable_counters["rewarms"] - r0
+            c0 = compiles()
             results, _, serve_s = _closed_loop(eng, calls, warm=False)
+            out["passes_compiles"] = compiles() - c0
             out["results"] = _results_arrays(results)
             out["qps"] = q_host.shape[0] / serve_s
             out["compaction"] = _compact_under_traffic(mut, eng, calls)
@@ -5126,7 +5277,7 @@ def sharded_mutable_w2_phase(device, seed, x, queries, n_lists, n_probes,
     ties = _exact_ties_only("sharded_mutable_w2 vs world 1",
                             lead["results"],
                             _results_arrays(world1["ivf_pq"]))
-    promoted, compact_s, passes, failed = lead["compaction"]
+    promoted, compact_s, passes, failed, read_compiles = lead["compaction"]
     check(promoted and not failed
           and lead["stats"]["dispatch_errors"] == 0,
           f"sharded_mutable_w2: the compaction failed or failed requests "
@@ -5144,7 +5295,10 @@ def sharded_mutable_w2_phase(device, seed, x, queries, n_lists, n_probes,
            "reader_passes": passes, "failed_requests": 0,
            "books": lead["books"], "books_equal": True,
            "compacted_equals_build": same, "stats": lead["stats"],
+           "rewarms": lead["rewarms"],
            "wire_rank0": lead["wire"], "wire_rank1": follower["wire"]}
+    after_warmup(row, 0, "sharded_mutable_w2",
+                 lead["passes_compiles"] + read_compiles)
     launches = {name: sum(o["launches"][name] for o in outs)
                 for name in lead["launches"]}
     row["launches"] = launches
@@ -5178,9 +5332,10 @@ SPEC_ORTH = 1e-4
 SPEC_ARI_FLOOR = 0.9
 #: single linkage: cuML AgglomerativeClustering's defaults (kNN
 #: connectivity, n_neighbors 15 → c), on the k-means path's blobs; the
-#: PAIRWISE run on the first rows
+#: PAIRWISE run on the first rows (12,000: scipy's dense MST on the
+#: host, which the smoke waits for, grows with their square)
 SL_C = 15
-SL_PAIRWISE_ROWS = 20_000
+SL_PAIRWISE_ROWS = 12_000
 SL_ARI_FLOOR = 0.999
 SL_MST_RTOL = 1e-5
 #: how long the host reference MST (scipy, in its own process) may take
@@ -5785,8 +5940,10 @@ DENSE_GRAM = (16_384, 128)
 DENSE_RSVD_K = 16
 #: the LAP problems (cuGraph's Hungarian sizes): a batch of float32
 #: uniform costs in [0, 100), and one problem of integer costs in [0, 1,000)
+#: (2,048²: the launch-bound auction took 91–141 s at 4,096², more than
+#: the smoke's time limit leaves it)
 DENSE_LAP_BATCH = (8, 1_024)
-DENSE_LAP_INT = (4_096, 1_000)
+DENSE_LAP_INT = (2_048, 1_000)
 #: the least-squares coefficients against float64 ``torch.linalg.lstsq``
 #: on the host, relative: κ(X)²·√m·u is 7.6e-5 for the normal equations
 #: (``lstsq_eig``) at the blobs' κ ≈ 1.97 and m = 100,000 (float32 on the
@@ -6315,6 +6472,71 @@ def aot_phase(device, seed: int, smi):
     return launches
 
 
+#: the build phases' compile check: rows of the smoke's data built twice
+#: per IVF family, and rows extended into the first build twice
+BUILD_CHECK_ROWS = 100_000
+BUILD_CHECK_EXTEND = 20_000
+
+
+def build_compiles_phase(device, x, n_lists: int, smi):
+    """The ``build_compiles`` line: each IVF family built twice from the
+    same BUILD_CHECK_ROWS rows (the populate's tiles keyed), then
+    BUILD_CHECK_EXTEND rows extended into the first build twice; the
+    second build and the second extend make no first call of a keyed
+    program (the list slots, the scatters, the encode tiles, the
+    selections and the E-steps all run warm signatures)."""
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    xs = x[:BUILD_CHECK_ROWS]
+    xe = x[BUILD_CHECK_ROWS:BUILD_CHECK_ROWS + BUILD_CHECK_EXTEND]
+    row = {"phase": "build_compiles", "rows": int(xs.shape[0]),
+           "extend_rows": int(xe.shape[0]), "card": smi}
+    for kind, mod in (("ivf_flat", ivf_flat), ("ivf_pq", ivf_pq)):
+        params = mod.IndexParams(n_lists=n_lists)
+        c = [compiles()]
+        t0 = time.perf_counter()
+        first = mod.build(params, xs, device=device)
+        c.append(compiles())
+        mod.build(params, xs, device=device)
+        c.append(compiles())
+        mod.extend(first, xe)
+        c.append(compiles())
+        mod.extend(first, xe)
+        c.append(compiles())
+        res = {"first_build_compiles": c[1] - c[0],
+               "second_build_compiles": c[2] - c[1],
+               "first_extend_compiles": c[3] - c[2],
+               "second_extend_compiles": c[4] - c[3],
+               "seconds": _synced_seconds(device, t0)}
+        row[kind] = res
+        check(res["second_build_compiles"] == 0
+              and res["second_extend_compiles"] == 0,
+              f"build_compiles {kind}: a second build or extend at the same "
+              f"shapes made first calls ({res})")
+    emit(row)
+
+
+def retrace_phase():
+    """The ``retrace`` line: the retrace-closure certifier
+    (``raft_tpu_torch.analysis.retrace``) over this checkout's sources,
+    in process; any failed obligation fails the run."""
+    import io
+
+    from raft_tpu_torch.analysis import retrace
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    reports, failed = retrace.run(out=out)
+    row = {"phase": "retrace", "obligations": len(reports),
+           "certified": sum(r.status == "ok" for r in reports),
+           "failed": failed, "seconds": time.perf_counter() - t0,
+           "failures": {r.name: r.findings for r in reports
+                        if r.status == "fail"}}
+    emit(row)
+    check(failed == 0, f"retrace: {failed} obligation(s) failed: "
+          f"{out.getvalue()[-2000:]}")
+
+
 def audit_phase(device, smi, golden_dir=None):
     """``program_audit`` over every registered program on the card: one
     line per program (syncs, launches by kernel, collectives, transient
@@ -6437,6 +6659,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
         ivf_flat.SearchParams(n_probes=n_probes), calls, n_queries, qr,
         truth, k, fresh, smi, seed)
     index_pq, eng_pq, launches_pq, served = ivf_pq_path(*args)
+    build_compiles_phase(device, x, n_lists, smi)
     resident["ivf_pq"] = (served, index_pq)
     resident_pq = served.results
     stream_pq = serve_stream("ivf_pq", device, served, q_host, n_queries,
@@ -6519,6 +6742,7 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     for name, fields in spec_rows.items():
         rows[name]["spectral_shapes"] = fields
     dense_phase(device, seed, smi)
+    retrace_phase()
     launches_aot = aot_phase(device, seed, smi)
     launches_audit = audit_phase(device, smi, golden_dir)
     for path, counts in (("aot", launches_aot), ("audit", launches_audit)):

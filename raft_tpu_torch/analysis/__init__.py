@@ -20,13 +20,19 @@ Two levels, both runnable from ``python -m raft_tpu_torch.analysis``:
   program's fingerprint against goldens committed per backend and torch
   version under ``goldens/``.
 
-Still to port: ``retrace.py``, the retrace-closure certifier.  Importing
-this package loads nothing heavy; ``registry`` is stdlib-only, so hot
-modules declare audit entries for free.
+* **Retrace-closure certifier** (:mod:`.retrace`): proves from source
+  that serving makes no first call of a keyed program after
+  ``ServeEngine.warmup()`` — warm/dispatch congruence of every serving
+  class, the engine's bucket, scheduler and tuner closures, the mutable
+  index's write-path rewarm, and bounded static arguments at every
+  ``aot()`` call site.
+
+Importing this package loads nothing heavy; ``registry`` is stdlib-only,
+so hot modules declare audit entries for free.
 """
 
 _SUBMODULES = ("dataflow", "engine", "fingerprint", "hotpaths", "registry",
-               "rules", "program_audit")
+               "retrace", "rules", "program_audit")
 
 
 def __getattr__(name):

@@ -2,12 +2,14 @@
 of ``raft_tpu/analysis/__main__.py``).
 
 Default: every pass — the AST rule engine over the package, the program
-audit over every registered program and the golden-fingerprint diff.
+audit over every registered program, the golden-fingerprint diff and the
+retrace-closure certifier.
 
 Options:
   --ast               Level 1 only (stdlib-fast)
   --audit             program audit only (the reference's --hlo)
   --fingerprints      golden fingerprint diff only
+  --retrace           retrace-closure certifier only (stdlib-fast)
                       (the pass flags COMPOSE: --audit --fingerprints runs
                       exactly those two)
   --update-goldens    REGENERATE the goldens of this scope (sorted keys, no
@@ -19,16 +21,16 @@ Options:
                       on the marked line (a warning pass: always exit 0)
   --fast              restrict the audit to the single-device programs
   --strict            a SKIPPED program counts as a failure
-  --programs a,b      audit / fingerprint only the named programs
+  --programs a,b      audit / fingerprint only the named programs; the
+                      certifier keeps obligations whose name contains one
+                      of the names
   --list              list registered rules and programs, run nothing
   paths...            restrict the AST level to these files/dirs
 
-The reference's --retrace waits for ``retrace.py``, the one module of
-the analysis package still to port.
-
 Exit codes (as in the reference):
   0  clean — every requested pass passed
-  1  findings — AST findings, audit budget failures or fingerprint drift
+  1  findings — AST findings, audit budget failures, fingerprint drift or
+     certifier violations
   2  strict-skip only — the ONLY failures are programs skipped under
      ``--strict``
 """
@@ -61,7 +63,8 @@ def main(argv) -> int:
             return True
         return False
 
-    only = {p for p in ("ast", "audit", "fingerprints") if flag(f"--{p}")}
+    only = {p for p in ("ast", "audit", "fingerprints", "retrace")
+            if flag(f"--{p}")}
     update_goldens = flag("--update-goldens")
     stale = flag("--stale-exemptions")
     fast_only = flag("--fast")
@@ -131,6 +134,12 @@ def main(argv) -> int:
             _, failed = fingerprint.run(names, device=device,
                                         golden_dir=golden_dir)
             bad += failed
+    if run_all or "retrace" in only:
+        from raft_tpu_torch.analysis import retrace
+
+        print("== analysis: retrace closure ==")
+        _, failed = retrace.run(names)
+        bad += failed
     if stale:
         from raft_tpu_torch.analysis import engine
 

@@ -43,9 +43,9 @@ nested functions chain to their enclosing function.
 
 Used by the ``hot-path-host-transfer`` / ``collective-discipline`` /
 ``dtype-drift`` / ``kernel-discipline`` / ``serve-dispatch`` /
-``trace-impurity`` rules.  The reference's parameter-taint and constant
-helpers serve only its retrace certifier and come with that port.
-Stdlib-only.
+``trace-impurity`` rules, and by ``analysis/retrace.py`` (the
+parameter taint that tracks query-derived names, and the constant
+resolution of ``static_argnums``).  Stdlib-only.
 """
 
 from __future__ import annotations
@@ -254,3 +254,57 @@ class ValueFlow:
         form of "what function is this line invoking")."""
         return self._resolve(node.func, self.scope_of(node), _MAX_HOPS,
                              set())
+
+    # -- parameter taint (the retrace certifier's query tracking) -----------
+
+    def param_roots(self, node: ast.AST) -> Set[str]:
+        """Names of enclosing-function PARAMETERS the expression derives
+        from, following assignment chains: in ``q = torch.as_tensor(qb)``,
+        ``param_roots(<q use>)`` yields ``{"qb"}``."""
+        out: Set[str] = set()
+        self._taint(node, self.scope_of(node), _MAX_HOPS, set(), out)
+        return out
+
+    def _taint(self, node, scope: Scope, hops: int, seen: Set[int],
+               out: Set[str]) -> None:
+        if hops <= 0 or id(node) in seen:
+            return
+        seen.add(id(node))
+        for n in ast.walk(node):
+            if not isinstance(n, ast.Name):
+                continue
+            bound = scope.lookup(n.id)
+            if bound is None:
+                continue
+            kind, val = bound
+            if kind == "param":
+                out.add(n.id)
+            elif kind == "expr" and isinstance(val, ast.AST):
+                self._taint(val, self.scope_of(val), hops - 1, seen, out)
+
+    def const_value(self, node: ast.AST):
+        """Evaluate an expression to a hashable constant (int, str, tuple
+        of those) through module-level name chains, or None — the
+        static_argnums-resolution helper the certifier shares."""
+        return self._const(node, self.scope_of(node), _MAX_HOPS)
+
+    def _const(self, node, scope: Scope, hops: int):
+        if hops <= 0:
+            return None
+        if isinstance(node, ast.Constant):
+            return node.value
+        if isinstance(node, (ast.Tuple, ast.List)):
+            out = []
+            for el in node.elts:
+                v = self._const(el, scope, hops - 1)
+                if v is None and not (isinstance(el, ast.Constant)
+                                      and el.value is None):
+                    return None
+                out.append(v)
+            return tuple(out)
+        if isinstance(node, ast.Name):
+            bound = scope.lookup(node.id)
+            if bound is not None and bound[0] == "expr":
+                val = bound[1]
+                return self._const(val, self.scope_of(val), hops - 1)
+        return None

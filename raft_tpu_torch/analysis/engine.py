@@ -291,7 +291,11 @@ def scan_stale_source(posix: str, src: str) -> List[StaleMarker]:
     as the rules sharpen — each one is a line a future reader must
     re-justify, and a rationale pointing at code that moved on.  Legacy
     spellings are scanned through their rule-id mapping; bare ``noqa`` is
-    NOT scanned (it also silences external linters)."""
+    NOT scanned (it also silences external linters).  The retrace
+    certifier's cardinality marker (``retrace.EXEMPT_ID``) is scanned the
+    same way, against its raw cardinality findings."""
+    from raft_tpu_torch.analysis import retrace
+
     try:
         raw = check_source(posix, src, respect_exemptions=False)
     except RecursionError:  # pathological file: skip, never crash the scan
@@ -299,7 +303,10 @@ def scan_stale_source(posix: str, src: str) -> List[StaleMarker]:
     fired: Dict[int, set] = {}
     for f in raw:
         fired.setdefault(f.lineno, set()).add(f.rule)
-    known = {r.id for r in iter_rules()} | set(LEGACY_MARKERS.values())
+    for lineno in retrace.raw_cardinality_lines(posix, src):
+        fired.setdefault(lineno, set()).add(retrace.EXEMPT_ID)
+    known = ({r.id for r in iter_rules()} | set(LEGACY_MARKERS.values())
+             | {retrace.EXEMPT_ID})
     lines = src.splitlines()
     stale: List[StaleMarker] = []
     for i, comment in _comment_tokens(src):

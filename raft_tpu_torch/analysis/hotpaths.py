@@ -50,7 +50,9 @@ HOT_PATHS: Tuple[HotPath, ...] = (
     HotPath("raft_tpu_torch/neighbors/ann_mnmg.py",
             functions=("_ivf_flat_program", "_ivf_pq_program",
                        "_brute_force_program", "_allgather_packed",
-                       "_merge_one_allgather", "dispatch"),
+                       "_merge_one_allgather", "dispatch", "warm_local",
+                       "_ivf_flat_scan", "_ivf_pq_scan", "_brute_force_scan",
+                       "_fold_parts", "_gather_fold"),
             why="a sharded search is one program per batch on every rank "
                 "with one allgather; a host read serializes every rank "
                 "behind one host thread"),
@@ -80,7 +82,7 @@ HOT_PATHS: Tuple[HotPath, ...] = (
     HotPath("raft_tpu_torch/neighbors/tiering.py",
             functions=("dispatch", "_dispatch", "_hot_phase", "_scan",
                        "_stage", "_use", "_run_cold", "_refine",
-                       "_refine_impl"),
+                       "_refine_impl", "_hot_phase_impl", "_scan_block"),
             staging=True,
             why="the tiered two-phase dispatch: per-row data crosses the "
                 "host/device boundary only at the one staging call site "

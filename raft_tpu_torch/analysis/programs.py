@@ -220,7 +220,7 @@ def _cold_scan(device):
 
     t, q = _tiered(device)
     s, sp = t.searcher(8), t.searcher(8, engine="torch")
-    probes, _, _ = s._hot_phase(q, False)
+    probes, _, _ = s._hot_phase(q, torch.zeros_like(s._acc))
     blk = _block(s._hot, s.kind,
                  tuple(c.to(device) for c in s.tiered.cold_tiles[0]))
     rest = (q, probes, blk, s._cold_extra[0])

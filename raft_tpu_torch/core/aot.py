@@ -35,7 +35,10 @@ program's signature, as a traced call is in the JAX package.
 Not ported, each for its reason:
 
 - ``MeshAotFunction`` / ``mesh_aot`` (:500, :591): the port runs one
-  process per rank and builds no mesh programs (:func:`mesh_aot` raises).
+  process per rank and builds no mesh programs (:func:`mesh_aot` raises);
+  each rank keys its own shard programs with :func:`aot`
+  (``neighbors/ann_mnmg.py``: the scan and the fold, with the one
+  allgather between them).
 - ``is_tracer``, ``aot_dispatchable``, ``dispatch_device``: eager PyTorch
   has no tracers, and a tensor carries its own device, which the
   signature keys on.
@@ -107,8 +110,15 @@ def _as_spec(leaf) -> Optional[TensorSpec]:
     return None
 
 
-#: nesting depth of AotFunction runs on this thread
+#: nesting depth of AotFunction runs on this thread, and its first calls
 _DEPTH = threading.local()
+
+
+def thread_compiles() -> int:
+    """First calls made on the calling thread so far (what a reader
+    thread counts while a writer thread rewarms: the global
+    ``aot_compile_counters`` sees both)."""
+    return getattr(_DEPTH, "compiles", 0)
 
 
 class AotFunction:
@@ -170,6 +180,7 @@ class AotFunction:
             self._cache.add(sig)
         aot_compile_counters.inc("compiles")
         aot_compile_counters.inc(f"compiles:{self._name}")
+        _DEPTH.compiles = thread_compiles() + 1
 
     # -- calls --------------------------------------------------------------
 
@@ -209,6 +220,12 @@ class AotFunction:
         kwargs = {k: zeros(v) for k, v in kwargs.items()}
         self._first_call(self._signature(args, kwargs))
         return self._run(args, kwargs)
+
+    def is_warm(self, *args, **kwargs) -> bool:
+        """True when the signature of *args* (tensors, or specs for the
+        dynamic arguments, as :meth:`compiled` takes them) has had its
+        first call; runs nothing."""
+        return self._signature(args, kwargs) in self._cache
 
     @property
     def cache_size(self) -> int:

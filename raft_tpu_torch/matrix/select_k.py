@@ -63,7 +63,10 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
     """The k smallest (or largest) per row, best-first: (values [..., k],
     positions [..., k] int32), or the *indices* payload gathered at those
     positions."""
-    return _select_k_aot(values, int(k), bool(select_min), indices, engine)
+    if indices is None:
+        return _select_k_aot(values, int(k), bool(select_min), None, engine)
+    return _select_k_payload_aot(values, indices, int(k), bool(select_min),
+                                 engine)
 
 
 def _select_k_impl(values: torch.Tensor, k: int, select_min: bool,
@@ -89,6 +92,18 @@ def _select_k_impl(values: torch.Tensor, k: int, select_min: bool,
 _select_k_aot = aot(_select_k_impl, static_argnums=(1, 2, 4))
 
 
+def _select_k_payload_impl(values: torch.Tensor, indices: torch.Tensor,
+                           k: int, select_min: bool, engine: Optional[str]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`select_k`'s program with an id payload."""
+    return _select_k_impl(values, k, select_min, indices, engine)
+
+
+#: the payload select, keyed per signature (``raft_tpu/matrix/
+#: select_k.py:231`` ``_select_k_payload_aot``)
+_select_k_payload_aot = aot(_select_k_payload_impl, static_argnums=(2, 3, 4))
+
+
 def merge_sorted_runs(a_vals, a_idx, b_vals, b_idx, k: Optional[int] = None,
                       select_min: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,9 +116,17 @@ def merge_sorted_runs(a_vals, a_idx, b_vals, b_idx, k: Optional[int] = None,
     runs.  Slots past the union keep the worst value and id -1.  From
     ``k >= 24`` one stable select over the concatenated runs takes over
     (the same result; the rank masks grow with k²)."""
+    k = int(a_vals.shape[-1] if k is None else k)
+    # exempt(retrace-unbounded-static): k defaults to run a's width, the caller's k
+    return _merge_aot(a_vals, a_idx, b_vals, b_idx, k, bool(select_min))
+
+
+def _merge_sorted_runs_impl(a_vals, a_idx, b_vals, b_idx, k: int,
+                            select_min: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`merge_sorted_runs`' program."""
     ka = a_vals.shape[-1]
     kb = b_vals.shape[-1]
-    k = int(ka if k is None else k)
     a_key = _key(a_vals, select_min)
     b_key = _key(b_vals, select_min)
     if k >= _MERGE_CONCAT_MIN_K and ka + kb >= k:
@@ -135,6 +158,13 @@ def merge_sorted_runs(a_vals, a_idx, b_vals, b_idx, k: Optional[int] = None,
     out_v.scatter_(-1, ra, a_vals).scatter_(-1, rb, b_vals.to(a_vals.dtype))
     out_i.scatter_(-1, ra, a_idx).scatter_(-1, rb, b_idx.to(a_idx.dtype))
     return out_v[..., :k], out_i[..., :k]
+
+
+#: the two-run merge, keyed per signature (``raft_tpu/matrix/
+#: select_k.py:236`` ``_merge_aot``): the tiered cold fold and a sharded
+#: mutable search's fold dispatch it; a merge inside another keyed program
+#: (a tile scan) runs inline
+_merge_aot = aot(_merge_sorted_runs_impl, static_argnums=(4, 5))
 
 
 def select_min_k(values, k: int, indices=None):

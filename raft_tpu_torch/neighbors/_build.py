@@ -11,6 +11,14 @@ each list's free tail slots and grows only the lists that overflow.  With
 ``in_place=True`` and no overflow, the append writes into the index's own
 tensors (O(n_new)); otherwise it writes into a copy, and the input index
 is left as it was.
+
+The three device steps are keyed programs (``core/aot.py``; reference
+``_list_slots_aot``, ``_scatter_new_aot``, ``_scatter_append_aot`` /
+``_scatter_append_dn_aot`` :164-175), so a second build or extend at the
+same shapes makes no first call.  The reference keys two append programs,
+one with its blocks donated; the port donates nothing (an eager scatter
+writes in place by itself, ``in_place``), so one keyed append with
+``in_place`` static stands for both.
 """
 
 from __future__ import annotations
@@ -21,8 +29,9 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.analysis.registry import audit_program
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.neighbors._common import (chunk_layout, extend_layout,
-                                              ranks_within)
+                                              ladder_layout, ranks_within)
 
 #: rows per tile of the populate loop (the JAX package's
 #: ``DEFAULT_TILE_ROWS``): bounds IVF-PQ's (tile, pq_dim, 2^bits) encode
@@ -85,6 +94,11 @@ def scatter_append(datas: Tuple[torch.Tensor, ...], idx: torch.Tensor,
     return tuple(out), idx2
 
 
+_list_slots_aot = aot(list_slots, static_argnums=(3, 4))
+_scatter_new_aot = aot(scatter_new, static_argnums=(3, 4))
+_scatter_append_aot = aot(scatter_append, static_argnums=(5,))
+
+
 def run_tiles(tile_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
               tile_rows: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """``tile_fn(x_t, labels_t)`` over the rows in tiles of *tile_rows*
@@ -104,21 +118,26 @@ def run_tiles(tile_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
 
 
 def pack_device(payload, ids: torch.Tensor, labels: torch.Tensor,
-                n_lists: int):
+                n_lists: int, ladder: bool = False):
     """Scatter rows into fresh chunked padded blocks.  *payload* is one
     (n, …) tensor or a tuple of them packed side by side.  Returns (data,
     idx (n_phys+1, cap) int32 −1-padded, phys_sizes, list_sizes,
     chunk_table, owner), data (n_phys+1, cap, …) per payload (a tuple
-    when a tuple came in)."""
+    when a tuple came in).  With *ladder* the block's rows and the
+    table's width are padded up the power-of-two ladder
+    (``_common.ladder_layout``)."""
     multi = isinstance(payload, (tuple, list))
     payloads = tuple(payload) if multi else (payload,)
     dev = payloads[0].device
     lay = chunk_layout(_counts(labels, n_lists))
+    if ladder:
+        lay = ladder_layout(lay)
     table = torch.as_tensor(lay.chunk_table, device=dev)
-    flat = list_slots(labels, torch.zeros(n_lists, dtype=torch.int32,
-                                          device=dev),
-                      table, lay.cap, n_lists)
-    datas, idx = scatter_new(payloads, ids, flat, lay.n_phys + 1, lay.cap)
+    flat = _list_slots_aot(labels, torch.zeros(n_lists, dtype=torch.int32,
+                                               device=dev),
+                           table, lay.cap, n_lists)
+    datas, idx = _scatter_new_aot(payloads, ids, flat, lay.n_phys + 1,
+                                  lay.cap)
     return (datas if multi else datas[0], idx,
             torch.as_tensor(lay.phys_sizes, device=dev),
             torch.as_tensor(lay.counts.astype(np.int32), device=dev), table,
@@ -128,14 +147,16 @@ def pack_device(payload, ids: torch.Tensor, labels: torch.Tensor,
 def extend_device(data, idx: torch.Tensor, list_sizes: torch.Tensor,
                   chunk_table: torch.Tensor, payload_new,
                   ids_new: torch.Tensor, labels_new: torch.Tensor,
-                  in_place: bool = False):
+                  in_place: bool = False, ladder: bool = False):
     """Append rows into existing chunked blocks (same return contract as
     :func:`pack_device`): each new row goes to the next free slot of its
     list, lists that overflow grow chunks appended before the dummy row.
     When no list overflows the blocks keep their shape and, with
     *in_place*, the append writes into them (the caller's index then
     holds the new rows too); otherwise the old blocks are left as they
-    were."""
+    were.  With *ladder* (blocks from ``pack_device(ladder=True)``) new
+    chunks fill the spare rows first and the blocks grow up the
+    power-of-two ladder."""
     multi = isinstance(data, (tuple, list))
     datas = tuple(data) if multi else (data,)
     payloads = tuple(payload_new) if multi else (payload_new,)
@@ -148,19 +169,21 @@ def extend_device(data, idx: torch.Tensor, list_sizes: torch.Tensor,
     # exempt(hot-path-host-transfer): the chunk table lays out an extend on the host
     table_old = chunk_table.cpu().numpy()
     lay = extend_layout(counts_old, _counts(labels_new, n_lists), cap,
-                        table_old, n_phys)
+                        table_old, n_phys, ladder)
     table = torch.as_tensor(lay.chunk_table, device=dev)
-    if lay.m:
+    if lay.grow:
         datas = tuple(torch.cat([d[:n_phys], d.new_zeros(
-            (lay.m + 1, cap) + tuple(d.shape[2:]))]) for d in datas)
-        idx = torch.cat([idx[:n_phys], idx.new_full((lay.m + 1, cap), -1)])
+            (lay.grow + 1, cap) + tuple(d.shape[2:]))]) for d in datas)
+        idx = torch.cat([idx[:n_phys], idx.new_full((lay.grow + 1, cap),
+                                                    -1)])
         in_place = True           # the grown blocks are new tensors
     if payloads[0].shape[0]:
-        flat = list_slots(labels_new,
-                          torch.as_tensor(counts_old, device=dev), table,
-                          cap, n_lists)
-        datas, idx = scatter_append(datas, idx, payloads, ids_new, flat,
-                                    in_place)
+        flat = _list_slots_aot(labels_new,
+                               torch.as_tensor(counts_old, device=dev),
+                               # exempt(retrace-unbounded-static): one layout per index
+                               table, cap, n_lists)
+        datas, idx = _scatter_append_aot(datas, idx, payloads, ids_new, flat,
+                                         in_place)
     return (datas if multi else datas[0], idx,
             torch.as_tensor(lay.phys_sizes, device=dev),
             torch.as_tensor(lay.counts_total.astype(np.int32), device=dev),

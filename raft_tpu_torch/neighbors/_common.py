@@ -74,6 +74,31 @@ def chunk_layout(counts: np.ndarray) -> ChunkLayout:
                        owner=owner)
 
 
+def _pow2(n: int) -> int:
+    """The smallest power of two >= *n* (>= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def ladder_layout(lay: ChunkLayout) -> ChunkLayout:
+    """*lay* with its block's rows and its chunk table's width padded up
+    the power-of-two ladder: the dummy moves to the last row, the spare
+    rows before it hold no chunk (size 0, no table entry points at them),
+    and the extra columns point at the dummy.  A layout that grows this
+    way (:func:`extend_layout` with ``ladder``) changes shape O(log n)
+    times over its life — the mutable index's delta."""
+    rows = _pow2(lay.n_phys + 1)
+    n_lists, width = lay.chunk_table.shape
+    table = np.full((n_lists, _pow2(width)), rows - 1, np.int32)
+    table[:, :width] = np.where(lay.chunk_table == lay.n_phys, rows - 1,
+                                lay.chunk_table)
+    phys_sizes = np.zeros(rows, np.int32)
+    phys_sizes[:lay.n_phys] = lay.phys_sizes[:lay.n_phys]
+    owner = np.zeros(rows, np.int32)
+    owner[:lay.n_phys] = lay.owner[:lay.n_phys]
+    return ChunkLayout(cap=lay.cap, n_phys=rows - 1, counts=lay.counts,
+                       chunk_table=table, phys_sizes=phys_sizes, owner=owner)
+
+
 def array_to_tensor(a, device) -> torch.Tensor:
     """A numpy array (or a JAX one, through ``np.asarray``) as a tensor on
     *device*.  Two-byte raw items — what ``np.savez`` keeps of a bfloat16
@@ -129,10 +154,13 @@ def remap_chunk_table(chunk_table: np.ndarray, row_map: np.ndarray,
 class ExtendLayout:
     """Table update of an extend (:func:`extend_layout`): the grown chunk
     table and the recomputed owner and size inverses.  ``m`` is the
-    number of NEW physical chunks; when it is 0 (and the table keeps its
-    width) the rows append into the existing blocks."""
+    number of NEW physical chunks, ``grow`` the rows the block grows by
+    (``m``, or on the ladder 0 while spare rows hold the new chunks);
+    when it is 0 (and the table keeps its width) the rows append into the
+    existing blocks."""
 
     m: int
+    grow: int
     max_chunks2: int
     counts_total: np.ndarray     # (n_lists,) int64
     chunk_table: np.ndarray      # (n_lists, max_chunks2) int32
@@ -141,14 +169,17 @@ class ExtendLayout:
 
 
 def extend_layout(counts_old: np.ndarray, added: np.ndarray, cap: int,
-                  chunk_table: np.ndarray, n_phys: int) -> ExtendLayout:
+                  chunk_table: np.ndarray, n_phys: int,
+                  ladder: bool = False) -> ExtendLayout:
     """Grow a chunked layout by per-list row additions — the one table
     arithmetic of an extend, the JAX package's: new rows fill each list's
     last chunk, overflow into new physical chunks appended before the
     dummy row (which moves to the end), and the owner / size inverses are
     recomputed from the table (a list's rows are no longer contiguous).
     All (n_lists,)-shaped host bookkeeping; *n_phys* is the old block's
-    real row count."""
+    dummy row.  With *ladder* (a :func:`ladder_layout` block) the new
+    chunks take the spare rows after the last chunk in use, and the block
+    and the table's width grow only up the power-of-two ladder."""
     n_lists, max_chunks = chunk_table.shape
     # exempt(hot-path-host-transfer): host counts (numpy), no device read
     counts_old = np.asarray(counts_old).astype(np.int64)
@@ -159,9 +190,17 @@ def extend_layout(counts_old: np.ndarray, added: np.ndarray, cap: int,
     added_chunks = chunks_total - chunks_old
     m = int(added_chunks.sum())
     dummy_old = int(n_phys)
-    dummy_new = n_phys + m
-
+    base, dummy_new = dummy_old, dummy_old + m
     width = max(max_chunks, int(chunks_total.max()) if n_lists else 1)
+    if ladder:
+        in_use = chunk_table[chunk_table != dummy_old]
+        base = int(in_use.max()) + 1 if in_use.size else 0
+        if base + m > dummy_old:
+            dummy_new = _pow2(base + m + 1) - 1
+        else:
+            dummy_new = dummy_old
+        width = _pow2(width)
+
     table2 = np.full((n_lists, width), dummy_new, np.int32)
     table2[:, :max_chunks] = np.where(chunk_table == dummy_old, dummy_new,
                                       chunk_table)
@@ -172,7 +211,7 @@ def extend_layout(counts_old: np.ndarray, added: np.ndarray, cap: int,
         np.cumsum(added_chunks, out=starts_added[1:])
         ord_within = np.arange(m) - starts_added[new_owner]
         table2[new_owner, chunks_old[new_owner] + ord_within] = (
-            n_phys + np.arange(m, dtype=np.int32))
+            base + np.arange(m, dtype=np.int32))
 
     owner2 = np.zeros(dummy_new + 1, np.int32)
     phys_sizes2 = np.zeros(dummy_new + 1, np.int32)
@@ -181,7 +220,8 @@ def extend_layout(counts_old: np.ndarray, added: np.ndarray, cap: int,
     owner2[phys_ids] = rows_l.astype(np.int32)
     phys_sizes2[phys_ids] = np.minimum(
         cap, np.maximum(0, counts_total[rows_l] - ords * cap)).astype(np.int32)
-    return ExtendLayout(m=m, max_chunks2=width, counts_total=counts_total,
+    return ExtendLayout(m=m, grow=dummy_new - dummy_old, max_chunks2=width,
+                        counts_total=counts_total,
                         chunk_table=table2, owner=owner2,
                         phys_sizes=phys_sizes2)
 

@@ -52,6 +52,7 @@ import torch
 
 from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.comms.comms import Comms, ReplicaLayout, as_comms
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import resolve_device
@@ -482,27 +483,80 @@ def _merge_one_allgather(comms: Comms, d: torch.Tensor, i: torch.Tensor,
 # the per-kind shard programs: the local scan, the merge, the deferred root
 
 
-def _root(d: torch.Tensor, metric: DistanceType) -> torch.Tensor:
-    if metric == DistanceType.L2SqrtExpanded:
-        return torch.sqrt(torch.clamp_min(d, 0.0))
-    return d
+def _ivf_flat_scan(local, q: torch.Tensor, k: int, n_probes: int,
+                   engine: str, extra: int,
+                   tombstones: Optional[torch.Tensor] = None):
+    """This rank's IVF-Flat scan: the replicated coarse step, then the
+    probe scan of its own lists (squared distances)."""
+    q = q.float()
+    cd = ivf_flat._coarse_distances(q, local.centers, local.metric)
+    _, probes = select_k(cd, n_probes, select_min=True, engine=engine)
+    return ivf_flat._probe_search_impl(q, probes, local, k, False, engine,
+                                       tombstones, extra=extra)
+
+
+def _ivf_pq_scan(local, q: torch.Tensor, k: int, n_probes: int,
+                 lut_dtype: str, int_dtype: str, hoisted: bool,
+                 engines: Tuple[str, str], extra: int,
+                 tombstones: Optional[torch.Tensor] = None):
+    """This rank's IVF-PQ scan (squared distances)."""
+    q = q.float()
+    probes = ivf_pq.coarse_probes(q, local, n_probes, engines[0])
+    return ivf_pq._search_batch_impl(q, probes, local, k, lut_dtype,
+                                     engines, tombstones, False,
+                                     int_dtype=int_dtype, hoisted=hoisted,
+                                     extra=extra)
+
+
+def _brute_force_scan(xs: torch.Tensor, q: torch.Tensor, k: int,
+                      scan_metric: DistanceType, metric_arg: float,
+                      tile: int, select_min: bool, engine: Optional[str],
+                      offset: int):
+    """This rank's brute-force scan of its rows, ids made global."""
+    d, i = brute_force._knn_scan_impl(xs, q.to(xs.dtype), k, scan_metric,
+                                      metric_arg, tile, select_min, engine)
+    return d, i + offset
+
+
+def _fold_parts(part_d: torch.Tensor, part_i: torch.Tensor, k: int,
+                select_min: bool, root: Optional[str]):
+    """The gathered runs folded in rank order, then the deferred root
+    (``"clamp"``: √max(d, 0), the IVF kinds'; ``"plain"``: √d, knn's
+    epilogue; None: squared, for a caller that merges further)."""
+    d, i = merge_sorted_parts(part_d, part_i, k=k, select_min=select_min)
+    if root == "clamp":
+        d = torch.sqrt(torch.clamp_min(d, 0.0))
+    elif root == "plain":
+        d = torch.sqrt(d)
+    return d, i
+
+
+#: each rank's own programs, keyed per signature (the reference keys the
+#: whole ``shard_map`` program with ``MeshAotFunction``, ann_mnmg.py:541-560;
+#: the port runs one process per rank, so a rank keys its scan and its
+#: fold, and the one allgather between them is no program of its own)
+_ivf_flat_scan_aot = aot(_ivf_flat_scan, static_argnums=(2, 3, 4, 5))
+_ivf_pq_scan_aot = aot(_ivf_pq_scan, static_argnums=(2, 3, 4, 5, 6, 7, 8))
+_brute_force_scan_aot = aot(_brute_force_scan,
+                            static_argnums=(2, 3, 4, 5, 6, 7, 8))
+_fold_parts_aot = aot(_fold_parts, static_argnums=(2, 3, 4))
+
+
+def _gather_fold(sh: ShardedIndex, d: torch.Tensor, i: torch.Tensor, k: int,
+                 root: Optional[str]):
+    """ONE allgather of this rank's run, then the keyed fold."""
+    pd, pi = _allgather_packed(sh.comms, d, i, k)
+    return _fold_parts_aot(pd, pi, k, sh.metric != DistanceType.InnerProduct,
+                           root)
 
 
 def _ivf_flat_program(sh: ShardedIndex, q: torch.Tensor, k: int,
                       n_probes: int, engine: str,
                       tombstones: Optional[torch.Tensor] = None,
                       root: bool = True):
-    local = sh.local_index()
-    q = q.float()
-    cd = ivf_flat._coarse_distances(q, local.centers, local.metric)
-    _, probes = select_k(cd, n_probes, select_min=True, engine=engine)
-    d, i = ivf_flat._probe_search_impl(q, probes, local, k, False, engine,
-                                       tombstones,
-                                       extra=sh.aux["probe_extra"])
-    d, i = _merge_one_allgather(
-        sh.comms, d, i, k,
-        select_min=sh.metric != DistanceType.InnerProduct)
-    return (_root(d, sh.metric) if root else d), i
+    d, i = _ivf_flat_scan_aot(sh.local_index(), q, k, n_probes, engine,
+                              sh.aux["probe_extra"], tombstones)
+    return _gather_fold(sh, d, i, k, _root_mode(sh, root))
 
 
 def _ivf_pq_program(sh: ShardedIndex, q: torch.Tensor, k: int,
@@ -510,34 +564,37 @@ def _ivf_pq_program(sh: ShardedIndex, q: torch.Tensor, k: int,
                     hoisted: bool, engines: Tuple[str, str],
                     tombstones: Optional[torch.Tensor] = None,
                     root: bool = True):
-    local = sh.local_index()
-    q = q.float()
-    probes = ivf_pq.coarse_probes(q, local, n_probes, engines[0])
-    d, i = ivf_pq._search_batch_impl(q, probes, local, k, lut_dtype,
-                                     engines, tombstones, False,
-                                     int_dtype=int_dtype, hoisted=hoisted,
-                                     extra=sh.aux["probe_extra"])
-    d, i = _merge_one_allgather(
-        sh.comms, d, i, k,
-        select_min=sh.metric != DistanceType.InnerProduct)
-    return (_root(d, sh.metric) if root else d), i
+    d, i = _ivf_pq_scan_aot(sh.local_index(), q, k, n_probes, lut_dtype,
+                            int_dtype, hoisted, engines,
+                            sh.aux["probe_extra"], tombstones)
+    return _gather_fold(sh, d, i, k, _root_mode(sh, root))
+
+
+def _root_mode(sh: ShardedIndex, root: bool) -> Optional[str]:
+    return ("clamp" if root and sh.metric == DistanceType.L2SqrtExpanded
+            else None)
+
+
+def _brute_force_statics(sh: ShardedIndex):
+    """(scan metric, metric arg, tile, select_min, id offset, root) of a
+    brute-force shard: L2Sqrt scans squared and roots after the merge."""
+    defer = sh.metric == DistanceType.L2SqrtExpanded
+    return (DistanceType.L2Expanded if defer else sh.metric,
+            sh.aux["metric_arg"], sh.aux["tile"],
+            sh.metric != DistanceType.InnerProduct,
+            sh.comms.get_rank() * sh.aux["rows_per"],
+            "plain" if defer else None)
 
 
 def _brute_force_program(sh: ShardedIndex, q: torch.Tensor, k: int,
                          engine: Optional[str]):
     (xs,) = sh.stacked
-    metric = sh.metric
-    select_min = metric != DistanceType.InnerProduct
-    defer = metric == DistanceType.L2SqrtExpanded
-    scan_metric = DistanceType.L2Expanded if defer else metric
-    d, i = brute_force._knn_scan_impl(xs, q.to(xs.dtype), k, scan_metric,
-                                      sh.aux["metric_arg"], sh.aux["tile"],
-                                      select_min, engine)
-    i = i + sh.comms.get_rank() * sh.aux["rows_per"]
-    d, i = _merge_one_allgather(sh.comms, d, i, k, select_min)
-    if defer:
-        d = torch.sqrt(d)   # knn's deferred-root epilogue, after the merge
-    return d, i
+    scan_metric, arg, tile, select_min, offset, root = \
+        _brute_force_statics(sh)
+    d, i = _brute_force_scan_aot(xs, q, k, scan_metric, arg, tile,
+                                 select_min, engine, offset)
+    # knn's deferred-root epilogue, after the merge
+    return _gather_fold(sh, d, i, k, root)
 
 
 #: one allgather of the packed (64, 2k) float32 merge payload at world 1
@@ -613,6 +670,49 @@ class ShardedSearcher:
     def warm(self, bucket: int, dtype=torch.float32) -> None:
         self.dispatch(torch.zeros((int(bucket), self.dim), dtype=dtype,
                                   device=self.device))
+
+    def warm_local(self, bucket: int,
+                   tombstones: Optional[torch.Tensor] = None,
+                   dtype=torch.float32) -> None:
+        """Warm this rank's keyed programs at *bucket* — the scan (with
+        *tombstones*' signature on a masked searcher) and the fold of
+        :meth:`dispatch` — without the allgather between them, so one
+        rank alone can run it (a mutable write's rewarm); nothing runs
+        where the scan's signature is warm."""
+        sh = self.sharded
+        q = torch.zeros((int(bucket), self.dim), dtype=dtype,
+                        device=self.device)
+        if sh.kind == "ivf_flat":
+            scan = _ivf_flat_scan_aot
+            args = (sh.local_index(), q, self.k, *self._args,
+                    sh.aux["probe_extra"], tombstones)
+            root = _root_mode(sh, not self.masked)
+        elif sh.kind == "ivf_pq":
+            scan = _ivf_pq_scan_aot
+            args = (sh.local_index(), q, self.k, *self._args,
+                    sh.aux["probe_extra"], tombstones)
+            root = _root_mode(sh, not self.masked)
+        else:
+            (xs,) = sh.stacked
+            scan_metric, arg, tile, select_min, offset, root = \
+                _brute_force_statics(sh)
+            scan = _brute_force_scan_aot
+            args = (xs, q, self.k, scan_metric, arg, tile, select_min,
+                    *self._args, offset)
+        if scan.is_warm(*args):
+            # every run of this scan was followed by its fold
+            return
+        d, i = scan(*args)
+        # the fold's inputs as the allgather gives them: (world, bucket, k)
+        # float32 runs (float64 ones stay float64) and int32 ids
+        # exempt(dtype-drift): float64 runs stay float64, as the allgather packs them
+        part = torch.float64 if d.dtype == torch.float64 else torch.float32
+        w = sh.comms.get_size()
+        fold = (d.to(part).expand(w, *d.shape),
+                i.to(torch.int32).expand(w, *i.shape), self.k,
+                sh.metric != DistanceType.InnerProduct, root)
+        if not _fold_parts_aot.is_warm(*fold):
+            _fold_parts_aot(*fold)
 
     # the four world-1 audit programs (inputs: analysis/programs.py)
     @audit_program("ann_mnmg.ivf_flat_sharded", comms=True, collectives=1,

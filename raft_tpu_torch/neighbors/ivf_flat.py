@@ -324,7 +324,8 @@ def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
 
 
 def extend(index: Index, new_vectors, new_ids=None, *,
-           engine: Optional[str] = None, in_place: bool = False) -> Index:
+           engine: Optional[str] = None, in_place: bool = False,
+           ladder: bool = False) -> Index:
     """Add vectors to the index (reference ``ivf_flat::extend``): assign
     each to its list (kernel B1 on the card for the L2 family) and append
     it into the list's free tail slots; only lists that overflow grow a
@@ -334,7 +335,10 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     ``size, size + 1, …``; given ones must be new (``ValueError`` on a
     duplicate in the batch or an id already live — replace semantics are
     ``mutable.MutableIndex.upsert``'s).  With ``adaptive_centers`` each
-    centre moves to the mean of its old and new members."""
+    centre moves to the mean of its old and new members.  With *ladder*
+    the blocks grow up the power-of-two ladder (``_common.ladder_layout``:
+    the mutable index's delta, whose shapes then change O(log n) times).
+    """
     x = _ingest(new_vectors, index.device)
     expects(x.ndim == 2 and x.shape[1] == index.dim, "dim mismatch")
     base = index.size
@@ -356,10 +360,11 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     if base:
         data, idx, phys_sizes, sizes, chunk_table, _ = extend_device(
             index.list_data, index.list_indices, index.list_sizes,
-            index.chunk_table, x, ids, labels, in_place=in_place)
+            index.chunk_table, x, ids, labels, in_place=in_place,
+            ladder=ladder)
     else:
         data, idx, phys_sizes, sizes, chunk_table, _ = pack_device(
-            x, ids, labels, index.n_lists)
+            x, ids, labels, index.n_lists, ladder)
     centers = index.centers
     if index.adaptive_centers:
         sums = reduce_rows_by_key(xf, labels, index.n_lists)
@@ -444,6 +449,11 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
 #: ivf_flat.py:460`` ``_search_batch_aot``); ``search`` and the serving
 #: engine's IVF-Flat backend dispatch it
 _search_batch_aot = aot(_search_batch_impl, static_argnums=(2, 3, 4, 5))
+
+#: the probe-scoring program (explicit probe ids), keyed per signature
+#: (``raft_tpu/neighbors/ivf_flat.py:468`` ``_probe_search_aot``): each
+#: tiered cold tile dispatches it
+_probe_search_aot = aot(_probe_search_impl, static_argnums=(3, 4, 5))
 
 
 def search(params: SearchParams, index: Index, queries, k: int, *,

@@ -481,8 +481,8 @@ def _csum_for_packed(list_codes: torch.Tensor, owner: torch.Tensor,
         codes = _unpack_codes(list_codes[r0:r1].reshape((r1 - r0) * cap, -1),
                               pq_dim, pq_bits)
         labels = torch.repeat_interleave(owner[r0:r1], cap)
-        out.append(_csum_for_codes(codes, labels, rot_centers, codebooks,
-                                   per_cluster).reshape(r1 - r0, cap))
+        out.append(_csum_tile_aot(codes, labels, rot_centers, codebooks,
+                                  per_cluster).reshape(r1 - r0, cap))
     return torch.cat(out) if out else rot_centers.new_zeros((0, cap))
 
 
@@ -595,7 +595,19 @@ def _encode_rows(index: Index, x: torch.Tensor, labels: torch.Tensor):
         return (torch.zeros((0, _code_bytes(index.pq_dim, index.pq_bits)),
                             dtype=torch.uint8, device=x.device),
                 torch.zeros(0, device=x.device))
-    return run_tiles(lambda xt, lt: _encode_tile(index, xt, lt), x, labels)
+    return run_tiles(lambda xt, lt: _encode_tile_aot(index, xt, lt), x,
+                     labels)
+
+
+#: the populate tile and the list-side sums of packed codes, keyed per
+#: signature (``raft_tpu/neighbors/ivf_pq.py:797,801`` ``_encode_tile_aot``
+#: / ``_csum_tile_aot``).  The reference runs the csum as its own program
+#: so XLA's fusion cannot move its last bit; eager PyTorch fuses nothing,
+#: so the populate tile computes both (the same bits), and the csum
+#: program is what an archive without sums rebuilds them with
+#: (:func:`_csum_for_packed`)
+_encode_tile_aot = aot(_encode_tile)
+_csum_tile_aot = aot(_csum_for_codes, static_argnums=(4,))
 
 
 def _empty_index(centers, rotation, codebooks, metric, pq_bits: int,
@@ -639,7 +651,7 @@ def build(params: IndexParams, dataset, ids=None, *, device=None,
 
 
 def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
-              in_place: bool = False) -> Index:
+              in_place: bool = False, ladder: bool = False) -> Index:
     """Encode *x*'s rows under *index*'s model and pack them into its lists:
     a fresh pack when the index is empty, else an append."""
     n = x.shape[0]
@@ -657,11 +669,11 @@ def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
          chunk_table, owner) = extend_device(
             (index.list_codes, index.list_csum), index.list_indices,
             index.list_sizes, index.chunk_table, (packed, csum), ids, labels,
-            in_place=in_place)
+            in_place=in_place, ladder=ladder)
     else:
         ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
          chunk_table, owner) = pack_device((packed, csum), ids, labels,
-                                           index.n_lists)
+                                           index.n_lists, ladder)
     # the trained model is untouched, so the list-side ADC table carries
     # over as it is
     return Index(centers=index.centers, rotation=index.rotation,
@@ -674,7 +686,8 @@ def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
 
 
 def extend(index: Index, new_vectors, new_ids=None, *,
-           engine: Optional[str] = None, in_place: bool = False) -> Index:
+           engine: Optional[str] = None, in_place: bool = False,
+           ladder: bool = False) -> Index:
     """Add vectors to the index (reference ``ivf_pq::extend``): assign
     (kernel B1 on the card for L2), encode with the trained model — no
     retraining — and append the codes and their ``list_csum`` into each
@@ -682,14 +695,16 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     Returns a new :class:`Index`; with ``in_place`` and no list
     overflowing, its blocks are *index*'s own, written in place (O(n_new)).
     *new_ids* default to ``size, size + 1, …``; given ones must be new
-    (``ValueError`` otherwise, as ``ivf_flat.extend``)."""
+    (``ValueError`` otherwise, as ``ivf_flat.extend``); *ladder* as
+    ``ivf_flat.extend``'s."""
     x, new_dtype = _ingest_dataset(new_vectors, index.device)
     expects(new_dtype == index.dataset_dtype,
             f"extend dtype {new_dtype} != index dataset dtype "
             f"{index.dataset_dtype}")
     expects(x.ndim == 2 and x.shape[1] == index.dim, "dim mismatch")
     labels = _assign_lists(x, index.centers, index.metric, engine)
-    return _populate(index, x, new_ids, labels, in_place=in_place)
+    return _populate(index, x, new_ids, labels, in_place=in_place,
+                     ladder=ladder)
 
 
 def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
@@ -733,8 +748,8 @@ def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
     expects(ids.shape == (n,), "ids must be (n,)")
     keep = labels.long() % comms.get_size() == comms.get_rank()
     tile = max(8, min(DEFAULT_TILE_ROWS, n))
-    parts = [_encode_tile(model, x[t0:t0 + tile], labels[t0:t0 + tile],
-                          keep[t0:t0 + tile])
+    parts = [_encode_tile_aot(model, x[t0:t0 + tile], labels[t0:t0 + tile],
+                              keep[t0:t0 + tile])
              for t0 in range(0, n, tile)]
     packed = torch.cat([p for p, _ in parts])
     csum = torch.cat([c for _, c in parts])
@@ -1065,6 +1080,15 @@ def _search_batch_impl(q: torch.Tensor, probe_ids: torch.Tensor,
     if sqrt and index.metric == DistanceType.L2SqrtExpanded:
         best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
+
+
+#: the probe-scoring program (coarse ranking done), keyed per signature
+#: (``raft_tpu/neighbors/ivf_pq.py:1413`` ``_search_batch_aot``, the
+#: hoisted and the legacy ``hoisted_lut=False`` scan): each tiered cold
+#: tile dispatches it.  The eager :func:`search` keeps the whole-batch
+#: :data:`_full_search_aot`, the serving engine's program, so a request
+#: an engine serves solo runs the signatures its warmup ran
+_search_batch_aot = aot(_search_batch_impl, static_argnums=(3, 4, 5))
 
 
 def coarse_probes(queries: torch.Tensor, index: Index, n_probes: int,

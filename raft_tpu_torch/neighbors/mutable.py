@@ -65,8 +65,18 @@ on every rank.  Closing that engine waits for a compaction in flight;
 stop a started ``Compactor`` before it (after the close a compaction is
 a collective of the direct API again).
 
-Eager PyTorch compiles nothing, so the reference's re-lowering of serve
-signatures (its ``rewarms`` event) has no counterpart.
+**Zero-compile reads.**  A read runs the keyed program
+:data:`_merged_aot` (reference ``_merged_aot`` :161; over a sharded main,
+each rank's keyed shard programs and :data:`_fold_aot`), whose signature
+holds the shapes of the main, the delta and both bitmaps.  The delta
+grows up the power-of-two ladder (``extend(ladder=True)``: its blocks'
+rows and its chunk table's width), and the bitmaps by word buckets, so
+those shapes change O(log n) times over an index's life.  A write that
+changes them re-runs every signature the index's searchers have served
+at the new shapes before it returns (:meth:`MutableIndex.
+_rewarm_locked`, reference :589; counted as ``mutable_counters
+["rewarms"]``), and compaction warms its new core before the swap, so
+the first calls ride the write path and a read makes none.
 """
 
 from __future__ import annotations
@@ -81,6 +91,7 @@ import torch
 
 from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch import telemetry
+from raft_tpu_torch.core.aot import TensorSpec, aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance.distance_types import DistanceType
@@ -176,18 +187,26 @@ def _merged_search_impl(q, main, delta, tomb_main, tomb_delta, k: int,
                        lut_dtype, engines, pq_kw)
 
 
+#: the single-device read, keyed per signature (``raft_tpu/neighbors/
+#: mutable.py:161`` ``_merged_aot``): the shapes of main, delta and both
+#: bitmaps are in its key, so a delta without rows (None) is a signature
+#: of its own, as in the reference
+_merged_aot = aot(_merged_search_impl, static_argnums=(5, 6, 7, 8))
+
+
 def _sharded_merged_search_impl(q, main_searcher, delta, tomb_main,
                                 tomb_delta, k: int, n_probes: int,
                                 lut_dtype: str, engines: Tuple[str, str],
                                 pq_kw=None):
     """main ∪ delta for one batch over a sharded main (a collective): the
-    masked ``ShardedSearcher`` (every rank's scan, one allgather, squared
-    distances), then the delta's scan and the fold of
-    :func:`_merged_search_impl`."""
+    masked ``ShardedSearcher`` (every rank's keyed scan, one allgather,
+    the keyed fold, squared distances), then the delta's scan and the
+    fold of :func:`_merged_search_impl` (:data:`_fold_aot`, this rank's
+    own program)."""
     d, i = main_searcher.dispatch(q, tomb_main)
-    return _fold_delta(q, d, i, main_searcher.sharded.metric, delta,
-                       tomb_delta, k, n_probes, lut_dtype, engines,
-                       pq_kw or {})
+    return _fold_aot(q, d, i, main_searcher.sharded.metric, delta,
+                     tomb_delta, k, n_probes, lut_dtype, engines,
+                     pq_kw or {})
 
 
 def _fold_delta(q, d, i, metric, delta, tomb_delta, k: int, n_probes: int,
@@ -201,6 +220,11 @@ def _fold_delta(q, d, i, metric, delta, tomb_delta, k: int, n_probes: int,
     if metric == DistanceType.L2SqrtExpanded:
         d = torch.sqrt(torch.clamp_min(d, 0.0))
     return d, i
+
+
+#: a sharded main's delta scan and fold on this rank, keyed per signature
+#: (the reference's delta-only ``_merged_aot`` and ``_merge_aot`` pair)
+_fold_aot = aot(_fold_delta, static_argnums=(3, 6, 7, 8, 9))
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +287,14 @@ class _Core:
         pos = np.minimum(np.searchsorted(self.main_ids, ids),
                          self.main_ids.size - 1)
         return self.main_ids[pos] == ids
+
+
+def _leaf_shapes(core: _Core):
+    """What of *core* the read's signature keys on and a write can change:
+    the bitmap words and the delta's tensor shapes (reference :233)."""
+    delta = None if core.delta is None else tuple(
+        tuple(t.shape) for t in _tensors(core.delta))
+    return core.n_words, delta
 
 
 class MutableIndex:
@@ -430,22 +462,28 @@ class MutableIndex:
                 self._searchers[key] = s
             return s
 
+    def _capture_locked(self):
+        core = self._mut_core
+        return (core, core.delta, core.tomb_main_bits,
+                None if core.delta is None else core.tomb_delta_bits,
+                core.ready)
+
     def _capture(self):
         """(core, delta, main bitmap, delta bitmap, event of the last
         write) of the current core, taken under the lock: every write
         makes new tensors, so these stay one consistent state."""
         with self._lock:
-            core = self._mut_core
-            return (core, core.delta, core.tomb_main_bits,
-                    None if core.delta is None else core.tomb_delta_bits,
-                    core.ready)
+            return self._capture_locked()
 
     def _snapshot(self, captured=None):
         """(core, delta, main bitmap, delta bitmap) of *captured* (default:
-        the current core), the current stream made to wait for its last
-        write and marked on every tensor of the snapshot."""
-        core, delta, tm, td, ready = (self._capture() if captured is None
-                                      else captured)
+        the current core, taken under the write lock), the current stream
+        made to wait for its last write and marked on every tensor of the
+        snapshot."""
+        if captured is None:
+            with self._lock:
+                captured = self._capture_locked()
+        core, delta, tm, td, ready = captured
         if ready is not None:
             torch.cuda.current_stream(self.device).wait_event(ready)
         if self.device.type == "cuda":
@@ -503,8 +541,21 @@ class MutableIndex:
                 # compaction replays it on its own stream after the clone
                 self._journal.append(("upsert", x.clone(), ids.copy(),
                                       _record_event(self.device)))
+            before = _leaf_shapes(self._mut_core)
             self._upsert_core(self._mut_core, x, ids)
+            if _leaf_shapes(self._mut_core) != before:
+                self._rewarm_locked()
             self._record_state(self._mut_core)
+
+    def _rewarm_locked(self) -> None:
+        """A write changed the delta's or the bitmaps' shapes: run every
+        signature the searchers have served at the new shapes before the
+        write returns (reference :589), so the first calls ride the write
+        path and the reads make none.  Rank-local over a sharded main (no
+        collective: each rank's keyed programs alone)."""
+        for s in list(self._searchers.values()):
+            s._warm_core(self._mut_core)
+        mutable_counters.inc("rewarms")
 
     # -- the leader/follower fan-out of a served sharded main ---------------
 
@@ -622,7 +673,7 @@ class MutableIndex:
         _mark_used(_tensors(core.delta))
         core.delta = _family(core.kind).extend(
             core.delta, x, torch.as_tensor(ids, dtype=torch.int32,
-                                           device=x.device))
+                                           device=x.device), ladder=True)
         self._mark_ready(core)
 
     def _rebuild_delta(self, core: _Core, exclude=()) -> None:
@@ -788,6 +839,11 @@ class MutableIndex:
                     for op in pending:
                         self._apply_op(new_core, op)
                     applied += len(pending)
+            # the new core's signatures, warmed while the old serves, on
+            # this thread's stream after the build's work (the warm runs'
+            # transients stay out of the compaction stream's pool)
+            _after(stream, self.device)
+            self._warm_for_core(new_core)
         except BaseException:
             with self._lock:
                 self._journal = None
@@ -811,6 +867,10 @@ class MutableIndex:
             with _on(stream):
                 for op in self._journal[applied:]:
                     self._apply_op(new_core, op)
+            # a tail that changed the shapes: warm them (no run where the
+            # signatures are warm)
+            _after(stream, self.device)
+            self._warm_for_core(new_core)
             if stream is not None:
                 stream.synchronize()
             self._journal = None
@@ -857,6 +917,10 @@ class MutableIndex:
             raise box["error"]
         self._compact_swap(box["built"])
 
+    def _warm_for_core(self, core: _Core) -> None:
+        for s in list(self._searchers.values()):
+            s._warm_core(core)
+
     def _apply_op(self, core: _Core, op) -> None:
         if op[0] == "delete":
             self._delete_core(core, op[1])
@@ -871,6 +935,12 @@ class MutableIndex:
 def _on(stream):
     return (torch.cuda.stream(stream) if stream is not None
             else contextlib.nullcontext())
+
+
+def _after(stream, device: torch.device) -> None:
+    """Make the current stream wait for the work queued on *stream*."""
+    if stream is not None:
+        torch.cuda.current_stream(device).wait_stream(stream)
 
 
 def _record_event(device: torch.device):
@@ -890,9 +960,10 @@ def _record_event(device: torch.device):
 class MutableSearcher:
     """The serving entry of one (MutableIndex, k, params) key — what
     ``serve.ServeEngine``'s mutable backends dispatch: one pre-bucketed
-    batch against a snapshot of the core (:func:`_merged_search_impl`,
-    or :func:`_sharded_merged_search_impl` over a sharded main, a
-    collective)."""
+    batch against a snapshot of the core (:data:`_merged_aot`, or
+    :func:`_sharded_merged_search_impl` over a sharded main, a
+    collective).  Every bucket it dispatches is recorded; a write that
+    changes the core's shapes re-runs them (:meth:`_warm_core`)."""
 
     def __init__(self, mutable: MutableIndex, k: int, params=None,
                  engine: Optional[str] = None):
@@ -920,6 +991,11 @@ class MutableSearcher:
                 hoisted=ivf_pq._resolve_hoisted(self.params))
         self.engine = engine
         self.n_probes = int(min(self.params.n_probes, main.n_lists))
+        self.device = mutable.device
+        #: the program a dispatch runs (the engine's telemetry label)
+        self.fn = _merged_aot
+        #: the buckets dispatched so far: what a rewarm re-runs
+        self._warmed: set = set()
 
     def _main_searcher(self, core: _Core):
         """The masked ``ShardedSearcher`` over *core*'s main, made once per
@@ -948,21 +1024,52 @@ class MutableSearcher:
                                         self.lut_dtype,
                                         self.pq_kw["hoisted"])
 
+    def warm(self, bucket: int, dtype=torch.float32) -> None:
+        """Run one batch of *bucket* zero rows (float32: the backends cast
+        every request type to it) against the current core and record the
+        bucket, so a write that changes the core's shapes re-runs it."""
+        self.dispatch(torch.zeros((int(bucket), self.dim),
+                                  dtype=torch.float32, device=self.device))
+
+    def _warm_core(self, core: _Core) -> None:
+        """Run every recorded bucket whose signature against *core* is not
+        warm yet (this rank's keyed programs only: over a sharded main the
+        shard scan and the folds, never a collective)."""
+        tm = core.tomb_main_bits
+        td = None if core.delta is None else core.tomb_delta_bits
+        for bucket in sorted(self._warmed):
+            q = TensorSpec((bucket, self.dim), torch.float32, self.device)
+            if not self.mutable.sharded:
+                args = (q, core.main, core.delta, tm, td, self.k,
+                        self.n_probes, self.lut_dtype, self.engines,
+                        self.pq_kw)
+                if not _merged_aot.is_warm(*args):
+                    _merged_aot.compiled(*args)
+                continue
+            self._main_searcher(core).warm_local(bucket, tm)
+            run_d = TensorSpec((bucket, self.k), torch.float32, self.device)
+            run_i = TensorSpec((bucket, self.k), torch.int32, self.device)
+            args = (q, run_d, run_i, self.metric, core.delta, td, self.k,
+                    self.n_probes, self.lut_dtype, self.engines, self.pq_kw)
+            if not _fold_aot.is_warm(*args):
+                _fold_aot.compiled(*args)
+
     def dispatch(self, qb: torch.Tensor, captured=None):
         """One batch against *captured* (``MutableIndex._capture``; default
-        the core as it is now)."""
+        the core as it is now, snapshotted under the write lock)."""
+        self._warmed.add(int(qb.shape[0]))
         core, delta, tm, td = self.mutable._snapshot(captured)
         if self.mutable.sharded:
             return _sharded_merged_search_impl(
                 qb, self._main_searcher(core), delta, tm, td, self.k,
                 self.n_probes, self.lut_dtype, self.engines, self.pq_kw)
-        return _merged_search_impl(qb, core.main, delta, tm, td, self.k,
-                                   self.n_probes, self.lut_dtype,
-                                   self.engines, self.pq_kw)
+        return _merged_aot(qb, core.main, delta, tm, td, self.k,
+                           self.n_probes, self.lut_dtype, self.engines,
+                           self.pq_kw)
 
-    def solo(self, q):
+    def solo(self, q, batch: int = 1024):
         return search(self.mutable, q, self.k, params=self.params,
-                      engine=self.engine)
+                      engine=self.engine, batch_size_query=batch)
 
 
 def _ingest(mutable: MutableIndex, queries) -> torch.Tensor:
@@ -982,13 +1089,14 @@ def _ingest(mutable: MutableIndex, queries) -> torch.Tensor:
 
 
 def search(mutable: MutableIndex, queries, k: int, params=None,
-           engine: Optional[str] = None
+           engine: Optional[str] = None, *, batch_size_query: int = _BATCH
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search main ∪ delta minus tombstones: (distances (nq, k) f32,
-    indices (nq, k) int32) on the index's device.  Batches of 1,024
-    queries, the tail padded to the power-of-two bucket ladder, as the
-    family searches.  Over a sharded main a collective; a sharded index
-    that an engine leads is searched through that engine."""
+    indices (nq, k) int32) on the index's device.  Batches of
+    *batch_size_query* queries (IVF-PQ's batch cap below that), the tail
+    padded to the power-of-two bucket ladder, as the family searches.
+    Over a sharded main a collective; a sharded index that an engine
+    leads is searched through that engine."""
     expects(mutable._wire is None, "mutable.search: an engine leads this "
             "sharded index — search through the engine")
     s = mutable.searcher(int(k), params, engine)
@@ -996,11 +1104,12 @@ def search(mutable: MutableIndex, queries, k: int, params=None,
     nq = q.shape[0]
     if nq == 0:
         return empty_result(0, int(k), torch.float32, mutable.device)
+    batch = min(int(batch_size_query), s.batch_cap() or _BATCH)
     out_d, out_i = [], []
-    for q0 in range(0, nq, _BATCH):
-        qb = q[q0:q0 + _BATCH]
+    for q0 in range(0, nq, batch):
+        qb = q[q0:q0 + batch]
         n = qb.shape[0]
-        bucket = min(bucket_dim(n), _BATCH)
+        bucket = min(bucket_dim(n), batch)
         if bucket != n:
             qb = torch.cat([qb, qb.new_zeros((bucket - n, qb.shape[1]))])
         d, i = s.dispatch(qb)

@@ -50,6 +50,7 @@ import torch
 
 from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch import telemetry
+from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.handle import Handle, resolve_device
@@ -109,6 +110,54 @@ def _refine_impl(q: torch.Tensor, cand_vecs: torch.Tensor,
     if metric == DistanceType.L2SqrtExpanded:
         d = torch.sqrt(torch.clamp_min(d, 0.0))
     return d, i
+
+
+#: the refine, keyed per signature (``raft_tpu/neighbors/tiering.py:198``
+#: ``_refine_aot``)
+_refine_aot = aot(_refine_impl, static_argnums=(3, 4, 5))
+
+
+def _scan_block(q: torch.Tensor, probes: torch.Tensor, blk, kind: str,
+                k: int, extra: Optional[int], lut_dtype: str,
+                engines: Tuple[str, str], int_dtype: str, hoisted: bool):
+    """One block (the hot block, or one staged cold tile) through its
+    family's keyed probe-scoring program (``ivf_flat._probe_search_aot``,
+    ``ivf_pq._search_batch_aot``): squared distances, the L2Sqrt root
+    taken after the merge.  A cold tile's call is the reference's
+    ``_cold_scan_aot`` (:196): one keyed program per tile; inside the hot
+    phase's program it runs inline."""
+    if kind == "ivf_flat":
+        return ivf_flat._probe_search_aot(q, probes, blk, k, False,
+                                          engines[0], None, extra)
+    return ivf_pq._search_batch_aot(q, probes, blk, k, lut_dtype, engines,
+                                    None, False, int_dtype=int_dtype,
+                                    hoisted=hoisted, extra=extra)
+
+
+def _hot_phase_impl(q: torch.Tensor, acc: torch.Tensor, blk, kind: str,
+                    metric: DistanceType, k: int, n_probes: int,
+                    extra: Optional[int], lut_dtype: str,
+                    engines: Tuple[str, str], int_dtype: str, hoisted: bool):
+    """The hot phase as one program: coarse ranking → top-n_probes (each
+    family's serving ranking: ``ivf_flat._coarse_distances`` and kernel
+    B2) → hot-block scan → the per-list probe counter *acc* (``index_add_``
+    in place).  A warm run passes a scratch counter of *acc*'s signature,
+    so warming counts no probes and keys the same program."""
+    coarse = ivf_flat._coarse_distances(q, blk.centers, metric)
+    _, probes = select_k(coarse, n_probes, select_min=True,
+                         engine=engines[0])
+    d, i = _scan_block(q, probes, blk, kind, k, extra, lut_dtype, engines,
+                       int_dtype, hoisted)
+    flat = probes.reshape(-1).long()
+    # exempt(raw-segment-sum): the per-list probe counter, a histogram
+    acc.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return probes, d, i
+
+
+#: the hot phase, keyed per signature (``raft_tpu/neighbors/tiering.py:194``
+#: ``_hot_phase_aot``)
+_hot_phase_aot = aot(_hot_phase_impl,
+                     static_argnums=(3, 4, 5, 6, 7, 8, 9, 10, 11))
 
 
 @dataclasses.dataclass
@@ -491,10 +540,14 @@ class TieredSearcher:
             self.params = params or ivf_flat.SearchParams()
             sk = resolve_engine("select_k", self.device, engine=engine)
             self.engines = (sk, sk)
+            self.lut_dtype, self.int_dtype, self.hoisted = (
+                "float32", "float32", False)
         else:
             self.params = params or ivf_pq.SearchParams()
             ivf_pq.check_search_params(self.params)
             self.engines = ivf_pq._resolve_engines(template, engine)
+            self.lut_dtype = self.params.lut_dtype
+            self.int_dtype = self.params.internal_distance_dtype
             self.hoisted = ivf_pq._resolve_hoisted(self.params)
         self.engine = engine
         self.n_probes = int(min(self.params.n_probes, tiered.n_lists))
@@ -521,33 +574,19 @@ class TieredSearcher:
               "tiered backend's cold phase")
     def _scan(self, qb: torch.Tensor, probes: torch.Tensor, blk,
               extra: Optional[int]):
-        """One block through its family's scan: squared distances (the
-        L2Sqrt root is taken after the merge)."""
-        if self.kind == "ivf_flat":
-            return ivf_flat._probe_search_impl(
-                qb, probes, blk, self.search_k, False, self.engines[0],
-                None, extra)
-        return ivf_pq._search_batch_impl(
-            qb, probes, blk, self.search_k, self.params.lut_dtype,
-            self.engines, None, False,
-            int_dtype=self.params.internal_distance_dtype,
-            hoisted=self.hoisted, extra=extra)
+        """One block through its family's keyed scan (:func:`_scan_block`):
+        squared distances (the L2Sqrt root is taken after the merge)."""
+        return _scan_block(qb, probes, blk, self.kind, self.search_k, extra,
+                           self.lut_dtype, self.engines, self.int_dtype,
+                           self.hoisted)
 
-    def _hot_phase(self, qb: torch.Tensor, count: bool):
-        """Coarse ranking → top-n_probes → hot-block scan → (with *count*)
-        the per-list probe counter.  The ranking is each family's serving
-        one (``ivf_flat._coarse_distances`` and kernel B2)."""
-        coarse = ivf_flat._coarse_distances(qb, self._hot.centers,
-                                            self.metric)
-        _, probes = select_k(coarse, self.n_probes, select_min=True,
-                             engine=self.engines[0])
-        d, i = self._scan(qb, probes, self._hot, self.tiered.probe_extra_hot)
-        if count:
-            flat = probes.reshape(-1).long()
-            # exempt(raw-segment-sum): the per-list probe counter, a histogram
-            self._acc.index_add_(0, flat, torch.ones_like(
-                flat, dtype=torch.int32))
-        return probes, d, i
+    def _hot_phase(self, qb: torch.Tensor, acc: torch.Tensor):
+        """The keyed hot phase (:func:`_hot_phase_impl`) of one batch,
+        counting its probes into *acc*."""
+        return _hot_phase_aot(qb, acc, self._hot, self.kind, self.metric,
+                              self.search_k, self.n_probes,
+                              self.tiered.probe_extra_hot, self.lut_dtype,
+                              self.engines, self.int_dtype, self.hoisted)
 
     def _stage(self, tile, lane: int, key: str):
         """Hand host tensors to their copy on pool lane *lane*: (the
@@ -580,8 +619,8 @@ class TieredSearcher:
                 t.record_stream(cur)
         return tensors
 
-    def _dispatch(self, qb: torch.Tensor, count: bool):
-        probes, d, i = self._hot_phase(qb, count)
+    def _dispatch(self, qb: torch.Tensor, acc: torch.Tensor):
+        probes, d, i = self._hot_phase(qb, acc)
         tier_counters.inc("hot_dispatches")
         if self.tiered.cold_tiles:
             d, i = self._run_cold(qb, probes, d, i)
@@ -594,14 +633,19 @@ class TieredSearcher:
     def dispatch(self, qb: torch.Tensor):
         """One pre-bucketed float32 batch on the device: the hot phase,
         the cold tiles (tile n + 1 copying while tile n scores) folded in
-        storage order, then the optional exact re-rank."""
-        return self._dispatch(qb, True)
+        storage order, then the optional exact re-rank.  Every program it
+        runs is keyed (the hot phase, each tile's scan, the merges, the
+        refine), so after :meth:`warm` at a bucket it makes no first
+        call."""
+        return self._dispatch(qb, self._acc)
 
     def warm(self, bucket: int) -> None:
-        """Run one batch of *bucket* rows without counting its probes, so
-        kernels are built and the allocator has seen the shapes."""
+        """Run one batch of *bucket* zero rows against a scratch probe
+        counter (the same signature as the live one, so no probe is
+        counted): every program a dispatch at *bucket* runs is warm."""
         self._dispatch(torch.zeros((bucket, self.dim), dtype=torch.float32,
-                                   device=self.device), False)
+                                   device=self.device),
+                       torch.zeros_like(self._acc))
 
     def _run_cold(self, qb, probes, d, i):
         tiles = self.tiered.cold_tiles
@@ -632,8 +676,8 @@ class TieredSearcher:
                            out=vecs.view(-1, self.dim))
         staged = self._stage((vecs, ids_host), 0, "refine_gather_bytes")
         vecs_d, ids_d = self._use(staged)
-        return _refine_impl(qb, vecs_d, ids_d, self.metric, self.k,
-                            self.engines[0])
+        return _refine_aot(qb, vecs_d, ids_d, self.metric, self.k,
+                           self.engines[0])
 
     def batch_cap(self) -> Optional[int]:
         """IVF-PQ's hoisted-table clamp, sized by the full layout
@@ -647,9 +691,9 @@ class TieredSearcher:
             int(t.aux["pq_bits"]), self.n_probes, self.params.lut_dtype,
             self.hoisted)
 
-    def solo(self, q):
+    def solo(self, q, batch: int = _BATCH):
         return search(self.tiered, q, self.k, params=self.params,
-                      engine=self.engine)
+                      engine=self.engine, batch_size_query=batch)
 
     def hotness(self) -> np.ndarray:
         """A snapshot of the per-list probe counts (the re-tiering
@@ -687,18 +731,19 @@ def _ingest(tiered: TieredIndex, queries) -> torch.Tensor:
 
 
 def search(tiered: TieredIndex, queries, k: int, params=None,
-           engine: Optional[str] = None
+           engine: Optional[str] = None, *, batch_size_query: int = _BATCH
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tiered search: (distances (nq, k) f32, indices (nq, k) int32) on
     the device, equal to the resident family search bit for bit wherever
-    distances are not tied.  Batches of up to 1,024 queries (IVF-PQ's
-    batch cap below that), the tail padded to the bucket ladder."""
+    distances are not tied.  Batches of up to *batch_size_query* queries
+    (IVF-PQ's batch cap below that), the tail padded to the bucket
+    ladder."""
     s = tiered.searcher(int(k), params, engine)
     q = _ingest(tiered, queries)
     nq = q.shape[0]
     if nq == 0:
         return empty_result(0, s.k, torch.float32, tiered.device)
-    batch = min(_BATCH, s.batch_cap() or _BATCH)
+    batch = min(int(batch_size_query), s.batch_cap() or _BATCH)
     out_d, out_i = [], []
     for q0 in range(0, nq, batch):
         qb = q[q0:q0 + batch]

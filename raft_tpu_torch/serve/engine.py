@@ -281,10 +281,11 @@ class _BruteForceBackend(_Backend):
             self.index, qb.to(self.index.dtype), self.k, self.metric,
             self.metric_arg, self.tile, self.select_min, self.engine)
 
-    def solo(self, q):
+    def solo(self, q, batch: int = 4096):
         return brute_force.knn(self.index, q, self.k, self.metric,
                                self.metric_arg, batch_size_index=self.tile,
-                               device=self.device, engine=self.engine)
+                               batch_size_query=batch, device=self.device,
+                               engine=self.engine)
 
 
 class _IvfFlatBackend(_Backend):
@@ -315,9 +316,9 @@ class _IvfFlatBackend(_Backend):
         return self.fn(qb.float(), self.index, self.k, self.n_probes,
                        self.sqrt, self.engine)
 
-    def solo(self, q):
+    def solo(self, q, batch: int = 1024):
         return ivf_flat.search(self.params, self.index, q, self.k,
-                               engine=self.engine)
+                               batch_size_query=batch, engine=self.engine)
 
 
 class _IvfPqBackend(_Backend):
@@ -355,9 +356,9 @@ class _IvfPqBackend(_Backend):
                        int_dtype=self.params.internal_distance_dtype,
                        hoisted=self.hoisted)
 
-    def solo(self, q):
+    def solo(self, q, batch: int = 1024):
         return ivf_pq.search(self.params, self.index, q, self.k,
-                             engine=self.engine)
+                             batch_size_query=batch, engine=self.engine)
 
 
 class _MutableBackend(_Backend):
@@ -366,7 +367,7 @@ class _MutableBackend(_Backend):
     while it serves; each dispatch searches a snapshot of it, and
     compaction promotes its new core through ``engine.refresh(mutable)``."""
 
-    fn = staticmethod(mutable._merged_search_impl)
+    fn = staticmethod(mutable._merged_aot)
 
     def __init__(self, mut, k: int, params, engine: Optional[str]):
         self.mutable = mut
@@ -388,8 +389,8 @@ class _MutableBackend(_Backend):
     def dispatch(self, qb: torch.Tensor):
         return self.searcher.dispatch(qb.float())
 
-    def solo(self, q):
-        return self.searcher.solo(q)
+    def solo(self, q, batch: int = 1024):
+        return self.searcher.solo(q, batch)
 
 
 class _TieredBackend(_Backend):
@@ -425,8 +426,8 @@ class _TieredBackend(_Backend):
     def dispatch(self, qb: torch.Tensor):
         return self.searcher.dispatch(qb.float())
 
-    def solo(self, q):
-        return self.searcher.solo(q)
+    def solo(self, q, batch: int = 1024):
+        return self.searcher.solo(q, batch)
 
 
 class _DistributedBackend:
@@ -1477,10 +1478,14 @@ class ServeEngine:
         stream = self._handle.get_next_usable_stream(lane)
         try:
             with stream.context():
-                if replica is None:
-                    d, i = self._backend.solo(q)
+                if self._backend.distributed:
+                    # as ``ann_mnmg.search`` batches it: one allgather a
+                    # batch of up to its batch size
+                    d, i = self._backend.solo(q, replica or 0)
                 else:
-                    d, i = self._backend.solo(q, replica)
+                    # in batches of the largest bucket: the signatures
+                    # the warmup ran
+                    d, i = self._backend.solo(q, batch=self.max_batch)
                 return (d.to("cpu", non_blocking=True),
                         i.to("cpu", non_blocking=True), stream.record())
         except Exception as e:

@@ -345,7 +345,23 @@ Phases, one JSON line each:
    goldens of the card's scope (another scope's are skipped).
    ``--golden-dir DIR`` writes them under ``DIR/<scope>/``.  Each phase
    fails if a kernel of its path (``PATH_KERNELS``) never launched.
-15. the zero-compile contract.  Every serving line that warms an engine
+15. ``handle`` (after ``approx_knn``): the resource model.  Every query
+   of the smoke through ``ivf_pq.search`` at batch 1,024 over the IVF-PQ
+   index, three times each with no handle, with ``Handle()`` and with
+   ``Handle(n_streams=4)`` (query batch b on pool stream b mod 4): the
+   seconds to return, the seconds ``sync()`` then took and the pool
+   streams whose ``query()`` was False at return, each output bit for
+   bit the handle-less call's; ``ivf_flat.search``, ``knn`` under L1,
+   ``pairwise_distance`` cityblock and ``kmeans.fit`` from an array
+   init under a handle against the same calls without one (B1–B5); the
+   allocator check (the caller drops its queries and fills fresh memory
+   of their size on its own stream with NaN while the pool still reads
+   them behind a sleep: the results keep their bits and the block is not
+   handed out again); a cancel from another thread during
+   ``handle.sync()`` raises and a second ``sync()`` completes; and a
+   sleeping stream the handle does not own is not waited for.  Only the
+   handle runs count towards ``PATH_KERNELS["handle"]``.
+16. the zero-compile contract.  Every serving line that warms an engine
    carries ``compiles_after_warmup``: the first calls of keyed programs
    (``aot_compile_counters["compiles"]``) over its traffic after
    ``warmup()``, which must be 0 — serve, serve_stream (and its fault
@@ -362,7 +378,7 @@ Phases, one JSON line each:
    call.  ``retrace`` (before ``aot``): the retrace-closure certifier
    over the checkout, its obligations certified and failed (any failure
    fails the run) and its seconds.
-16. the ``{"kernels": [...]}`` line (B1–B6), then the last line
+17. the ``{"kernels": [...]}`` line (B1–B6), then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device time by kernel over one 1,024-query super-batch
@@ -482,6 +498,10 @@ PATH_KERNELS = {
     # the audited programs: B3 (fused_em_step, kernels.fused_l2_nn), B2,
     # B4's raw mode (kernels.ivf_pq_lut) and scan mode (ivf_pq.full_search)
     "audit": ("fused_l2_nn_partials", "select_k", "lut_score", "lut_scan"),
+    # the calls under a handle: kmeans.fit (B1, B3), the searches' selects
+    # (B2), the IVF-PQ scan on pool streams (B4), L1 kNN and cityblock (B5)
+    "handle": ("fused_l2_nn", "fused_l2_nn_partials", "select_k",
+               "lut_scan", "pairwise_accumulate"),
 }
 #: the kernels each serving path's open-loop phase must launch (serving
 #: builds nothing)
@@ -2691,9 +2711,8 @@ def tiered_path(kind, device, index, x, resident, q_host, reqs, calls,
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tensors, ev = searcher._stage(t.cold_tiles[0], 0, "prefetch_bytes")
-    if ev is not None:
-        ev.synchronize()
+    tensors, lane = searcher._stage(t.cold_tiles[0], 0, "prefetch_bytes")
+    lane.synchronize()
     stage_s = time.perf_counter() - t0
     del tensors
     out = {"phase": "tiered", "path": path, "card": smi, "tier_s": tier_s,
@@ -2801,6 +2820,213 @@ def approx_knn_phase(device, index_flat, index_pq, queries, n_probes, k):
               f"approx_knn_search over {name} differs from its search")
         out[f"{name}_equals_family_search"] = True
     emit(out)
+
+
+#: the handle phase: the IVF-PQ search's batch and pool, and its repeats
+HANDLE_BATCH = 1024
+HANDLE_POOL = 4
+HANDLE_REPS = 3
+#: L1 kNN queries; cityblock rows × columns; k-means rows, k, EM steps
+HANDLE_KNN_QUERIES = 256
+HANDLE_PAIRWISE = (4096, 1024)
+HANDLE_KMEANS = (100_000, 256, 5)
+#: cycles the card sleeps ahead of the allocator and cancel checks (about
+#: half a second)
+HANDLE_SLEEP_CYCLES = 1_000_000_000
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _cancelled_sync(h) -> dict:
+    """A thread's ``h.sync()`` cancelled from this one: whether it
+    raised, and whether a second ``sync()`` then completed."""
+    from raft_tpu_torch.core import interruptible
+    from raft_tpu_torch.core.error import InterruptedError_
+
+    box, started = {}, threading.Event()
+
+    def waiter():
+        box["tid"] = threading.get_ident()
+        started.set()
+        try:
+            h.sync()
+            box["raised"] = False
+        except InterruptedError_:
+            box["raised"] = True
+
+    t = threading.Thread(target=waiter)
+    t.start()
+    check(started.wait(10), "handle: the cancel check's thread did not start")
+    time.sleep(0.02)
+    interruptible.cancel(box["tid"])
+    t.join(timeout=10)
+    check(not t.is_alive(), "handle: a cancelled sync did not return")
+    pending = not h.get_stream().query()
+    t0 = time.perf_counter()
+    h.sync()
+    return {"raised": box.get("raised"), "pending_after_cancel": pending,
+            "second_sync_s": time.perf_counter() - t0,
+            "done_after_second_sync": h.get_stream().query()}
+
+
+def _handle_lifetime_checks(pq_search, ref, queries, path):
+    """The card-only checks of the handle phase: the allocator check, a
+    cancelled sync, and a stream the handle does not own."""
+    import torch
+
+    from raft_tpu_torch.core import Handle
+
+    out = {}
+    # the allocator check: the caller's queries outlive the caller
+    h = Handle(n_streams=HANDLE_POOL)
+    qd = queries.clone()
+    ptr = qd.data_ptr()
+    with h.get_stream().context():
+        torch.cuda._sleep(HANDLE_SLEEP_CYCLES)
+    with path.span():
+        got = pq_search(h, qd)
+    del qd
+    junk = torch.empty_like(queries).fill_(float("nan"))
+    reused = junk.data_ptr() == ptr
+    h.sync()
+    check(not reused, "handle: the dropped queries' block was handed out "
+          "while the pool still read it")
+    check(_same(got, ref), "handle: results changed after the caller "
+          "dropped its queries before sync()")
+    out["allocator"] = {"block_reused": reused, "bit_for_bit": True}
+    del junk, got
+
+    # a cancelled sync, and a stream the handle does not own
+    h = Handle()
+    with h.get_stream().context():
+        torch.cuda._sleep(HANDLE_SLEEP_CYCLES)
+    cancel = _cancelled_sync(h)
+    check(cancel["raised"] is True and cancel["pending_after_cancel"]
+          and cancel["done_after_second_sync"],
+          f"handle: the cancel check failed: {cancel}")
+    out["cancel"] = cancel
+    foreign = torch.cuda.Stream()
+    with torch.cuda.stream(foreign):
+        torch.cuda._sleep(HANDLE_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    Handle(n_streams=2).sync()
+    waited = time.perf_counter() - t0
+    busy = not foreign.query()
+    foreign.synchronize()
+    check(busy, "handle: the foreign stream finished before the check")
+    out["foreign_stream"] = {"sync_s": waited, "still_busy": busy}
+
+    return out
+
+
+def handle_phase(device, index_pq, index_flat, x, queries, n_probes, k,
+                 smi):
+    """The resource model on the card (phase 15 of the module doc).
+    Returns the launch counts of the handle runs."""
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+    from raft_tpu_torch.core import Handle
+    from raft_tpu_torch.distance import pairwise_distance
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+
+    t_phase = time.perf_counter()
+    path = _PathLaunches()
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sp = ivf_pq.SearchParams(n_probes=n_probes)
+
+    def pq_search(h=None, q=queries):
+        return ivf_pq.search(sp, index_pq, q, k,
+                             batch_size_query=HANDLE_BATCH, handle=h)
+
+    ref = pq_search()
+    # one handle per way, made once and first used untimed, as a caller
+    # keeps its handle: a stream's first allocations are the allocator's
+    handles = {"none": None, "handle": Handle(device),
+               f"pool{HANDLE_POOL}": Handle(device, n_streams=HANDLE_POOL)}
+    search = {m: {"first_return_s": None, "first_sync_s": None,
+                  "return_s": [], "sync_s": [], "pending_pool_streams": [],
+                  "pending_main_stream": []} for m in handles}
+    for rep in range(HANDLE_REPS + 1):
+        for m, h in handles.items():
+            sync()
+            t0 = time.perf_counter()
+            if h is None:
+                got = pq_search()
+            else:
+                with path.span():
+                    got = pq_search(h)
+            t_ret = time.perf_counter() - t0
+            row = search[m]
+            pending = (sum(not h.get_stream_from_stream_pool(b).query()
+                           for b in range(h.stream_pool_size)),
+                       not h.get_stream().query()) if h is not None else None
+            t1 = time.perf_counter()
+            if h is not None:
+                h.sync()
+            t_sync = time.perf_counter() - t1
+            if rep == 0:
+                row["first_return_s"], row["first_sync_s"] = t_ret, t_sync
+            else:
+                row["return_s"].append(t_ret)
+                row["sync_s"].append(t_sync)
+                if pending is not None:
+                    row["pending_pool_streams"].append(pending[0])
+                    row["pending_main_stream"].append(pending[1])
+            check(_same(got, ref),
+                  f"handle: ivf_pq.search under {m} differs from the call "
+                  "without a handle")
+    out = {"phase": "handle", "queries": int(queries.shape[0]),
+           "batch_size_query": HANDLE_BATCH, "n_probes": n_probes, "k": k,
+           "ivf_pq_search": search}
+
+    # the other kernels under one handle, each against its handle-less twin
+    h = Handle(device, n_streams=2)
+    qk = queries[:HANDLE_KNN_QUERIES]
+    xa, ya = x[:HANDLE_PAIRWISE[0]], queries[:HANDLE_PAIRWISE[1]]
+    n_km, k_km, it_km = HANDLE_KMEANS
+    p_km = KMeansParams(n_clusters=k_km, init=InitMethod.Array,
+                        max_iter=it_km, tol=0.0)
+    fp = ivf_flat.SearchParams(n_probes=n_probes)
+    with path.span():
+        flat = ivf_flat.search(fp, index_flat, queries, k, handle=h)
+        l1 = brute_force.knn(x, qk, k, "l1", handle=h)
+        cb = pairwise_distance(xa, ya, "cityblock", handle=h)
+        km = kmeans.fit(p_km, x[:n_km], centroids=x[:k_km], handle=h)
+        h.sync()
+    km_ref = kmeans.fit(p_km, x[:n_km], centroids=x[:k_km])
+    equal = {
+        "ivf_flat_search": _same(flat, ivf_flat.search(fp, index_flat,
+                                                       queries, k)),
+        "knn_l1": _same(l1, brute_force.knn(x, qk, k, "l1", device=device)),
+        "pairwise_cityblock": bool(torch.equal(
+            cb, pairwise_distance(xa, ya, "cityblock", device=device))),
+        "kmeans_fit": _same((km.centroids, km.inertia),
+                            (km_ref.centroids, km_ref.inertia))}
+    for name, ok in equal.items():
+        check(ok, f"handle: {name} under a handle differs from the call "
+              "without one")
+    out["bit_for_bit"] = equal
+
+    if cuda:
+        out.update(_handle_lifetime_checks(pq_search, ref, queries, path))
+    launches = path.total
+    missing = [kk for kk in PATH_KERNELS["handle"] if not launches.get(kk)]
+    check(not missing, f"handle: kernels never launched: {missing}")
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase,
+               card=smi)
+    emit(out)
+    return launches
 
 
 def check_knn(name, d, i, ref_d, ref_i, tie_d):
@@ -6682,6 +6908,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
     launches_tp = tiered_path("ivf_pq", device, index_pq, x, resident_pq,
                               *tiered_args)
     approx_knn_phase(device, eng_flat.index, index_pq, queries, n_probes, k)
+    launches_handle = handle_phase(device, index_pq, eng_flat.index, x,
+                                   queries, n_probes, k, smi)
     mut_pq = mutable_path(
         "ivf_pq", device, index_pq, x, ivf_pq.IndexParams(n_lists=n_lists),
         ivf_pq.SearchParams(n_probes=n_probes), calls, n_queries, qr, truth,
@@ -6768,7 +6996,8 @@ def run(device, n: int, n_queries: int, dim: int, n_lists: int,
                "sharded_mutable_w2": launches_sh_mut_w2,
                "single_linkage": launches_sl, "spectral": launches_spec,
                "sparse_knn": launches_spknn, "aot": launches_aot,
-               "audit": launches_audit, **launches_km}
+               "audit": launches_audit, "handle": launches_handle,
+               **launches_km}
     for name, fields in km_rows.items():
         rows[name]["kmeans_shapes"] = fields
     for name, row in rows.items():

@@ -34,7 +34,7 @@ import torch
 from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import issued_on, resolve_device
+from raft_tpu_torch.core.handle import auto_sync_handle, resolve_device
 from raft_tpu_torch.core.kvp import KeyValuePair
 from raft_tpu_torch.distance.fused_l2_nn import (
     cluster_partials_plain,
@@ -438,6 +438,7 @@ def _weights(sample_weights, x: torch.Tensor, normalize: bool):
     return w * (x.shape[0] / torch.sum(w)) if normalize else w
 
 
+@auto_sync_handle
 def fit(params: KMeansParams, x, sample_weights=None, centroids=None,
         handle=None, loop: str = "while", fused: Optional[bool] = None, *,
         device=None, engine: Optional[str] = None) -> KMeansOutput:
@@ -449,49 +450,49 @@ def fit(params: KMeansParams, x, sample_weights=None, centroids=None,
     *x*: a tensor stays where it is; an array goes to *device* (``None``:
     the card, raising without one) or the *handle*'s.  *handle*: a
     :class:`~raft_tpu_torch.core.Handle` whose stream takes the work (sync
-    it before reading the outputs elsewhere).  *loop*: ``"while"`` or
-    ``"fori"`` (see :func:`_fit_main`).  *fused*: one E-step per iteration
+    it before reading the outputs elsewhere; ``auto_sync_handle``).
+    *loop*: ``"while"`` or ``"fori"`` (see :func:`_fit_main`).  *fused*: one E-step per iteration
     with the M-step partials (:func:`fused_em_step`); ``None`` reads
     :func:`fused_em_enabled`.  *engine*: see the module doc.  Sample
     weights are scaled to sum to n_samples.  Half data is widened to
     float32 once per fit for the E-steps; the centroids keep the data's
     type."""
     expects(loop in ("while", "fori"), f"unknown loop mode {loop!r}")
-    with issued_on(handle) as hdev:
-        x = as_input(x, hdev or device)
-        expects(x.ndim == 2, "x must be [n_samples, n_features]")
-        expects(params.n_clusters <= x.shape[0],
-                "n_clusters must be <= n_samples")
-        if fused is None:
-            fused = fused_em_enabled()
-        eng = _engine(x, engine)
-        xe = x.float() if x.dtype in _HALF_DTYPES else x
-        weights = _weights(sample_weights, x, True)
-        bs, bc = _resolve_batches(params)
-        rng = RngState(params.seed)
-        best: Optional[KMeansOutput] = None
-        n_trials = (1 if params.init == InitMethod.Array
-                    else max(1, params.n_init))
-        for _ in range(n_trials):
-            if params.init == InitMethod.Array:
-                expects(centroids is not None,
-                        "init=Array requires centroids")
-                c0 = as_input(centroids, x.device).to(x.device, x.dtype)
-            elif params.init == InitMethod.Random:
-                c0 = init_random(rng, x, params.n_clusters)
-            else:
-                c0 = init_plus_plus(rng, xe, params.n_clusters,
-                                    params.oversampling_factor,
-                                    metric=params.metric,
-                                    engine=eng).to(x.dtype)
-            c, inertia, n_iter = _fit_main(xe, c0, weights, params.metric,
-                                           params.max_iter, params.tol, bs,
-                                           bc, fused, eng, loop)
-            if best is None or float(inertia) < float(best.inertia):
-                best = KMeansOutput(c, inertia, n_iter)
-        return best
+    x = as_input(x, handle.device if handle is not None else device)
+    expects(x.ndim == 2, "x must be [n_samples, n_features]")
+    expects(params.n_clusters <= x.shape[0],
+            "n_clusters must be <= n_samples")
+    if fused is None:
+        fused = fused_em_enabled()
+    eng = _engine(x, engine)
+    xe = x.float() if x.dtype in _HALF_DTYPES else x
+    weights = _weights(sample_weights, x, True)
+    bs, bc = _resolve_batches(params)
+    rng = RngState(params.seed)
+    best: Optional[KMeansOutput] = None
+    n_trials = (1 if params.init == InitMethod.Array
+                else max(1, params.n_init))
+    for _ in range(n_trials):
+        if params.init == InitMethod.Array:
+            expects(centroids is not None,
+                    "init=Array requires centroids")
+            c0 = as_input(centroids, x.device).to(x.device, x.dtype)
+        elif params.init == InitMethod.Random:
+            c0 = init_random(rng, x, params.n_clusters)
+        else:
+            c0 = init_plus_plus(rng, xe, params.n_clusters,
+                                params.oversampling_factor,
+                                metric=params.metric,
+                                engine=eng).to(x.dtype)
+        c, inertia, n_iter = _fit_main(xe, c0, weights, params.metric,
+                                       params.max_iter, params.tol, bs,
+                                       bc, fused, eng, loop)
+        if best is None or float(inertia) < float(best.inertia):
+            best = KMeansOutput(c, inertia, n_iter)
+    return best
 
 
+@auto_sync_handle
 def predict(params: KMeansParams, x, centroids, sample_weights=None,
             normalize_weight: bool = True, handle=None, *, device=None,
             engine: Optional[str] = None
@@ -500,27 +501,27 @@ def predict(params: KMeansParams, x, centroids, sample_weights=None,
     ``predict``); *normalize_weight* scales the sample weights to sum to
     n_samples first, as ``fit`` does.  Inputs, handle and engine as in
     :func:`fit`."""
-    with issued_on(handle) as hdev:
-        x = as_input(x, hdev or device)
-        c = as_input(centroids, x.device).to(x.device)
-        w = _weights(sample_weights, x, normalize_weight)
-        bs, bc = _resolve_batches(params)
-        nn = min_cluster_and_distance(x, c, params.metric, bs, bc,
-                                      engine=engine)
-        return nn.key, cluster_cost(nn, w)
+    x = as_input(x, handle.device if handle is not None else device)
+    c = as_input(centroids, x.device).to(x.device)
+    w = _weights(sample_weights, x, normalize_weight)
+    bs, bc = _resolve_batches(params)
+    nn = min_cluster_and_distance(x, c, params.metric, bs, bc,
+                                  engine=engine)
+    return nn.key, cluster_cost(nn, w)
 
 
+@auto_sync_handle
 def fit_predict(params: KMeansParams, x, sample_weights=None,
                 centroids=None, handle=None, *, device=None,
                 engine: Optional[str] = None) -> KMeansOutput:
     """:func:`fit`, then the labels of *x* under the fitted centroids
     (reference kmeans.cuh ``fit_predict``)."""
-    with issued_on(handle) as hdev:
-        x = as_input(x, hdev or device)
-        out = fit(params, x, sample_weights, centroids, engine=engine)
-        labels, _ = predict(params, x, out.centroids, sample_weights,
-                            engine=engine)
-        return out._replace(labels=labels)
+    x = as_input(x, handle.device if handle is not None else device)
+    out = fit(params, x, sample_weights, centroids, handle=handle,
+              engine=engine)
+    labels, _ = predict(params, x, out.centroids, sample_weights,
+                        handle=handle, engine=engine)
+    return out._replace(labels=labels)
 
 
 def transform(params: KMeansParams, x, centroids, *, device=None,

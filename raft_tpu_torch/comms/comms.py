@@ -9,15 +9,19 @@ card, gloo on the CPU.  A :class:`Comms` binds a process group and this
 process's place in it, so ``get_size`` / ``get_rank`` /
 ``get_global_rank`` are plain ints and every collective runs eagerly on
 this rank's tensors.  The JAX package's ``shard_map`` plumbing
-(``shard_map_compat``, ``globalize``, ``run``, ``is_multiprocess``) has no
-counterpart: there every rank lives inside one traced program, here each
-process already is one rank.
+(``shard_map_compat``, ``globalize``, ``run``) has no counterpart: there
+every rank lives inside one traced program, here each process already is
+one rank (so :meth:`Comms.is_multiprocess` is true whenever the group
+has more than one member).
 
 * **Device plane** — ``allreduce`` / ``bcast`` / ``reduce`` /
   ``allgather(v)`` / ``gather(v)`` / ``reducescatter`` and the device p2p
   pair ``device_sendrecv`` / ``device_multicast_sendrecv``.
   ``comm_split`` is ``dist.new_group`` for every color group, called by
-  every rank in the same order (it is a collective).
+  every rank in the same order (it is a collective).  Between
+  ``group_start()`` and ``group_end()`` the device p2p operations are
+  queued and go out together as one ``batch_isend_irecv`` (reference
+  ``group_start``, core/comms.hpp:270).
 * **Host plane** — tagged ``isend`` / ``irecv`` / ``waitall`` for control
   messages (UCX's role) over a TCP mailbox when a coordinator is set
   (:mod:`.hostcomm`), else over process-local queues.
@@ -178,6 +182,11 @@ class Comms:
         # position, for the operations whose order is the group's
         order = sorted(self.ranks)
         self._pos_to_grank = [order.index(r) for r in self.ranks]
+        # the open p2p group: its depth, queued operations and the
+        # copies that finish its receives (group_start / group_end)
+        self._group_depth = 0
+        self._group_ops: List[Any] = []
+        self._group_finish: List[Callable[[], None]] = []
 
     # -- introspection (reference core/comms.hpp:229-237) --------------------
     @property
@@ -187,6 +196,16 @@ class Comms:
     def get_size(self) -> int:
         """Size of this rank's group."""
         return len(self.ranks)
+
+    def get_group_size(self) -> int:
+        """Size of this rank's group (the JAX package's per-rank value for
+        unequal splits; each rank here knows its own group)."""
+        return len(self.ranks)
+
+    def is_multiprocess(self) -> bool:
+        """True when the group spans more than one process — every member
+        is a process of its own."""
+        return len(self.ranks) > 1
 
     def get_rank(self) -> int:
         """This rank's position in its group (key order after a split)."""
@@ -418,21 +437,65 @@ class Comms:
         return back(out)
 
     # -- device p2p (reference core/comms.hpp:498-648) -----------------------
+    class _Group:
+        """``with comms.group_start(): ...`` closes the group on exit."""
+
+        def __init__(self, comms: "Comms"):
+            self._comms = comms
+
+        def __enter__(self):
+            return self._comms
+
+        def __exit__(self, exc_type, exc, tb):
+            self._comms.group_end()
+            return False
+
+    def group_start(self) -> "Comms._Group":
+        """Open a p2p group (reference ``comms_t::group_start``,
+        core/comms.hpp:270; groups nest).  Until the matching
+        :meth:`group_end`, ``device_sendrecv`` queues its operations and
+        returns its output unfilled; the output holds the received value
+        once the group ends.  Usable as a context manager too."""
+        self._group_depth += 1
+        return Comms._Group(self)
+
+    def group_end(self) -> None:
+        """Close the innermost group; the outermost sends every queued
+        operation as one ``batch_isend_irecv`` (under gloo, of the host
+        copies of CUDA payloads) and fills the group's outputs."""
+        expects(self._group_depth > 0, "group_end without group_start")
+        self._group_depth -= 1
+        if self._group_depth:
+            return
+        ops, finish = self._group_ops, self._group_finish
+        self._group_ops, self._group_finish = [], []
+        self._run_p2p(ops, finish)
+
+    @staticmethod
+    def _run_p2p(ops, finish) -> None:
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for f in finish:
+            f()
+
     def device_sendrecv(self, x, perm: Sequence[Tuple[int, int]]
                         ) -> torch.Tensor:
         """reference comms_t::device_sendrecv (core/comms.hpp:602): exchange
         with explicit (src, dst) pairs of global ranks, each rank at most
         once a source and once a destination.  Ranks no pair sends to
         receive zeros; a pair (r, r) is a local copy (torch.distributed
-        has no send to self)."""
+        has no send to self).  Inside a group (:meth:`group_start`) the
+        operations wait for the group's end."""
         x = self._payload(x)
         me = self._global_rank
         out = torch.zeros_like(x)
         ops = []
-        w = back = recv = None
+        finish = []
+        w = back = None
         for src, dst in perm:
             if src == me and dst == me:
-                out = x.clone()
+                out.copy_(x)
                 continue
             if src == me or dst == me:
                 if w is None:
@@ -442,12 +505,12 @@ class Comms:
             elif dst == me:
                 buf = torch.zeros_like(w)
                 ops.append(dist.P2POp(dist.irecv, buf, src))
-                recv = buf
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-            if recv is not None:
-                out = back(recv)
+                finish.append(lambda buf=buf: out.copy_(back(buf)))
+        if self._group_depth:
+            self._group_ops += ops
+            self._group_finish += finish
+        else:
+            self._run_p2p(ops, finish)
         return out
 
     def device_multicast_sendrecv(self, x, dsts: Sequence[int],
@@ -457,6 +520,9 @@ class Comms:
         the participant set (srcs ∪ dsts): |P| − 1 rounds of |x| bytes per
         link, as in the JAX package; a set of one is a local copy.  Ranks
         outside the set receive zeros in every slot.  Ranks are global."""
+        expects(not self._group_depth,
+                "device_multicast_sendrecv runs rounds that each need the "
+                "last one's result: call it outside group_start/group_end")
         x = self._payload(x)
         participants = sorted(set(dsts) | set(srcs))
         p = len(participants)

@@ -29,7 +29,7 @@ import torch
 
 from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import issued_on
+from raft_tpu_torch.core.handle import auto_sync_handle
 from raft_tpu_torch.core.kvp import KeyValuePair, kvp_min
 from raft_tpu_torch.distance.pairwise import _row_norms, as_input
 from raft_tpu_torch.linalg.reduce import segment_sum
@@ -202,12 +202,12 @@ def fused_l2_nn_min_reduce(x, y, sqrt: bool = False, **kw) -> KeyValuePair:
     return fused_l2_nn(x, y, sqrt=sqrt, **kw)
 
 
+@auto_sync_handle
 def fused_l2_nn_argmin(x, y, sqrt: bool = True, handle=None, *,
                        device=None, engine: Optional[str] = None
                        ) -> torch.Tensor:
     """The nearest row's index alone (pylibraft ``fused_l2_nn_argmin``,
-    distance/fused_l2_nn.pyx:64).  A *handle* sets the device and issues
-    the work on its stream."""
-    with issued_on(handle) as dev:
-        return fused_l2_nn(x, y, sqrt=sqrt, device=dev or device,
-                           engine=engine).key
+    distance/fused_l2_nn.pyx:64, ``auto_sync_handle`` there too).  A
+    *handle* sets the device and issues the work on its stream."""
+    return fused_l2_nn(x, y, sqrt=sqrt, device=handle.device
+                       if handle is not None else device, engine=engine).key

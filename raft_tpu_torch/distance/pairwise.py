@@ -34,7 +34,8 @@ import torch
 
 from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.error import LogicError, expects
-from raft_tpu_torch.core.handle import resolve_device
+from raft_tpu_torch.core.handle import (auto_sync_handle, device_of,
+                                       resolve_device)
 from raft_tpu_torch.distance.distance_types import (DISTANCE_TYPES,
                                                     DistanceType)
 
@@ -447,17 +448,20 @@ def as_input(a, device=None) -> torch.Tensor:
     return as_float_tensor(a, resolve_device(device))
 
 
+@auto_sync_handle
 def pairwise_distance(x, y, metric: Union[str, DistanceType] = "euclidean",
-                      metric_arg: float = 2.0, p: Optional[float] = None, *,
-                      device=None, engine: Optional[str] = None
-                      ) -> torch.Tensor:
+                      metric_arg: float = 2.0, p: Optional[float] = None,
+                      handle=None, *, device=None,
+                      engine: Optional[str] = None) -> torch.Tensor:
     """Runtime-dispatched pairwise distance (reference
     ``pairwise_distance``, distance/distance.cuh:293; pylibraft
     distance/pairwise_distance.pyx:95): (m, n) distances between the rows
     of *x* and *y*.  *metric* is a name of ``DISTANCE_TYPES`` or a
     :class:`DistanceType`; *p* (alias *metric_arg*) is the Minkowski
     exponent.  ``device=None`` runs on the card; ``engine`` picks kernel
-    B5 (``"cuda"``) or the plain versions (``"torch"``)."""
+    B5 (``"cuda"``) or the plain versions (``"torch"``).  *handle*: a
+    :class:`~raft_tpu_torch.core.Handle` whose stream takes the work and
+    whose device takes array inputs (``auto_sync_handle``)."""
     if isinstance(metric, str):
         m = DISTANCE_TYPES.get(metric.lower())
         if m is None:
@@ -465,7 +469,7 @@ def pairwise_distance(x, y, metric: Union[str, DistanceType] = "euclidean",
         metric = m
     if p is not None:
         metric_arg = p
-    dev = resolve_device(device)
+    dev = device_of(handle, device)
     xt, yt = as_float_tensor(x, dev), as_float_tensor(y, dev)
     _check_pair(xt, yt)
     return _distance_aot(xt, yt, DistanceType(metric), float(metric_arg),

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import resolve_device
+from raft_tpu_torch.core.handle import auto_sync_handle, device_of
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 
@@ -90,20 +90,23 @@ class KnnIndex:
     sq_scale: Optional[Tuple[float, float]] = None
 
 
+@auto_sync_handle
 def approx_knn_build_index(params: IVFParam, data,
                            metric: DistanceType = DistanceType.L2Expanded,
-                           metric_arg: float = 2.0, *, device=None,
-                           engine: Optional[str] = None) -> KnnIndex:
+                           metric_arg: float = 2.0, handle=None, *,
+                           device=None, engine: Optional[str] = None
+                           ) -> KnnIndex:
     """Build the index the parameter type names (reference
     ``approx_knn_build_index``, spatial/knn/ann.cuh:41), on *device*
-    (``None``: the card)."""
-    dev = resolve_device(device)
+    (``None``: the card) or the *handle*'s, on whose stream the work
+    runs."""
+    dev = device_of(handle, device)
     x = torch.as_tensor(data, device=dev)
     if isinstance(params, IVFPQParam):
         idx = ivf_pq.build(
             ivf_pq.IndexParams(n_lists=params.nlist, metric=metric,
                                pq_dim=params.M, pq_bits=params.n_bits),
-            x, device=dev, engine=engine)
+            x, handle=handle, device=dev, engine=engine)
         return KnnIndex(metric, metric_arg, params.nprobe, ivf_pq_index=idx)
     if isinstance(params, IVFSQParam):
         # one global (lo, scale) for every 8-bit kind: a per-dimension
@@ -120,36 +123,41 @@ def approx_knn_build_index(params: IVFParam, data,
         scale = torch.clamp_min(hi - lo, 1e-30) / 255.0
         idx = ivf_flat.build(
             ivf_flat.IndexParams(n_lists=params.nlist, metric=metric),
-            _sq_encode(xf, lo, scale), device=dev, engine=engine)
+            _sq_encode(xf, lo, scale), handle=handle, device=dev,
+            engine=engine)
         return KnnIndex(metric, metric_arg, params.nprobe,
                         ivf_flat_index=idx,
                         sq_scale=(float(lo), float(scale)))
     expects(isinstance(params, IVFParam), "ann: unknown param type")
     idx = ivf_flat.build(
         ivf_flat.IndexParams(n_lists=params.nlist, metric=metric), x,
-        device=dev, engine=engine)
+        handle=handle, device=dev, engine=engine)
     return KnnIndex(metric, metric_arg, params.nprobe, ivf_flat_index=idx)
 
 
-def approx_knn_search(index: KnnIndex, queries, k: int, *,
+@auto_sync_handle
+def approx_knn_search(index: KnnIndex, queries, k: int, handle=None, *,
                       engine: Optional[str] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search whichever index *index* holds (reference
     ``approx_knn_search``, spatial/knn/ann.cuh:70): (distances (nq, k),
-    indices (nq, k)) on its device."""
+    indices (nq, k)) on its device.  With a *handle* the work runs on its
+    streams (IVF-PQ query batches on its pool)."""
     if index.ivf_pq_index is not None:
         return ivf_pq.search(ivf_pq.SearchParams(n_probes=index.nprobe),
-                             index.ivf_pq_index, queries, k, engine=engine)
+                             index.ivf_pq_index, queries, k, handle=handle,
+                             engine=engine)
     expects(index.ivf_flat_index is not None, "ann: empty index")
     flat = index.ivf_flat_index
     params = ivf_flat.SearchParams(n_probes=index.nprobe)
     if index.sq_scale is None:
-        return ivf_flat.search(params, flat, queries, k, engine=engine)
+        return ivf_flat.search(params, flat, queries, k, handle=handle,
+                               engine=engine)
     lo, scale = (torch.tensor(v, dtype=torch.float32, device=flat.device)
                  for v in index.sq_scale)
     q = torch.as_tensor(queries, device=flat.device).float()
     d, i = ivf_flat.search(params, flat, _sq_encode(q, lo, scale), k,
-                           engine=engine)
+                           handle=handle, engine=engine)
     # code units back to the data's (the L2 family only, held at build)
     factor = (scale if index.metric == DistanceType.L2SqrtExpanded
               else scale * scale)

@@ -28,7 +28,8 @@ from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import resolve_device
+from raft_tpu_torch.core.handle import (auto_sync_handle, device_of,
+                                       resolve_device)
 from raft_tpu_torch.distance.distance_types import (DISTANCE_TYPES,
                                                     DistanceType)
 from raft_tpu_torch.distance.pairwise import (accum_dtype, as_float_tensor,
@@ -122,11 +123,12 @@ def _knn_batched(index: torch.Tensor, queries: torch.Tensor, k: int,
     return torch.cat(out_d), torch.cat(out_i)
 
 
+@auto_sync_handle
 def knn(index, queries, k: int,
         metric: Union[str, DistanceType] = DistanceType.L2SqrtExpanded,
         metric_arg: float = 2.0, *, batch_size_index: int = 16384,
         batch_size_query: int = 4096, global_id_offset: int = 0,
-        device=None, engine: Optional[str] = None
+        handle=None, device=None, engine: Optional[str] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k nearest rows of *index* for each row of *queries*
     (reference ``brute_force::knn``, neighbors/brute_force.cuh:144):
@@ -134,8 +136,8 @@ def knn(index, queries, k: int,
     pushes them past int32).  InnerProduct selects the largest values.
     Queries take the index's type.  ``device=None`` runs on the card;
     ``engine`` picks the kernels (``"cuda"``) or their plain versions
-    (``"torch"``)."""
-    dev = resolve_device(device)
+    (``"torch"``); *handle* as ``pairwise_distance``'s."""
+    dev = device_of(handle, device)
     index = as_float_tensor(index, dev)
     queries = as_float_tensor(queries, dev).to(index.dtype)
     metric = _resolve_metric(metric)

@@ -39,7 +39,8 @@ from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
 from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import resolve_device
+from raft_tpu_torch.core.handle import (auto_sync_handle, device_of,
+                                       resolve_device)
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import _dot_fixed_rows, _row_norms
 from raft_tpu_torch.kernels.engine import resolve_engine
@@ -240,13 +241,15 @@ def _train_centers(params: IndexParams, x: torch.Tensor, n_lists: int,
                               params.kmeans_n_iters, engine=engine)
 
 
-def build(params: IndexParams, dataset, ids=None, *, device=None,
-          engine: Optional[str] = None) -> Index:
+@auto_sync_handle
+def build(params: IndexParams, dataset, ids=None, *, handle=None,
+          device=None, engine: Optional[str] = None) -> Index:
     """Train and populate an IVF-Flat index (reference ``ivf_flat::build``).
     *dataset* is an (n, dim) float32 array or tensor; ``device=None`` runs
     on the card.  ``engine`` picks the kernels (``"cuda"``) or their plain
-    versions (``"torch"``) for the E-steps."""
-    dev = resolve_device(device)
+    versions (``"torch"``) for the E-steps; *handle* as
+    ``pairwise_distance``'s."""
+    dev = device_of(handle, device)
     x = _ingest(dataset, dev)
     expects(x.ndim == 2, "dataset must be (n, dim)")
     expects(params.metric in _SUPPORTED,
@@ -456,14 +459,18 @@ _search_batch_aot = aot(_search_batch_impl, static_argnums=(2, 3, 4, 5))
 _probe_search_aot = aot(_probe_search_impl, static_argnums=(3, 4, 5))
 
 
+@auto_sync_handle
 def search(params: SearchParams, index: Index, queries, k: int, *,
-           batch_size_query: int = 1024, engine: Optional[str] = None
+           batch_size_query: int = 1024, handle=None,
+           engine: Optional[str] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search the index (reference ``ivf_flat::search``): returns
     (distances (nq, k) f32, indices (nq, k) int32) on the index's device.
     Queries of any storage type, or float16, are widened to float32.
     ``engine`` picks kernel B2 (``"cuda"``) or its plain version
-    (``"torch"``) for the selections; the default follows the device."""
+    (``"torch"``) for the selections; the default follows the device.
+    *handle*: its main stream takes the work, as the JAX package's
+    (one stream, no pool)."""
     q = ingest_queries(queries, index.device)
     expects(q.ndim == 2 and q.shape[1] == index.dim, "query dim mismatch")
     expects(k >= 1, "k must be >= 1")
@@ -490,14 +497,15 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
     return torch.cat(out_d), torch.cat(out_i)
 
 
+@auto_sync_handle
 def build_and_search(dataset, queries, k: int,
                      index_params: Optional[IndexParams] = None,
                      search_params: Optional[SearchParams] = None, *,
-                     device=None, engine: Optional[str] = None
+                     handle=None, device=None, engine: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Build an index over *dataset* and search it with *queries* in one
     call (the JAX package's convenience one-shot)."""
-    index = build(index_params or IndexParams(), dataset, device=device,
-                  engine=engine)
+    index = build(index_params or IndexParams(), dataset, handle=handle,
+                  device=device, engine=engine)
     return search(search_params or SearchParams(), index, queries, k,
-                  engine=engine)
+                  handle=handle, engine=engine)

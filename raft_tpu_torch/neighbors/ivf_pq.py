@@ -53,6 +53,7 @@ built index.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -67,7 +68,8 @@ from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
 from raft_tpu_torch.core.aot import aot
 from raft_tpu_torch.core.buckets import bucket_dim
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.handle import resolve_device
+from raft_tpu_torch.core.handle import (auto_sync_handle, device_of,
+                                       resolve_device)
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import _dot_fixed_rows
 from raft_tpu_torch.kernels import ivf_pq_lut
@@ -210,6 +212,11 @@ class Index:
         if self.per_cluster:
             return self.rot_dim // self.codebooks.shape[2]
         return self.codebooks.shape[0]
+
+    @property
+    def pq_len(self) -> int:
+        """Rotated dimensions per PQ subspace (rot_dim // pq_dim)."""
+        return self.codebooks.shape[2]
 
     @property
     def capacity(self) -> int:
@@ -588,15 +595,16 @@ def _encode_tile(index: Index, xt: torch.Tensor, lt: torch.Tensor,
                             index.per_cluster))
 
 
-def _encode_rows(index: Index, x: torch.Tensor, labels: torch.Tensor):
+def _encode_rows(index: Index, x: torch.Tensor, labels: torch.Tensor,
+                 tile_rows: Optional[int] = None):
     """(packed codes, csum) of *x*'s rows under *index*'s model, in row
-    tiles (``_build.run_tiles``)."""
+    tiles of *tile_rows* (``_build.run_tiles``)."""
     if x.shape[0] == 0:
         return (torch.zeros((0, _code_bytes(index.pq_dim, index.pq_bits)),
                             dtype=torch.uint8, device=x.device),
                 torch.zeros(0, device=x.device))
     return run_tiles(lambda xt, lt: _encode_tile_aot(index, xt, lt), x,
-                     labels)
+                     labels, tile_rows)
 
 
 #: the populate tile and the list-side sums of packed codes, keyed per
@@ -631,27 +639,33 @@ def _empty_index(centers, rotation, codebooks, metric, pq_bits: int,
         dataset_dtype=dataset_dtype)
 
 
-def build(params: IndexParams, dataset, ids=None, *, device=None,
+@auto_sync_handle
+def build(params: IndexParams, dataset, ids=None, *,
+          tile_rows: Optional[int] = None, handle=None, device=None,
           engine: Optional[str] = None) -> Index:
     """Train and populate an IVF-PQ index (reference ``ivf_pq::build``).
     *dataset* is an (n, dim) float32, int8 or uint8 array or tensor;
     ``device=None`` runs on the card.  ``engine`` picks the kernels
-    (``"cuda"``) or their plain versions (``"torch"``) for the E-steps."""
-    dev = resolve_device(device)
+    (``"cuda"``) or their plain versions (``"torch"``) for the E-steps.
+    *tile_rows* bounds the populate's row tile (default
+    ``DEFAULT_TILE_ROWS``; the index is the same bits at any tile);
+    *handle* as ``pairwise_distance``'s."""
+    dev = device_of(handle, device)
     x, dataset_dtype = _ingest_dataset(dataset, dev)
     _validate_build(params, x)
     centers, labels, rotation, codebooks = _train_model(params, x, engine)
     index = _empty_index(centers, rotation, codebooks, params.metric,
                          params.pq_bits, dataset_dtype, params.codebook_kind)
     if params.add_data_on_build:
-        return _populate(index, x, ids, labels)
+        return _populate(index, x, ids, labels, tile_rows=tile_rows)
     expects(ids is None, "ids were passed but add_data_on_build=False "
             "stores no rows — pass them to extend() instead")
     return index
 
 
 def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
-              in_place: bool = False, ladder: bool = False) -> Index:
+              in_place: bool = False, ladder: bool = False,
+              tile_rows: Optional[int] = None) -> Index:
     """Encode *x*'s rows under *index*'s model and pack them into its lists:
     a fresh pack when the index is empty, else an append."""
     n = x.shape[0]
@@ -663,7 +677,7 @@ def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
         ids = torch.as_tensor(ids, device=dev).to(torch.int32)
         expects(ids.shape == (n,), "ids must be (n_new,)")
         validate_new_ids(ids, index.list_indices, index.phys_sizes)
-    packed, csum = _encode_rows(index, x, labels)
+    packed, csum = _encode_rows(index, x, labels, tile_rows)
     if base:
         ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
          chunk_table, owner) = extend_device(
@@ -686,8 +700,8 @@ def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
 
 
 def extend(index: Index, new_vectors, new_ids=None, *,
-           engine: Optional[str] = None, in_place: bool = False,
-           ladder: bool = False) -> Index:
+           tile_rows: Optional[int] = None, engine: Optional[str] = None,
+           in_place: bool = False, ladder: bool = False) -> Index:
     """Add vectors to the index (reference ``ivf_pq::extend``): assign
     (kernel B1 on the card for L2), encode with the trained model — no
     retraining — and append the codes and their ``list_csum`` into each
@@ -696,7 +710,7 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     overflowing, its blocks are *index*'s own, written in place (O(n_new)).
     *new_ids* default to ``size, size + 1, …``; given ones must be new
     (``ValueError`` otherwise, as ``ivf_flat.extend``); *ladder* as
-    ``ivf_flat.extend``'s."""
+    ``ivf_flat.extend``'s; *tile_rows* as :func:`build`'s."""
     x, new_dtype = _ingest_dataset(new_vectors, index.device)
     expects(new_dtype == index.dataset_dtype,
             f"extend dtype {new_dtype} != index dataset dtype "
@@ -704,11 +718,12 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     expects(x.ndim == 2 and x.shape[1] == index.dim, "dim mismatch")
     labels = _assign_lists(x, index.centers, index.metric, engine)
     return _populate(index, x, new_ids, labels, in_place=in_place,
-                     ladder=ladder)
+                     ladder=ladder, tile_rows=tile_rows)
 
 
 def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
-                  device=None, engine: Optional[str] = None):
+                  tile_rows: Optional[int] = None, device=None,
+                  engine: Optional[str] = None):
     """Train once and populate straight into list shards (the JAX
     package's ``build_sharded``): the communicator's first rank trains the
     model (coarse centres, rotation, codebooks) and assigns every row its
@@ -717,7 +732,7 @@ def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
     result is an ``ann_mnmg.ShardedIndex``, bit for bit ``build(params,
     dataset).shard(comms)`` on the same device and engine, without the
     full packed index on any rank.  Every rank passes the same
-    *dataset*."""
+    *dataset*; *tile_rows* as :func:`build`'s."""
     from raft_tpu_torch.neighbors import ann_mnmg
 
     comms = ann_mnmg._full_axis_comms(comms)
@@ -747,7 +762,7 @@ def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
            else torch.as_tensor(ids, device=dev).to(torch.int32))
     expects(ids.shape == (n,), "ids must be (n,)")
     keep = labels.long() % comms.get_size() == comms.get_rank()
-    tile = max(8, min(DEFAULT_TILE_ROWS, n))
+    tile = max(8, min(int(tile_rows or DEFAULT_TILE_ROWS), n))
     parts = [_encode_tile_aot(model, x[t0:t0 + tile], labels[t0:t0 + tile],
                               keep[t0:t0 + tile])
              for t0 in range(0, n, tile)]
@@ -1164,15 +1179,24 @@ def check_search_params(params: SearchParams) -> None:
             f"{list(_INTERNAL_DTYPES)}")
 
 
+@auto_sync_handle
 def search(params: SearchParams, index: Index, queries, k: int, *,
-           batch_size_query: int = 1024, engine: Optional[str] = None
+           batch_size_query: int = 1024, handle=None,
+           engine: Optional[str] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference ``ivf_pq::search``): returns (distances (nq, k)
     f32, PQ-approximate, indices (nq, k) int32) on the index's device.
     Queries must have the index's dataset dtype or float32.  ``engine``
     picks kernels B2 and B4 (``"cuda"``) or their plain versions
     (``"torch"``); the default follows the device.  The tail batch is
-    padded to the power-of-two bucket ladder."""
+    padded to the power-of-two bucket ladder.
+
+    *handle*: the work runs on its main stream (``auto_sync_handle``);
+    with a stream pool, query batch ``bi`` runs on
+    ``handle.get_next_usable_stream(bi)`` (reference handle.hpp:117-130),
+    which first waits for the work that made the queries, and the final
+    concatenation waits for every pool stream.  Each batch gives the bits
+    it gives without a handle."""
     check_search_params(params)
     q, q_dtype = _ingest_dataset(queries, index.device)
     expects(q_dtype in (index.dataset_dtype, "float32"),
@@ -1188,19 +1212,41 @@ def search(params: SearchParams, index: Index, queries, k: int, *,
     if cap is not None:
         batch_size_query = min(batch_size_query, cap)
     engines = _resolve_engines(index, engine)
-    out_d, out_i = [], []
-    for q0 in range(0, q.shape[0], batch_size_query):
-        qb = q[q0:q0 + batch_size_query]
-        n_valid = qb.shape[0]
-        bucket = min(bucket_dim(n_valid), batch_size_query)
-        if bucket != n_valid:
-            qb = torch.cat([qb, qb.new_zeros((bucket - n_valid, qb.shape[1]))])
-        d, i = _full_search_aot(qb, index, int(k), int(n_probes),
-                                 params.lut_dtype, engines,
-                                 int_dtype=params.internal_distance_dtype,
-                                 hoisted=hoisted)
-        out_d.append(d[:n_valid])
-        out_i.append(i[:n_valid])
+    pool = handle is not None and handle.is_stream_pool_initialized()
+    out_d, out_i, lanes = [], [], {}
+    for bi, q0 in enumerate(range(0, q.shape[0], batch_size_query)):
+        lane = handle.get_next_usable_stream(bi) if pool else None
+        with lane.context() if pool else contextlib.nullcontext():
+            qb = q[q0:q0 + batch_size_query]
+            n_valid = qb.shape[0]
+            bucket = min(bucket_dim(n_valid), batch_size_query)
+            if bucket != n_valid:
+                qb = torch.cat([qb, qb.new_zeros((bucket - n_valid,
+                                                  qb.shape[1]))])
+            d, i = _full_search_aot(qb, index, int(k), int(n_probes),
+                                     params.lut_dtype, engines,
+                                     int_dtype=params.internal_distance_dtype,
+                                     hoisted=hoisted)
+            d, i = d[:n_valid], i[:n_valid]
+        if pool:
+            lane.record(d, i, qb)
+            lanes[id(lane)] = lane
+        out_d.append(d)
+        out_i.append(i)
+    if lanes:
+        _join_lanes(lanes.values(), out_d + out_i)
     if len(out_d) == 1:
         return out_d[0], out_i[0]
     return torch.cat(out_d), torch.cat(out_i)
+
+
+def _join_lanes(lanes, made) -> None:
+    """The current stream waits for each pool lane, and the tensors *made*
+    on the lanes are marked as used by it, so the caching allocator does
+    not hand their blocks to a lane again before its reads are done."""
+    for lane in lanes:
+        lane.join()
+    if made and made[0].device.type == "cuda":
+        cur = torch.cuda.current_stream(made[0].device)
+        for t in made:
+            t.record_stream(cur)

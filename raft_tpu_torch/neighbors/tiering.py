@@ -198,6 +198,13 @@ class TieredIndex:
     _searchers: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
+    def probe_extra_cold(self) -> int:
+        """The bound on a cold tile's dummy probe steps (the JAX package's
+        field: one tile's rows).  The searcher scans each tile with its
+        own, smaller count (``TieredSearcher._cold_extra``)."""
+        return self.tile_phys
+
+    @property
     def n_hot_lists(self) -> int:
         return int(np.sum(self.hot_lists))
 
@@ -589,32 +596,24 @@ class TieredSearcher:
                               self.engines, self.int_dtype, self.hoisted)
 
     def _stage(self, tile, lane: int, key: str):
-        """Hand host tensors to their copy on pool lane *lane*: (the
-        device tensors, the copy's end event — None on the CPU)."""
+        """Hand host tensors to their copy on pool lane *lane*
+        (``Stream.stage``): (the device tensors, the lane)."""
         t0 = telemetry.now()
-        ev = None
-        if self.device.type == "cuda":
-            stream = self._handle.get_next_usable_stream(lane)._stream
-            with torch.cuda.stream(stream):
-                # tier-staging(hot-path-host-transfer): the one staged copy
-                staged = tuple(t.to(self.device, non_blocking=True)
-                               for t in tile)
-                ev = torch.cuda.Event()
-                ev.record(stream)
-        else:
-            staged = tuple(tile)
+        stream = self._handle.get_next_usable_stream(lane)
+        staged = stream.stage(tuple(tile))
         prefetch_seconds.observe(telemetry.now() - t0)
         tier_counters.inc(key, sum(t.numel() * t.element_size()
                                    for t in tile))
-        return staged, ev
+        return staged, stream
 
     def _use(self, staged):
-        """The staged tensors, once the current stream waits on their copy
-        and holds them (``record_stream``) until its work is done."""
-        tensors, ev = staged
-        if ev is not None:
+        """The staged tensors, once the current stream waits on their
+        lane's copy and holds them (``record_stream``) until its work is
+        done."""
+        tensors, stream = staged
+        if self.device.type == "cuda":
+            stream.join()
             cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(ev)
             for t in tensors:
                 t.record_stream(cur)
         return tensors

@@ -247,6 +247,11 @@ class AdmissionController:
             f"deadline passed {now - deadline:.4f}s before dispatch "
             "(admitted under estimate; dropped by shed-over-deadline)")
 
+    def reject_closed(self) -> RejectedError:
+        """The rejection of a request that reaches a closed engine (not
+        counted as shed: the engine refused it, admission did not)."""
+        return RejectedError("closed", "engine is closed")
+
     def _reject(self, reason: str, now: float, msg: str) -> RejectedError:
         self._shed.inc(1, (self._engine, reason))
         self._last_event = now

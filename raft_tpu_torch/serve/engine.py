@@ -282,10 +282,12 @@ class _BruteForceBackend(_Backend):
             self.metric_arg, self.tile, self.select_min, self.engine)
 
     def solo(self, q, batch: int = 4096):
-        return brute_force.knn(self.index, q, self.k, self.metric,
-                               self.metric_arg, batch_size_index=self.tile,
-                               batch_size_query=batch, device=self.device,
-                               engine=self.engine)
+        # the bodies of the public entry points (``__wrapped__``): a solo
+        # request runs on the engine's lane, with no host wait of its own
+        return brute_force.knn.__wrapped__(
+            self.index, q, self.k, self.metric, self.metric_arg,
+            batch_size_index=self.tile, batch_size_query=batch,
+            device=self.device, engine=self.engine)
 
 
 class _IvfFlatBackend(_Backend):
@@ -317,8 +319,9 @@ class _IvfFlatBackend(_Backend):
                        self.sqrt, self.engine)
 
     def solo(self, q, batch: int = 1024):
-        return ivf_flat.search(self.params, self.index, q, self.k,
-                               batch_size_query=batch, engine=self.engine)
+        return ivf_flat.search.__wrapped__(
+            self.params, self.index, q, self.k, batch_size_query=batch,
+            engine=self.engine)
 
 
 class _IvfPqBackend(_Backend):
@@ -357,8 +360,9 @@ class _IvfPqBackend(_Backend):
                        hoisted=self.hoisted)
 
     def solo(self, q, batch: int = 1024):
-        return ivf_pq.search(self.params, self.index, q, self.k,
-                             batch_size_query=batch, engine=self.engine)
+        return ivf_pq.search.__wrapped__(
+            self.params, self.index, q, self.k, batch_size_query=batch,
+            engine=self.engine)
 
 
 class _MutableBackend(_Backend):
@@ -1465,11 +1469,11 @@ class ServeEngine:
         except Exception as e:
             return e, None
         host_s = telemetry.now() - t0
-        telemetry.record_dispatch(
-            fn, f"{dtype_name(block.dtype)}[{bucket},{be.dim}]", cold, host_s)
+        sig = self._sig(block, bucket)
+        telemetry.record_dispatch(fn, sig, cold, host_s)
         if timed and self._device.type != "cuda" and not remote:
             # the CPU runs the dispatch to its end before it returns
-            telemetry.record_device_sample(fn, host_s)
+            telemetry.record_device_sample(fn, sig, host_s)
         return out, start
 
     def _dispatch_solo(self, q, lane: int, replica: Optional[int] = None):
@@ -1491,7 +1495,11 @@ class ServeEngine:
         except Exception as e:
             return e
 
-    def _record_device_time(self, out, start) -> None:
+    def _sig(self, block: torch.Tensor, bucket: int) -> str:
+        """The dispatch signature label: request type and block shape."""
+        return f"{dtype_name(block.dtype)}[{bucket},{self._backend.dim}]"
+
+    def _record_device_time(self, out, start, block, bucket) -> None:
         """A sampled dispatch's device time, read once its end-of-work
         event has completed — collection waited on it already, so this
         adds no synchronisation (skipped if a retry on the other lane
@@ -1501,6 +1509,7 @@ class ServeEngine:
             return
         telemetry.record_device_sample(self._backend_fn() or
                                        self._backend.name,
+                                       self._sig(block, bucket),
                                        start.elapsed_time(done) / 1e3)
 
     def _search_locked(self, requests):
@@ -1675,7 +1684,7 @@ class ServeEngine:
                                 latencies[j] = done
                         continue
                     d, i = collected
-                self._record_device_time(out, start)
+                self._record_device_time(out, start, block, bucket)
                 now = telemetry.now()
                 if kind == "coalesced":
                     # per-(type, bucket) service time → the chooser's cost

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.handle import auto_sync_handle
 from raft_tpu_torch.distance import DistanceType
 from raft_tpu_torch.distance import pairwise as _dense
 from raft_tpu_torch.sparse.convert import csr_to_dense
@@ -71,17 +72,20 @@ _COMPRESSED_ONLY = (DistanceType.JaccardExpanded, DistanceType.DiceExpanded)
 HIGHDIM_THRESHOLD = 4096
 
 
+@auto_sync_handle
 def pairwise_distance(x: CSR, y: CSR,
                       metric: DistanceType = DistanceType.L2Expanded,
                       p: float = 2.0, batch_size_x: int = 4096,
                       batch_size_y: Optional[int] = None,
-                      engine: str = "auto") -> torch.Tensor:
+                      engine: str = "auto", handle=None) -> torch.Tensor:
     """All-pairs distances between the rows of two CSR matrices on one
     device (reference ``sparse::distance::pairwiseDistance``,
     sparse/distance/distance.cuh:68): a dense (m, n) tensor.
 
     engine: ``"auto"`` (feature-compressed when dim > HIGHDIM_THRESHOLD or
-    the metric is sparse-only), ``"densify"`` or ``"compressed"``."""
+    the metric is sparse-only), ``"densify"`` or ``"compressed"``.
+    handle: its main stream takes the work (``auto_sync_handle``); the
+    matrices stay on their device."""
     metric = DistanceType(metric)
     expects(metric in SUPPORTED_SPARSE_DISTANCES,
             f"metric {metric} not supported for sparse inputs")

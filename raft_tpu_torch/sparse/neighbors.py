@@ -19,12 +19,15 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.distance import DistanceType
 from raft_tpu_torch.distance.pairwise import as_input, distance
 from raft_tpu_torch.matrix import select_k
-from raft_tpu_torch.sparse.distance import pairwise_distance as \
-    sparse_pairwise
+from raft_tpu_torch.sparse import distance as _sparse_distance
 from raft_tpu_torch.sparse.op import csr_row_slice, segment_reduce
 from raft_tpu_torch.sparse.solver import boruvka_mst
 from raft_tpu_torch.sparse.solver.mst import sorted_mst_edges
 from raft_tpu_torch.sparse.types import COO, CSR
+
+#: the sparse ``pairwise_distance`` without its handle wrapper: the kNN
+#: tile loop stays on the caller's stream, with no host wait per tile
+sparse_pairwise = _sparse_distance.pairwise_distance.__wrapped__
 
 
 def brute_force_knn(index: CSR, query: CSR, k: int,

@@ -145,6 +145,8 @@ def device_sample_due(fn: str) -> bool:
     return _device.sample_due(fn)
 
 
-def record_device_sample(fn: str, seconds: float) -> None:
-    """Record one device-time sample into ``raft_tpu_device_seconds{fn}``."""
-    _device.record_sample(fn, seconds)
+def record_device_sample(fn: str, sig: str, seconds: float) -> None:
+    """Record one device-time sample of *fn* at dispatch signature *sig*
+    into ``raft_tpu_device_seconds{fn}`` and
+    ``raft_tpu_device_signature_seconds{fn,sig}``."""
+    _device.record_sample(fn, sig, seconds)

@@ -8,8 +8,10 @@ dispatch is always sampled so every program reports promptly) is timed
 on the card — a CUDA event recorded on the lane before the dispatch, read
 against the lane's end-of-work event once the engine has waited on that
 anyway, so sampling adds no synchronisation — and recorded into
-``raft_tpu_device_seconds{fn}``.  On the CPU, where a dispatch runs to
-its end before it returns, the dispatch's own wall time is the sample.
+``raft_tpu_device_seconds{fn}`` and, per dispatch signature (request
+type and block shape), ``raft_tpu_device_signature_seconds{fn,sig}``.  On
+the CPU, where a dispatch runs to its end before it returns, the
+dispatch's own wall time is the sample.
 
 The compile-time half is dropped, not ported: ``program_costs`` and the
 ``raft_tpu_program_*`` gauges read XLA's cost analysis of a compiled
@@ -41,6 +43,7 @@ _LOCK = threading.Lock()
 _dispatch_counts: Dict[str, int] = {}
 
 _device_seconds = None
+_signature_seconds = None
 
 
 def sample_every() -> int:
@@ -66,14 +69,19 @@ def set_sample_every(n: int) -> int:
     return prev
 
 
-def _metric():
-    global _device_seconds
+def _metrics():
+    global _device_seconds, _signature_seconds
     if _device_seconds is None:
         _device_seconds = _registry.REGISTRY.histogram(
             "raft_tpu_device_seconds",
             "sampled device execution time per serving program",
             labelnames=("fn",))
-    return _device_seconds
+        _signature_seconds = _registry.REGISTRY.histogram(
+            "raft_tpu_device_signature_seconds",
+            "sampled device execution time per serving program and "
+            "dispatch signature",
+            labelnames=("fn", "sig"))
+    return _device_seconds, _signature_seconds
 
 
 def program_costs(compiled) -> Dict[str, Optional[float]]:
@@ -99,6 +107,10 @@ def sample_due(fn: str) -> bool:
     return c % n == 0
 
 
-def record_sample(fn: str, seconds: float) -> None:
-    """Record one device-time sample into ``raft_tpu_device_seconds``."""
-    _metric().observe(seconds, (fn,))
+def record_sample(fn: str, sig: str, seconds: float) -> None:
+    """Record one device-time sample of *fn* at signature *sig* (the JAX
+    package's ``(fn, sig)`` pair; its sig also keys XLA's static costs,
+    which the port has none of)."""
+    by_fn, by_sig = _metrics()
+    by_fn.observe(seconds, (fn,))
+    by_sig.observe(seconds, (fn, sig))

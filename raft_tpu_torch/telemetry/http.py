@@ -82,6 +82,11 @@ class FlightRecorder:
             entry["seq"] = self.seen
             self._ring.append(entry)
 
+    def entries(self) -> List[dict]:
+        """The ring's entries, oldest first."""
+        with self._lock:
+            return list(self._ring)
+
     def view(self) -> dict:
         """The /debug/slow JSON body."""
         with self._lock:
@@ -92,14 +97,16 @@ class FlightRecorder:
 class TelemetryServer:
     """The scrape server.  ``port=0`` binds an ephemeral port (read it
     back from ``.port``); ``start()`` serves on a daemon thread and
-    returns self; ``close()`` shuts down and joins.  *health* is a
-    zero-arg callable returning a JSON-safe dict; *recorder* supplies
-    /debug/slow."""
+    returns self; ``close()`` shuts down and joins.  *health* and *varz*
+    are zero-arg callables returning JSON-safe dicts (/varz defaults to
+    the registry's snapshot); *recorder* supplies /debug/slow."""
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1", *,
                  health: Optional[Callable[[], dict]] = None,
+                 varz: Optional[Callable[[], dict]] = None,
                  recorder: Optional[FlightRecorder] = None):
         self._health = health
+        self._varz = varz
         self.recorder = recorder
         outer = self
 
@@ -136,8 +143,9 @@ class TelemetryServer:
             code = 200 if health.get("ready", True) else 503
             return json.dumps(health).encode(), "application/json", code
         if path == "/varz":
-            return (json.dumps(_export.snapshot()).encode(),
-                    "application/json", 200)
+            varz = (self._varz() if self._varz is not None
+                    else _export.snapshot())
+            return json.dumps(varz).encode(), "application/json", 200
         if path == "/debug/slow":
             view = (self.recorder.view() if self.recorder is not None
                     else {"threshold_s": None, "cap": 0, "recorded": 0,
@@ -170,9 +178,10 @@ class TelemetryServer:
 
 def serve(port: int = 0, host: str = "127.0.0.1", *,
           health: Optional[Callable[[], dict]] = None,
+          varz: Optional[Callable[[], dict]] = None,
           recorder: Optional[FlightRecorder] = None) -> TelemetryServer:
     """Start a standalone scrape server over the process-wide registry
     (``ServeEngine.serve_http`` is the engine-wired form); the caller owns
     ``close()``."""
-    return TelemetryServer(port, host, health=health,
+    return TelemetryServer(port, host, health=health, varz=varz,
                            recorder=recorder).start()

@@ -197,6 +197,11 @@ class Counter(Metric):
         with _LOCK:
             return self._values.get(self._key(labels), 0)
 
+    def remove(self, labels: Tuple[str, ...]) -> None:
+        """Drop the series of *labels* (a retired engine's, say)."""
+        with _LOCK:
+            self._values.pop(self._key(labels), None)
+
     def items(self) -> List[Tuple[Tuple[str, ...], float]]:
         with _LOCK:
             return list(self._values.items())
@@ -371,6 +376,13 @@ class Registry:
     def get(self, name: str) -> Optional[Metric]:
         with _LOCK:
             return self._metrics.get(name)
+
+    def reset(self) -> None:
+        """Drop every metric — for a registry a test made itself.  A
+        ``LegacyCounterView`` keeps the metric it was made over, so after
+        a reset of a live registry it counts into one no exporter sees."""
+        with _LOCK:
+            self._metrics.clear()
 
 
 #: the process-wide default registry (the exporters and the module-level

@@ -148,11 +148,20 @@ def test_context_manager_cancels_the_other_threads_on_interrupt():
 def test_handle_helpers(monkeypatch):
     assert th.DeviceResources is th.Handle
     made = []
+    real = th.Handle
 
     class FakeHandle:
         def __init__(self):
             self.syncs = 0
             made.append(self)
+
+        def sync(self):
+            self.syncs += 1
+
+    class SpyHandle(real):
+        def __init__(self):
+            super().__init__(device="cpu")
+            self.syncs = 0
 
         def sync(self):
             self.syncs += 1
@@ -166,13 +175,16 @@ def test_handle_helpers(monkeypatch):
     def f(x, handle=None):
         return x, handle
 
+    # no handle: the body runs on the current stream and the call waits
+    # for that work itself — no default handle is injected or synced
     x, h = f(3)
-    assert h is made[0] and h.syncs == 1      # default: synced
-    mine = FakeHandle()
+    assert x == 3 and h is None and made[0].syncs == 0
+    mine = SpyHandle()
     x, h = f(4, handle=mine)
     assert h is mine and mine.syncs == 0      # the caller syncs its own
     x, h = f(5, mine)
     assert h is mine and mine.syncs == 0
+    assert f.__wrapped__(6) == (6, None)      # the body, unwrapped
 
     def g(x):
         return x * 2

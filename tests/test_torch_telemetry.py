@@ -190,9 +190,12 @@ def test_device_sampling_gate_equals_the_reference(enabled):
     finally:
         tdevice.set_sample_every(prev[0])
         jdevice.set_sample_every(prev[1])
-    ttel.record_device_sample("t_torch_fn", 0.002)
+    ttel.record_device_sample("t_torch_fn", "float32[8,4]", 0.002)
     hist = ttel.REGISTRY.get("raft_tpu_device_seconds")
     assert hist.quantile(0.5, ("t_torch_fn",)) == pytest.approx(0.002)
+    by_sig = ttel.REGISTRY.get("raft_tpu_device_signature_seconds")
+    assert by_sig.quantile(0.5, ("t_torch_fn", "float32[8,4]")) == \
+        pytest.approx(0.002)
 
 
 @pytest.mark.parametrize("entry", [

@@ -90,7 +90,7 @@ HOT_PATHS: Tuple[HotPath, ...] = (
                 "one id read"),
     HotPath("raft_tpu_torch/neighbors/ivf_pq.py",
             functions=("_search_batch_impl", "_full_search_impl",
-                       "coarse_probes", "_scan_hoisted", "_scan_per_step",
+                       "coarse_probes", "_scan_steps", "_scan_per_step",
                        "_scan_legacy", "_encode_tile"),
             why="the IVF-PQ search and encode programs"),
     HotPath("raft_tpu_torch/cluster/kmeans.py",

@@ -3,10 +3,11 @@
 ``remap_chunk_table`` :80, ``extend_layout`` :97, ``expand_probes`` :340,
 ``tombstone_hit`` :408, ``scan_probe_lists`` :425 with its per-step
 ``xs`` and tombstone mask, ``validate_new_ids`` :528, ``empty_result``,
-``subsample_trainset``).  The pack and the append are ``_build``'s
-``pack_device`` / ``extend_device``: the port has that one path, where
-the JAX package also keeps a host-bookkept twin of it
-(``pack_lists_chunked`` / ``extend_lists_chunked``, its ``tiled=False``).
+``subsample_trainset``), and ``new_ids_of`` (the ids of added rows).
+The pack and the append are ``_build``'s ``pack_device`` /
+``extend_device``: the port has that one path, where the JAX package
+also keeps a host-bookkept twin of it (``pack_lists_chunked`` /
+``extend_lists_chunked``, its ``tiled=False``).
 
 The chunk-table arithmetic is (n_lists,)-shaped numpy host work, the same
 code as the JAX package's, so equal labels give equal layouts; per-row
@@ -21,6 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.matrix.select_k import merge_sorted_runs, select_k
 
 #: width from which scan_probe_lists stacks the masked tiles and runs one
@@ -322,6 +324,18 @@ def scan_probe_lists(probe_ids: torch.Tensor, score_tile: Callable,
         best_d, best_i = merge_sorted_runs(best_d, best_i, tile_d, tile_i,
                                            k=k, select_min=select_min)
     return best_d, best_i
+
+
+def new_ids_of(index, new_ids, n: int) -> torch.Tensor:
+    """The ids of *n* rows added to an IVF *index*: ``size, size + 1, …``
+    by default; given ones must be new (:func:`validate_new_ids`)."""
+    if new_ids is None:
+        return torch.arange(index.size, index.size + n, dtype=torch.int32,
+                            device=index.device)
+    ids = torch.as_tensor(new_ids, device=index.device).to(torch.int32)
+    expects(ids.shape == (n,), "ids must be (n_new,)")
+    validate_new_ids(ids, index.list_indices, index.phys_sizes)
+    return ids
 
 
 def validate_new_ids(new_ids: torch.Tensor, list_indices: torch.Tensor,

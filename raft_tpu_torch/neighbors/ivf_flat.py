@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import telemetry
 from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.cluster.kmeans import min_cluster_and_distance
 from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
@@ -49,10 +50,10 @@ from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.neighbors._build import extend_device, pack_device
 from raft_tpu_torch.neighbors._common import (array_to_tensor, empty_result,
                                               expand_probes,
+                                              new_ids_of,
                                               scan_probe_lists,
                                               subsample_trainset,
-                                              tensor_to_array,
-                                              validate_new_ids)
+                                              tensor_to_array)
 from raft_tpu_torch.random.rng import RngState
 
 _SUPPORTED = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
@@ -244,7 +245,9 @@ def _train_centers(params: IndexParams, x: torch.Tensor, n_lists: int,
 @auto_sync_handle
 def build(params: IndexParams, dataset, ids=None, *, handle=None,
           device=None, engine: Optional[str] = None) -> Index:
-    """Train and populate an IVF-Flat index (reference ``ivf_flat::build``).
+    """Train and populate an IVF-Flat index (reference ``ivf_flat::build``):
+    the balanced k-means and the assignment under one ``build.train``
+    span, the list layout under ``build.populate``.
     *dataset* is an (n, dim) float32 array or tensor; ``device=None`` runs
     on the card.  ``engine`` picks the kernels (``"cuda"``) or their plain
     versions (``"torch"``) for the E-steps; *handle* as
@@ -256,7 +259,12 @@ def build(params: IndexParams, dataset, ids=None, *, handle=None,
             f"ivf_flat: unsupported metric {params.metric}")
     n = x.shape[0]
     n_lists = min(params.n_lists, n)
-    centers = _train_centers(params, x.float(), n_lists, engine)
+    xf = x.float()
+    with telemetry.span("build.train"):
+        centers = _train_centers(params, xf, n_lists, engine)
+        labels = (_assign_lists(_queries_of(xf, params.metric), centers,
+                                params.metric, engine)
+                  if params.add_data_on_build else None)
     index = Index(centers=centers,
                   list_data=torch.zeros((1, 8, x.shape[1]), dtype=x.dtype,
                                         device=dev),
@@ -270,7 +278,7 @@ def build(params: IndexParams, dataset, ids=None, *, handle=None,
                   metric=params.metric,
                   adaptive_centers=params.adaptive_centers)
     if params.add_data_on_build:
-        index = extend(index, x, ids, engine=engine)
+        index = _append(index, x, new_ids_of(index, ids, n), labels)
     else:
         expects(ids is None, "ids were passed but add_data_on_build=False "
                 "stores no rows — pass them to extend() instead")
@@ -305,9 +313,8 @@ def build_sharded(params: IndexParams, dataset, comms, ids=None, *,
     def train():
         xf = x.float()
         centers = _train_centers(params, xf, n_lists, engine)
-        q = _normalize_rows(xf) if params.metric == \
-            DistanceType.CosineExpanded else xf
-        return centers, _assign_lists(q, centers, params.metric, engine)
+        return centers, _assign_lists(_queries_of(xf, params.metric),
+                                      centers, params.metric, engine)
 
     centers, labels = ann_mnmg.train_on_first(
         comms, [((n_lists, dim), torch.float32, dev),
@@ -344,37 +351,43 @@ def extend(index: Index, new_vectors, new_ids=None, *,
     """
     x = _ingest(new_vectors, index.device)
     expects(x.ndim == 2 and x.shape[1] == index.dim, "dim mismatch")
-    base = index.size
-    expects(base == 0 or x.dtype == index.list_data.dtype,
+    expects(index.size == 0 or x.dtype == index.list_data.dtype,
             f"extend type {x.dtype} != the index's storage type "
             f"{index.list_data.dtype}")
-    n = x.shape[0]
-    if new_ids is None:
-        ids = torch.arange(base, base + n, dtype=torch.int32,
-                           device=index.device)
-    else:
-        ids = torch.as_tensor(new_ids, device=index.device).to(torch.int32)
-        expects(ids.shape == (n,), "ids must be (n_new,)")
-        validate_new_ids(ids, index.list_indices, index.phys_sizes)
-    xf = x.float()
-    q = _normalize_rows(xf) if index.metric == DistanceType.CosineExpanded \
-        else xf
-    labels = _assign_lists(q, index.centers, index.metric, engine)
-    if base:
-        data, idx, phys_sizes, sizes, chunk_table, _ = extend_device(
-            index.list_data, index.list_indices, index.list_sizes,
-            index.chunk_table, x, ids, labels, in_place=in_place,
-            ladder=ladder)
-    else:
-        data, idx, phys_sizes, sizes, chunk_table, _ = pack_device(
-            x, ids, labels, index.n_lists, ladder)
-    centers = index.centers
-    if index.adaptive_centers:
-        sums = reduce_rows_by_key(xf, labels, index.n_lists)
-        n_old = index.list_sizes.to(centers.dtype)[:, None]
-        n_tot = torch.clamp_min(sizes.to(centers.dtype), 1)[:, None]
-        centers = torch.where(sizes[:, None] > 0,
-                              (centers * n_old + sums) / n_tot, centers)
+    ids = new_ids_of(index, new_ids, x.shape[0])
+    labels = _assign_lists(_queries_of(x.float(), index.metric),
+                           index.centers, index.metric, engine)
+    return _append(index, x, ids, labels, in_place, ladder)
+
+
+def _queries_of(xf: torch.Tensor, metric) -> torch.Tensor:
+    """Rows as the assignment ranks them (normalized for cosine)."""
+    return (_normalize_rows(xf) if metric == DistanceType.CosineExpanded
+            else xf)
+
+
+def _append(index: Index, x: torch.Tensor, ids: torch.Tensor,
+            labels: torch.Tensor, in_place: bool = False,
+            ladder: bool = False) -> Index:
+    """Lay assigned rows into *index*'s lists (one ``build.populate``
+    span): a fresh pack when the index is empty, else an append into
+    each list's free tail slots; adaptive centres move."""
+    with telemetry.span("build.populate"):
+        if index.size:
+            data, idx, phys_sizes, sizes, chunk_table, _ = extend_device(
+                index.list_data, index.list_indices, index.list_sizes,
+                index.chunk_table, x, ids, labels, in_place=in_place,
+                ladder=ladder)
+        else:
+            data, idx, phys_sizes, sizes, chunk_table, _ = pack_device(
+                x, ids, labels, index.n_lists, ladder)
+        centers = index.centers
+        if index.adaptive_centers:
+            sums = reduce_rows_by_key(x.float(), labels, index.n_lists)
+            n_old = index.list_sizes.to(centers.dtype)[:, None]
+            n_tot = torch.clamp_min(sizes.to(centers.dtype), 1)[:, None]
+            centers = torch.where(sizes[:, None] > 0,
+                                  (centers * n_old + sums) / n_tot, centers)
     return Index(centers=centers, list_data=data, list_indices=idx,
                  list_sizes=sizes, phys_sizes=phys_sizes,
                  chunk_table=chunk_table, metric=index.metric,
@@ -400,10 +413,13 @@ def _search_batch_impl(queries: torch.Tensor, index: Index, k: int,
                        n_probes: int, sqrt: bool, engine: str,
                        tombstones: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One query batch: coarse ranking → top-n_probes → probe scan (rows
-    whose id is set in *tombstones* masked in the scan)."""
-    cd = _coarse_distances(queries, index.centers, index.metric)
-    _, probe_ids = select_k(cd, n_probes, select_min=True, engine=engine)
+    """One query batch: coarse ranking → top-n_probes (one
+    ``ivf_flat.coarse`` span) → probe scan (rows whose id is set in
+    *tombstones* masked in the scan)."""
+    with telemetry.span("ivf_flat.coarse"):
+        cd = _coarse_distances(queries, index.centers, index.metric)
+        _, probe_ids = select_k(cd, n_probes, select_min=True,
+                                engine=engine)
     return _probe_search_impl(queries, probe_ids, index, k, sqrt, engine,
                               tombstones)
 
@@ -413,9 +429,10 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
                        tombstones: Optional[torch.Tensor] = None,
                        extra: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Score the probed lists of every query and keep the best k; *extra*
-    bounds the scan's steps as ``expand_probes`` does (None: the index's
-    continuation chunks)."""
+    """Score the probed lists of every query and keep the best k, under one
+    ``ivf_flat.scan`` span (never one a step); *extra* bounds the scan's
+    steps as ``expand_probes`` does (None: the index's continuation
+    chunks)."""
     metric = index.metric
     is_ip = metric == DistanceType.InnerProduct
     is_cos = metric == DistanceType.CosineExpanded
@@ -436,15 +453,15 @@ def _probe_search_impl(queries: torch.Tensor, probe_ids: torch.Tensor,
             return 1.0 - dots / torch.sqrt(torch.clamp_min(xn, 1e-30))
         return q_sq + xn - 2.0 * dots
 
-    phys = expand_probes(probe_ids, index.chunk_table,
-                         index.list_data.shape[0], extra=extra)
-    best_d, best_i = scan_probe_lists(phys, score_tile, index.list_indices,
-                                      index.phys_sizes, k,
-                                      select_min=not is_ip,
-                                      dtype=torch.float32, engine=engine,
-                                      tombstones=tombstones)
-    if sqrt:
-        best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
+    with telemetry.span("ivf_flat.scan"):
+        phys = expand_probes(probe_ids, index.chunk_table,
+                             index.list_data.shape[0], extra=extra)
+        best_d, best_i = scan_probe_lists(
+            phys, score_tile, index.list_indices, index.phys_sizes, k,
+            select_min=not is_ip, dtype=torch.float32, engine=engine,
+            tombstones=tombstones)
+        if sqrt:
+            best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
 
 

@@ -61,6 +61,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import telemetry
 from raft_tpu_torch.analysis.registry import audit_program
 from raft_tpu_torch.cluster.kmeans import (centroids_from_sums,
                                            fused_em_step_batched)
@@ -80,9 +81,8 @@ from raft_tpu_torch.neighbors._build import (DEFAULT_TILE_ROWS,
                                              run_tiles)
 from raft_tpu_torch.neighbors._common import (_SCAN_STACK_MIN_K,
                                               empty_result, expand_probes,
-                                              scan_probe_lists,
-                                              subsample_trainset,
-                                              validate_new_ids)
+                                              new_ids_of, scan_probe_lists,
+                                              subsample_trainset)
 from raft_tpu_torch.neighbors.ivf_flat import (_assign_lists,
                                                _coarse_distances)
 from raft_tpu_torch.random.rng import RngState
@@ -512,8 +512,9 @@ def _sample_rows(n: int, size: int, seed: int) -> np.ndarray:
 
 def _train_model(params: IndexParams, x: torch.Tensor,
                  engine: Optional[str]):
-    """Coarse quantizer, assignment, rotation, codebooks.  Returns
-    (centers, labels, rotation, codebooks)."""
+    """Coarse quantizer and assignment (span ``build.train``), rotation
+    and codebooks (``build.codebooks``).  Returns (centers, labels,
+    rotation, codebooks)."""
     n, dim = x.shape
     dev = x.device
     n_lists = min(params.n_lists, n)
@@ -528,42 +529,46 @@ def _train_model(params: IndexParams, x: torch.Tensor,
     # subsequence 0 of the seed is the coarse trainer's
     rng = RngState(params.seed, base_subsequence=1)
 
-    train = subsample_trainset(x, params.kmeans_trainset_fraction, n_lists,
-                               params.seed)
-    centers = build_hierarchical(RngState(params.seed), train, n_lists,
-                                 params.kmeans_n_iters, engine=engine)
-    del train
-    # the lists must agree with how search ranks probes: max-dot for
-    # inner product, else min-L2 (kernel B1)
-    labels = _assign_lists(x, centers, params.metric, engine)
+    with telemetry.span("build.train"):
+        train = subsample_trainset(x, params.kmeans_trainset_fraction,
+                                   n_lists, params.seed)
+        centers = build_hierarchical(RngState(params.seed), train, n_lists,
+                                     params.kmeans_n_iters, engine=engine)
+        del train
+        # the lists must agree with how search ranks probes: max-dot for
+        # inner product, else min-L2 (kernel B1)
+        labels = _assign_lists(x, centers, params.metric, engine)
 
-    if rotation_kind == "pca_balanced":
-        sel = torch.as_tensor(_sample_rows(n, min(n, _PCA_SAMPLE),
-                                           params.seed + 7), device=dev)
-        resid = (x[sel] - centers[labels[sel].long()]).cpu().numpy()
-        rotation = torch.as_tensor(_pca_balanced_rotation(resid, pq_dim))
-    else:
-        rotation = _make_rotation(rng.next_generator(), dim, rot_dim,
-                                  params.force_random_rotation
-                                  or rot_dim != dim)
-    rotation = rotation.to(dev)
+    with telemetry.span("build.codebooks"):
+        if rotation_kind == "pca_balanced":
+            sel = torch.as_tensor(_sample_rows(n, min(n, _PCA_SAMPLE),
+                                               params.seed + 7), device=dev)
+            resid = (x[sel] - centers[labels[sel].long()]).cpu().numpy()
+            rotation = torch.as_tensor(_pca_balanced_rotation(resid, pq_dim))
+        else:
+            rotation = _make_rotation(rng.next_generator(), dim, rot_dim,
+                                      params.force_random_rotation
+                                      or rot_dim != dim)
+        rotation = rotation.to(dev)
 
-    cap_t = max(int(params.pq_trainset_cap), k)
-    if n > cap_t:
-        sel_t = torch.as_tensor(_sample_rows(n, cap_t, params.seed + 13),
-                                device=dev)
-        x_t, lab_t = x[sel_t], labels[sel_t]
-    else:
-        x_t, lab_t = x, labels
-    resid_t = (x_t - centers[lab_t.long()]) @ rotation
-    if CodebookKind(int(params.codebook_kind)) == CodebookKind.PER_CLUSTER:
-        codebooks = _train_codebooks_cluster(
-            rng.next_generator(), resid_t, lab_t, n_lists, pq_dim, k,
-            params.kmeans_n_iters, engine)
-    else:
-        codebooks = _train_codebooks_subspace(
-            rng.next_generator(), resid_t, pq_dim, k, params.kmeans_n_iters,
-            engine)
+        cap_t = max(int(params.pq_trainset_cap), k)
+        if n > cap_t:
+            sel_t = torch.as_tensor(_sample_rows(n, cap_t,
+                                                 params.seed + 13),
+                                    device=dev)
+            x_t, lab_t = x[sel_t], labels[sel_t]
+        else:
+            x_t, lab_t = x, labels
+        resid_t = (x_t - centers[lab_t.long()]) @ rotation
+        if CodebookKind(int(params.codebook_kind)) == \
+                CodebookKind.PER_CLUSTER:
+            codebooks = _train_codebooks_cluster(
+                rng.next_generator(), resid_t, lab_t, n_lists, pq_dim, k,
+                params.kmeans_n_iters, engine)
+        else:
+            codebooks = _train_codebooks_subspace(
+                rng.next_generator(), resid_t, pq_dim, k,
+                params.kmeans_n_iters, engine)
     return centers, labels, rotation, codebooks
 
 
@@ -666,28 +671,24 @@ def build(params: IndexParams, dataset, ids=None, *,
 def _populate(index: Index, x: torch.Tensor, ids, labels: torch.Tensor,
               in_place: bool = False, ladder: bool = False,
               tile_rows: Optional[int] = None) -> Index:
-    """Encode *x*'s rows under *index*'s model and pack them into its lists:
-    a fresh pack when the index is empty, else an append."""
-    n = x.shape[0]
-    dev = index.device
+    """Encode *x*'s rows under *index*'s model (span ``build.encode``) and
+    pack them into its lists (``build.populate``): a fresh pack when the
+    index is empty, else an append."""
     base = index.size
-    if ids is None:
-        ids = torch.arange(base, base + n, dtype=torch.int32, device=dev)
-    else:
-        ids = torch.as_tensor(ids, device=dev).to(torch.int32)
-        expects(ids.shape == (n,), "ids must be (n_new,)")
-        validate_new_ids(ids, index.list_indices, index.phys_sizes)
-    packed, csum = _encode_rows(index, x, labels, tile_rows)
-    if base:
-        ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
-         chunk_table, owner) = extend_device(
-            (index.list_codes, index.list_csum), index.list_indices,
-            index.list_sizes, index.chunk_table, (packed, csum), ids, labels,
-            in_place=in_place, ladder=ladder)
-    else:
-        ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
-         chunk_table, owner) = pack_device((packed, csum), ids, labels,
-                                           index.n_lists, ladder)
+    ids = new_ids_of(index, ids, x.shape[0])
+    with telemetry.span("build.encode"):
+        packed, csum = _encode_rows(index, x, labels, tile_rows)
+    with telemetry.span("build.populate"):
+        if base:
+            ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
+             chunk_table, owner) = extend_device(
+                (index.list_codes, index.list_csum), index.list_indices,
+                index.list_sizes, index.chunk_table, (packed, csum), ids,
+                labels, in_place=in_place, ladder=ladder)
+        else:
+            ((list_codes, list_csum), list_indices, phys_sizes, list_sizes,
+             chunk_table, owner) = pack_device((packed, csum), ids, labels,
+                                               index.n_lists, ladder)
     # the trained model is untouched, so the list-side ADC table carries
     # over as it is
     return Index(centers=index.centers, rotation=index.rotation,
@@ -888,39 +889,25 @@ def scan_inputs(q: torch.Tensor, probe_ids: torch.Tensor,
         scale=scale if lut_dtype_name == "float8_e4m3" else None)
 
 
-def _scan_hoisted(q: torch.Tensor, probe_ids: torch.Tensor,
-                  rot_q: torch.Tensor, index: Index, k: int,
-                  lut_dtype_name: str, engine: str, lut_engine: str,
-                  tombstones: Optional[torch.Tensor] = None, *,
-                  acc: int = ivf_pq_lut.SUM_FLOAT32,
-                  extra: Optional[int] = None):
-    """Hoisted-ADC probe scan: one LUT stage for the batch
-    (:func:`scan_inputs`), then the scan of every query's physical rows.
-
-    For ``k <= MAX_K`` (kernel B2's limit) the scan is kernel B4's scan
-    mode — one launch for the batch, each step's best ``min(k, cap)`` — or
-    its plain twin, then one select over the steps' winners.  Wider k
-    takes the per-step path (:func:`_scan_per_step`); both give the same
+def _scan_steps(inp: ScanInputs, index: Index, k: int, select_min: bool,
+                lut_engine: str, tombstones: Optional[torch.Tensor] = None,
+                *, acc: int = ivf_pq_lut.SUM_FLOAT32):
+    """The hoisted-ADC probe scan in kernel B4's scan mode (or its plain
+    twin): one launch for the batch, each step's best ``min(k, cap)`` as
+    (values, slots), each (nq, S, kk); :func:`_select_scanned` keeps the
+    best k of them.  Only for ``k <= MAX_K`` (kernel B2's limit): wider k
+    takes the per-step path (:func:`_scan_per_step`), which gives the same
     result in the same tie order.  Rows whose id is set in *tombstones*
     are dead inside the scan; *acc* types the lookup's sum
     (``ivf_pq_lut``)."""
-    from raft_tpu_torch.kernels.select_k import MAX_K
-
-    inp = scan_inputs(q, probe_ids, rot_q, index, lut_dtype_name, extra)
-    select_min = index.metric != DistanceType.InnerProduct
-    if k > MAX_K:
-        return _scan_per_step(inp, index, k, select_min, engine, lut_engine,
-                              tombstones, acc=acc)
     kcb = index.codebooks.shape[1]
     scan = (ivf_pq_lut.lut_scan_topk if lut_engine == "cuda"
             else ivf_pq_lut.lut_scan_topk_plain)
     mask = () if tombstones is None else (index.list_indices, tombstones)
-    vals, slots = scan(index.list_codes, inp.phys, index.phys_sizes,
-                       inp.tables, inp.ords, inp.base, inp.csum, inp.scale,
-                       index.pq_dim, index.pq_bits, kcb,
-                       min(k, index.capacity), select_min, *mask, acc=acc)
-    return _select_scanned(vals, slots, inp.phys, index.list_indices, k,
-                           select_min, engine)
+    return scan(index.list_codes, inp.phys, index.phys_sizes, inp.tables,
+                inp.ords, inp.base, inp.csum, inp.scale, index.pq_dim,
+                index.pq_bits, kcb, min(k, index.capacity), select_min,
+                *mask, acc=acc)
 
 
 def _lookup(index: Index, rows: torch.Tensor, lut: torch.Tensor,
@@ -1081,19 +1068,46 @@ def _search_batch_impl(q: torch.Tensor, probe_ids: torch.Tensor,
                        extra: Optional[int] = None):
     """Score the probed lists of one query batch and keep the best k (the
     L2Sqrt root taken only with *sqrt*: a caller that merges squared
-    distances takes it after the merge): the hoisted scan, or with
-    ``hoisted=False`` the legacy one; *int_dtype* is the
+    distances takes it after the merge).
+
+    Three stages, each under one span: ``ivf_pq.lut`` (the query rotation
+    and, hoisted, :func:`scan_inputs`), ``ivf_pq.scan`` (B4's scan mode
+    for ``k <= MAX_K``, else the per-step path; with ``hoisted=False`` the
+    legacy scan) and ``ivf_pq.select`` (the select over scan mode's
+    per-step winners, and the root).  *int_dtype* is the
     ``internal_distance_dtype`` (ignored by fp8 LUTs, which sum in
     float32) and *extra* the scan's step bound (``expand_probes``)."""
-    rot_q = _dot_fixed_rows(q, index.rotation.T)          # (nq, rot_dim)
+    from raft_tpu_torch.kernels.select_k import MAX_K
+
+    engine, lut_engine = engines
     on_hoisted, on_legacy = _INTERNAL_DTYPES[int_dtype]
     acc = (ivf_pq_lut.SUM_FLOAT32 if lut_dtype_name == "float8_e4m3"
            else on_hoisted if hoisted else on_legacy)
-    scan = _scan_hoisted if hoisted else _scan_legacy
-    best_d, best_i = scan(q, probe_ids, rot_q, index, k, lut_dtype_name,
-                          *engines, tombstones, acc=acc, extra=extra)
-    if sqrt and index.metric == DistanceType.L2SqrtExpanded:
-        best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
+    select_min = index.metric != DistanceType.InnerProduct
+    with telemetry.span("ivf_pq.lut"):
+        rot_q = _dot_fixed_rows(q, index.rotation.T)      # (nq, rot_dim)
+        inp = (scan_inputs(q, probe_ids, rot_q, index, lut_dtype_name,
+                           extra) if hoisted else None)
+    steps = None
+    with telemetry.span("ivf_pq.scan"):
+        if not hoisted:
+            best_d, best_i = _scan_legacy(
+                q, probe_ids, rot_q, index, k, lut_dtype_name, engine,
+                lut_engine, tombstones, acc=acc, extra=extra)
+        elif k > MAX_K:
+            best_d, best_i = _scan_per_step(inp, index, k, select_min,
+                                            engine, lut_engine, tombstones,
+                                            acc=acc)
+        else:
+            steps = _scan_steps(inp, index, k, select_min, lut_engine,
+                                tombstones, acc=acc)
+    with telemetry.span("ivf_pq.select"):
+        if steps is not None:
+            best_d, best_i = _select_scanned(*steps, inp.phys,
+                                             index.list_indices, k,
+                                             select_min, engine)
+        if sqrt and index.metric == DistanceType.L2SqrtExpanded:
+            best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
 
 
@@ -1109,9 +1123,12 @@ _search_batch_aot = aot(_search_batch_impl, static_argnums=(3, 4, 5))
 def coarse_probes(queries: torch.Tensor, index: Index, n_probes: int,
                   engine: str) -> torch.Tensor:
     """Each query's n_probes nearest lists (coarse GEMM, kernel B2) — the
-    ranking every serving path of the family shares."""
-    coarse = _coarse_distances(queries, index.centers, index.metric)
-    _, probes = select_k(coarse, n_probes, select_min=True, engine=engine)
+    ranking every serving path of the family shares; one
+    ``ivf_pq.coarse`` span."""
+    with telemetry.span("ivf_pq.coarse"):
+        coarse = _coarse_distances(queries, index.centers, index.metric)
+        _, probes = select_k(coarse, n_probes, select_min=True,
+                             engine=engine)
     return probes
 
 

@@ -55,7 +55,10 @@ routing :1539-1615).
   bounded and idempotent.
 * **Telemetry** — ``serve.*`` spans (host wall time only, no device
   synchronisation), a per-engine latency histogram
-  (:meth:`ServeEngine.latency_quantiles`), ``stats`` as a registry-backed
+  (:meth:`ServeEngine.latency_quantiles`), each submitted request's wait
+  in the queue (``raft_tpu_serve_queue_wait_seconds{engine}``, and a
+  ``serve.hold`` span while the scheduler holds work back for a fuller
+  bucket), ``stats`` as a registry-backed
   counter view, per-dispatch host time into
   ``raft_tpu_aot_dispatch_seconds{fn,sig}`` (``sig`` =
   ``"{type}[bucket,dim]"``) and sampled device time (CUDA events on the
@@ -810,6 +813,12 @@ class ServeEngine:
             "raft_tpu_serve_request_latency_seconds",
             "per-request completion latency within one search() call",
             labelnames=("engine",), reservoir=LATENCY_RESERVOIR)
+        #: per-request wait in the submit() queue: from submit() to the
+        #: moment the scheduler thread or flush() takes the request out
+        self.queue_wait_hist: telemetry.Histogram = telemetry.histogram(
+            "raft_tpu_serve_queue_wait_seconds",
+            "per-request wait in the submit() queue",
+            labelnames=("engine",))
         self._last_latencies: List[float] = []
 
     @property
@@ -1329,7 +1338,9 @@ class ServeEngine:
         ``search()`` call when they fill the largest warmed bucket, when
         the oldest has waited one quantum, or when waiting longer would
         jeopardize an admitted deadline; otherwise it waits one quantum
-        (``stats["sched_dispatches"]`` / ``stats["sched_waits"]``).  A
+        (``stats["sched_dispatches"]`` / ``stats["sched_waits"]``, the
+        wait under a ``serve.hold`` span).  Each request's time in the
+        queue goes to ``raft_tpu_serve_queue_wait_seconds{engine}``.  A
         scheduler thread that dies fails the pending futures with its
         error; the next ``submit()`` starts a new one."""
         expects(self._sched_cfg is not None,
@@ -1366,6 +1377,12 @@ class ServeEngine:
                 f.set_exception(exc)
 
     def _serve_pending(self, batch) -> None:
+        """Serve envelopes just taken out of the submit() queue, after
+        recording each one's wait there."""
+        taken = telemetry.now()
+        eng = (self._engine_id,)
+        for _r, _f, t_submit in batch:
+            self.queue_wait_hist.observe(taken - t_submit, eng)
         try:
             outs = self.search([r for r, _f, _t in batch])
         except Exception as e:   # engine-level (e.g. closed)
@@ -1426,7 +1443,8 @@ class ServeEngine:
                     else:
                         # wait one quantum to fill a larger bucket
                         self.stats.inc("sched_waits")
-                        self._pending_cv.wait(timeout=cfg.quantum_s)
+                        with telemetry.span("serve.hold"):
+                            self._pending_cv.wait(timeout=cfg.quantum_s)
                         continue
                 self._serve_pending(batch)
         except Exception as e:

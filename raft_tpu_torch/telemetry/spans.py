@@ -2,12 +2,17 @@
 
 A span is a nested host-side wall-time range that does three things:
 
-* records its wall time into ``raft_tpu_span_seconds{span=<name>}`` and
-  bumps ``raft_tpu_span_total{span=<name>}``;
-* while a ``torch.profiler`` trace is running, opens a
-  ``torch.profiler.record_function`` range of the same name, so the
-  ``serve.*`` spans show up in the trace beside the kernels (the
-  reference emits ``jax.profiler.TraceAnnotation`` there);
+* records its wall time into ``raft_tpu_span_seconds{span=<name>}``
+  (whose count, exported as ``_count``, counts the completed spans);
+* while a ``torch.profiler`` trace is running, on whichever thread,
+  opens a ``torch.profiler.record_function`` range of the same name, so
+  the spans show up in the trace beside the kernels (the reference emits
+  ``jax.profiler.TraceAnnotation`` there).  The gate is the profiler's
+  process-wide flag: the thread-local ``torch.autograd._profiler_enabled``
+  reads False on every thread but the one that started the profiler, so
+  the serving engine's scheduler thread would record nothing even under
+  a profiler of all threads (``profile_all_threads=True``; a profiler of
+  one thread drops the other threads' ranges);
 * optionally appends one JSON line per completed span to the opt-in JSONL
   sink (:func:`set_jsonl_sink`) and to an open :class:`collect_spans`.
 
@@ -17,9 +22,9 @@ two ``perf_counter`` reads, a list push/pop and one histogram
 observation.  With telemetry disabled (``RAFT_TPU_TELEMETRY=0``)
 :func:`span` returns a shared no-op context manager.
 
-``record_function`` is resolved ONCE at first use and cached, and it is
-entered only while a profiler is active, so an untraced span never calls
-into PyTorch's dispatcher.
+``record_function`` and the profiler's module are resolved ONCE at first
+use and cached; the range is entered only while a profiler is active, so
+an untraced span never calls into PyTorch.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ now = time.perf_counter
 
 # -- cached profiler import
 _PROFILER_RANGE = None
-_PROFILER_ACTIVE = None
+#: ``torch.autograd.profiler``, whose ``_is_profiler_enabled`` is set by
+#: every profiler start and stop, for all threads
+_PROFILER_MODULE = None
 _PROFILER_TRIED = False
 
 
@@ -45,18 +52,19 @@ def _trace_annotation_cls():
     """``torch.profiler.record_function`` or None, resolved once per
     process; None also while no profiler is running (the range would
     record nothing)."""
-    global _PROFILER_RANGE, _PROFILER_ACTIVE, _PROFILER_TRIED
+    global _PROFILER_RANGE, _PROFILER_MODULE, _PROFILER_TRIED
     if not _PROFILER_TRIED:
         _PROFILER_TRIED = True
         try:
-            import torch.autograd
+            import torch.autograd.profiler as profiler_module
             from torch.profiler import record_function
 
             _PROFILER_RANGE = record_function
-            _PROFILER_ACTIVE = torch.autograd._profiler_enabled
+            _PROFILER_MODULE = profiler_module
         except Exception:  # pragma: no cover - profiler unavailable
             _PROFILER_RANGE = None
-    if _PROFILER_RANGE is None or not _PROFILER_ACTIVE():
+    if (_PROFILER_RANGE is None
+            or not _PROFILER_MODULE._is_profiler_enabled):
         return None
     return _PROFILER_RANGE
 
@@ -147,19 +155,15 @@ def _emit_event(event: dict) -> None:
 # -- the span metrics (created lazily so import stays cheap) -----------------
 
 _span_seconds = None
-_span_total = None
 
 
 def _metrics():
-    global _span_seconds, _span_total
+    global _span_seconds
     if _span_seconds is None:
         _span_seconds = _registry.REGISTRY.histogram(
             "raft_tpu_span_seconds", "wall time of host-side spans",
             labelnames=("span",))
-        _span_total = _registry.REGISTRY.counter(
-            "raft_tpu_span_total", "completed host-side spans",
-            labelnames=("span",))
-    return _span_seconds, _span_total
+    return _span_seconds
 
 
 class Span:
@@ -214,9 +218,7 @@ class Span:
                 self._ann.__exit__(exc_type, exc, tb)
             except Exception:  # pragma: no cover - profiler teardown
                 pass
-        hist, total = _metrics()
-        hist.observe(dur, (self.name,))
-        total.inc(1, (self.name,))
+        _metrics().observe(dur, (self.name,))
         collect = getattr(_TLS, "collect", None)
         if _SINK is not None or collect is not None:
             event = {

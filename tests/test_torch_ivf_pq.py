@@ -339,10 +339,11 @@ def test_fused_scan_equals_per_step_scan(jax_index, metric, lut_dtype, k):
         _, probes = select_k(coarse, 6, select_min=True, engine="torch")
         rot_q = _dot_fixed_rows(qs, tidx.rotation.T)
         inp = tpq.scan_inputs(qs, probes, rot_q, tidx, lut_dtype)
-        out = [tpq._scan_hoisted(qs, probes, rot_q, tidx, k, lut_dtype,
-                                 "torch", "torch"),
-               tpq._scan_per_step(inp, tidx, k,
-                                  metric != "InnerProduct", "torch",
+        select_min = metric != "InnerProduct"
+        steps = tpq._scan_steps(inp, tidx, k, select_min, "torch")
+        out = [tpq._select_scanned(*steps, inp.phys, tidx.list_indices, k,
+                                   select_min, "torch"),
+               tpq._scan_per_step(inp, tidx, k, select_min, "torch",
                                   "torch")]
         assert torch.equal(out[0][0], out[1][0])
         assert torch.equal(out[0][1], out[1][1])

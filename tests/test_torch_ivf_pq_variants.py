@@ -376,8 +376,9 @@ def test_per_cluster_fused_scan_equals_per_step(jax_index, lut_dtype, acc,
         rot_q = _dot_fixed_rows(qs, tidx.rotation.T)
         inp = tpq.scan_inputs(qs, probes, rot_q, tidx, lut_dtype)
         assert inp.ords is not None and inp.tables.shape[1] == 6
-        out = [tpq._scan_hoisted(qs, probes, rot_q, tidx, k, lut_dtype,
-                                 "torch", "torch", acc=acc),
+        steps = tpq._scan_steps(inp, tidx, k, True, "torch", acc=acc)
+        out = [tpq._select_scanned(*steps, inp.phys, tidx.list_indices, k,
+                                   True, "torch"),
                tpq._scan_per_step(inp, tidx, k, True, "torch", "torch",
                                   acc=acc)]
         assert torch.equal(out[0][0], out[1][0])

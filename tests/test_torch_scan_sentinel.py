@@ -109,8 +109,9 @@ def test_overflowing_queries_scan_mode_equals_per_step(index, k):
     _, probes = select_k(coarse, N_PROBES, select_min=True, engine="torch")
     rot_q = _dot_fixed_rows(qs, tidx.rotation.T)
     inp = tpq.scan_inputs(qs, probes, rot_q, tidx, "float32")
-    fused = tpq._scan_hoisted(qs, probes, rot_q, tidx, k, "float32",
-                              "torch", "torch")
+    fused = tpq._select_scanned(*tpq._scan_steps(inp, tidx, k, True, "torch"),
+                                inp.phys, tidx.list_indices, k, True,
+                                "torch")
     per_step = tpq._scan_per_step(inp, tidx, k, True, "torch", "torch")
     assert torch.equal(fused[0], per_step[0])
     assert torch.equal(fused[1], per_step[1])

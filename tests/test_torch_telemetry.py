@@ -143,16 +143,16 @@ class TestSpans:
         assert ttel.current_span() is None
 
     def test_exception_safety(self, enabled):
-        before = ttel.REGISTRY.counter(
-            "raft_tpu_span_total", labelnames=("span",)).get(("t.boom",))
+        before = ttel.REGISTRY.histogram(
+            "raft_tpu_span_seconds", labelnames=("span",)).count(("t.boom",))
         with pytest.raises(ValueError):
             with ttel.collect_spans() as col:
                 with ttel.span("t.boom"):
                     raise ValueError("x")
         assert col.events[0]["error"] is True
         assert ttel.current_span() is None
-        after = ttel.REGISTRY.counter(
-            "raft_tpu_span_total", labelnames=("span",)).get(("t.boom",))
+        after = ttel.REGISTRY.histogram(
+            "raft_tpu_span_seconds", labelnames=("span",)).count(("t.boom",))
         assert after == before + 1
 
     def test_profiler_range_only_while_tracing(self, enabled, monkeypatch):
@@ -245,7 +245,8 @@ def test_engine_latency_stats_and_dispatch_telemetry(served):
     assert any(k.startswith(f"fn={fn},sig=float32[")
                for k in snap["raft_tpu_aot_dispatch_seconds"]["values"])
     assert f"fn={fn}" in snap["raft_tpu_device_seconds"]["values"]
-    assert snap["raft_tpu_span_total"]["values"]["span=serve.deliver"] >= 1
+    assert snap["raft_tpu_span_seconds"]["values"][
+        "span=serve.deliver"]["count"] >= 1
 
 
 def test_scrape_surface(served):
